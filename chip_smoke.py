@@ -1,0 +1,433 @@
+"""Chip smoke test of the PyTorch + CUDA port (``src/repro_torch``).
+
+  python3 chip_smoke.py
+
+Needs one CUDA card; exits non-zero (printing no result) without one, or
+when the port's sources are not beside this file.  Phases:
+
+  1. environment: card name and power limit, torch/CUDA versions, the
+     float32 precision flags; build the CUDA kernels from the sources
+     (one ``load`` call, timed);
+  2. kernels at the serving path's shapes: each CUDA kernel against its
+     plain PyTorch version on the same inputs (row race: exact; attention:
+     max abs error <= 1e-4), timed with CUDA events (median of 25 samples
+     of 10 back-to-back calls, after warm-up) beside its plain version,
+     one PyTorch library call as a yardstick the port never calls, and
+     the bound (bytes over 3.35 TB/s or float32 operations over
+     67 TFLOP/s, whichever is larger);
+  2b. reference: the cached kernel path (flash prefill, kernel decode)
+     against one dense causal forward at full width, logits within 1e-3;
+  3. serve: smollm-360m at its published widths (32-layer target, 4-layer
+     drafter of the same widths, float32, weights drawn from the seed),
+     4 slots x 8 drafts x 4 draft tokens, GLS with the kernel verifier and
+     both attention kernels, 8 requests with prompts of 16-300 tokens
+     (one past the largest admission bucket), 64 new tokens each; checks
+     completion, token range, the host's waits on the card (none while a
+     round or an admission is queued, one per round in the packed fetch)
+     and that every kernel's launch count grew during the run;
+  4. self-draft: drafter = target; with p = q the GLS coupling accepts
+     every draft up to float near-ties, so the mean acceptance per round
+     must reach 0.9 * L -- the end-to-end correctness check at full width.
+
+The line before the last is a JSON object ``{"kernels": [...]}``; the
+last line is ``{"ok": true, "device": {...}}``.  Every phase failure is
+an exception, so the script exits non-zero after any failure.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "src")
+
+# Published H100 SXM peaks: HBM rate and the
+# float32 rate outside the tensor cores (the port keeps f32 "highest").
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+S_SLOTS, K_DRAFTS, L_DRAFT = 4, 8, 4
+N_REQUESTS, MAX_NEW = 8, 64
+PROMPT_MIN, PROMPT_MAX = 16, 300
+SEED = 0
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, samples: int = 25, batch: int = 10, warmup: int = 3):
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(batch):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / batch)
+    return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels at the slice's shapes
+# ---------------------------------------------------------------------------
+
+
+def kernel_race(torch, dev, vocab: int):
+    from repro_torch.kernels.gls_race.ops import gls_row_race
+    from repro_torch.kernels.gls_race.ref import gls_row_race_plain
+    from repro_torch.specdec.engine import probs_from_logits
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    b, k, n = S_SLOTS * (L_DRAFT + 1), K_DRAFTS, vocab
+    u = torch.rand((b, k, n), generator=g, device=dev).clamp_min(1e-30)
+    log_s = torch.log(-torch.log(u))
+    q = probs_from_logits(torch.randn((b, k, n), generator=g, device=dev),
+                          1.0, 50, n)
+    log_q = torch.where(q > 0, torch.log(q.clamp_min(1e-30)),
+                        torch.tensor(float("-inf"), device=dev))
+    # Exact ties (the lower index must win), a +inf log_q (dead under the
+    # isfinite mask however small its score) and an all-dead row.
+    log_s[0, 0, :5] = -40.0
+    log_q[0, 0, :5] = 0.0
+    log_s[1, 0, [300, 100, 200]] = -40.0
+    log_q[1, 0, [300, 100, 200]] = 0.0
+    log_s[2, 0, 7] = -100.0
+    log_q[2, 0, 7] = float("inf")
+    log_q[3, 0] = float("-inf")
+    rmin_k, rarg_k = gls_row_race(log_s, log_q)
+    rmin_p, rarg_p = gls_row_race_plain(log_s, log_q)
+    # The scalar-load path of the kernel (a row length not divisible by 4).
+    odd_s, odd_q = log_s[..., 1:].contiguous(), log_q[..., 1:].contiguous()
+    odd_k, odd_p = gls_row_race(odd_s, odd_q), gls_row_race_plain(odd_s,
+                                                                  odd_q)
+    torch.cuda.synchronize()
+    assert torch.equal(rarg_k, rarg_p), "gls_row_race argmin != plain"
+    assert torch.equal(rmin_k, rmin_p), "gls_row_race min != plain"
+    assert int(rarg_k[0, 0]) == 0 and int(rarg_k[1, 0]) == 100
+    assert int(rarg_k[3, 0]) == 0 and float(rmin_k[3, 0]) == float("inf")
+    assert torch.equal(odd_k[0], odd_p[0]) and torch.equal(odd_k[1],
+                                                           odd_p[1])
+    err = float((rmin_k - rmin_p).abs().nan_to_num(0.0).max())
+    score = torch.where(torch.isfinite(log_q), log_s - log_q,
+                        torch.tensor(float("inf"), device=dev))
+    nbytes = 2 * b * k * n * 4 + b * k * 8
+    t_bound, by = bound(nbytes, 3 * b * k * n)
+    return {
+        "name": "gls_row_race", "route": "cuda",
+        "source": "src/repro_torch/kernels/gls_race/row_race.cu",
+        "replaces": "src/repro/kernels/gls_race/kernel.py:236",
+        "shape": f"log_s/log_q ({b}, {k}, {n}) f32",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: gls_row_race(log_s, log_q)),
+        "plain_ms": time_ms(lambda: gls_row_race_plain(log_s, log_q)),
+        "library_ms": time_ms(lambda: torch.min(score, dim=-1)),
+        "library": "torch.min(score, -1) on a precomputed score",
+        "bound_ms": t_bound, "bound_by": by,
+    }
+
+
+def kernel_decode(torch, dev, cfg, t: int):
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_plain)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
+        cfg.resolved_head_dim
+    q = torch.randn((b, h, d), generator=g, device=dev)
+    k = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    v = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    kv_len = torch.randint(1, t + 1, (b,), generator=g, device=dev,
+                           dtype=torch.int32)
+    kv_len[0] = 0          # a fully masked row: zeros on both routes
+    kv_len[1] = t
+    out_k = decode_attention(q, k, v, kv_len)
+    out_p = decode_attention_plain(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    assert err <= 1e-4, f"decode_attention max abs err {err}"
+    assert bool((out_k[0] == 0).all()), "kv_len == 0 row is not zero"
+    lib_len = kv_len.clamp_min(1)
+    mask = (torch.arange(t, device=dev)[None, :]
+            < lib_len[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    keys = float(kv_len.sum())
+    nbytes = 4 * (2 * b * h * d + 2 * hkv * keys * d + b)
+    t_bound, by = bound(nbytes, h * keys * (4 * d + 4))
+    return {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/"
+                  "decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:83",
+        "shape": f"q ({b}, {h}, {d}), k/v ({b}, {hkv}, {t}, {d}) f32",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: decode_attention(q, k, v, kv_len)),
+        "plain_ms": time_ms(lambda: decode_attention_plain(q, k, v, kv_len)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k, v, attn_mask=mask, enable_gqa=True)),
+        "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa)",
+        "bound_ms": t_bound, "bound_by": by,
+    }
+
+
+def kernel_flash(torch, dev, cfg, s: int, t: int):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+    b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
+        cfg.resolved_head_dim
+    q = torch.randn((b, h, s, d), generator=g, device=dev)
+    k = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    v = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    # Arena rows: first chunks (offset 0), second chunks at offset s, and
+    # bucket tails running past T (kv_len = offset + s > T).
+    q_off = torch.zeros(b, dtype=torch.int32, device=dev)
+    q_off[b // 2:] = s
+    kv_len = q_off + s
+    out_k = flash_attention(q, k, v, q_off, kv_len)
+    out_p = flash_attention_plain(q, k, v, q_off, kv_len)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    assert err <= 1e-4, f"flash_attention max abs err {err}"
+    k_pos = torch.arange(t, device=dev)
+    q_pos = q_off[:, None].long() + torch.arange(s, device=dev)
+    mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
+            & (k_pos[None, None, :] < kv_len[:, None, None].long()))
+    pairs = float(mask.sum()) * h
+    keys = float(torch.clamp(kv_len.long(), max=t).sum())
+    nbytes = 4 * (2 * b * h * s * d + 2 * hkv * keys * d + 2 * b)
+    t_bound, by = bound(nbytes, pairs * (4 * d + 4))
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:106",
+        "shape": f"q ({b}, {h}, {s}, {d}), k/v ({b}, {hkv}, {t}, {d}) f32",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: flash_attention(q, k, v, q_off, kv_len)),
+        "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, q_off,
+                                                          kv_len)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask[:, None], enable_gqa=True)),
+        "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa)",
+        "bound_ms": t_bound, "bound_by": by,
+    }
+
+
+def phase_reference(torch, dev, target):
+    """The cached kernel path against a plain forward at full width: two
+    99-token prompts prefilled through ``prefill_slots`` (flash kernel)
+    and one token decoded through ``decode_step_slots`` (decode kernel)
+    must give the logits of one dense causal pass over all 100 tokens
+    on a fresh cache (``verify_step_slots`` at position 0: no kernel, no
+    cache reuse).  Tolerance 1e-3 absolute on logits of magnitude ~1:
+    float32 summation order over 32 layers; TF32 matmuls (10-bit
+    mantissa) would miss it by an order of magnitude."""
+    from repro_torch.models import (decode_step_slots, init_cache,
+                                    prefill_slots, verify_step_slots)
+    params, cfg = target
+    toks = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32)).to(dev)
+    cache = init_cache(cfg, 2, 128, dev)
+    prefill_slots(params, cfg, toks[:, :99], cache, np.zeros(2, np.int64),
+                  use_kernel=True)
+    got = decode_step_slots(params, cfg, toks[:, 99:], cache,
+                            torch.full((2,), 99, device=dev),
+                            use_kernel=True)
+    ref = verify_step_slots(params, cfg, toks, init_cache(cfg, 2, 128, dev),
+                            torch.zeros(2, dtype=torch.int64,
+                                        device=dev))[:, 99]
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    log(f"reference: cached kernel path vs dense forward, {cfg.num_layers} "
+        f"layers: max abs logit err {err:.3g} (max |logit| {scale:.3g}, "
+        f"tolerance 1e-3)")
+    assert bool(torch.isfinite(got).all()), "non-finite logits"
+    assert err <= 1e-3, f"cached path logits differ by {err}"
+    return err
+
+
+# ---------------------------------------------------------------------------
+# Phases 3 and 4: serving at full width
+# ---------------------------------------------------------------------------
+
+
+def make_server(torch, dev, target, drafter, max_batch):
+    from repro_torch.specdec import CachedSpecDecEngine, SpecDecConfig
+    from repro_torch.specdec import SpecDecServer
+    cfg = SpecDecConfig(num_drafts=K_DRAFTS, draft_len=L_DRAFT,
+                        strategy="gls", top_k=50, max_new_tokens=MAX_NEW,
+                        verifier_backend="kernel", decode_kernel=True,
+                        prefill_kernel=True)
+    engine = CachedSpecDecEngine(target, drafter, cfg, pool_slots=S_SLOTS,
+                                 device=dev)
+    return engine, SpecDecServer(engine, max_batch=max_batch)
+
+
+def phase_serve(torch, dev, target, drafter):
+    from repro_torch import random as R
+    from repro_torch.kernels.mode import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import draw_prompts
+    vocab = target[1].vocab_size
+    engine, server = make_server(torch, dev, target, drafter, S_SLOTS)
+    prompts = draw_prompts(N_REQUESTS, vocab, PROMPT_MIN, PROMPT_MAX, SEED)
+    # One prompt longer than the largest admission bucket (256 at this
+    # buffer length), so admission chunks.
+    prompts[0] = np.random.default_rng(SEED + 7).integers(
+        0, vocab, PROMPT_MAX).astype(np.int32)
+    for p in prompts:
+        server.submit(p, max_new=MAX_NEW)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    done = server.run(R.PRNGKey(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    m = server.metrics
+    assert len(done) == N_REQUESTS, f"{len(done)}/{N_REQUESTS} finished"
+    for r in done:
+        out = np.asarray(r.output)
+        assert len(out) == MAX_NEW, f"uid {r.uid}: {len(out)} tokens"
+        assert out.min() >= 0 and out.max() < vocab, f"uid {r.uid} range"
+    # The host's waits on the card as the engine saw them (SyncCounter):
+    # none while rounds and admissions are queued, one fetch per round.
+    assert m.draft_syncs == 0, f"draft_syncs {m.draft_syncs}"
+    assert m.host_syncs == m.rounds, (m.host_syncs, m.rounds)
+    layers = target[1].num_layers + drafter[1].num_layers
+    dispatches = engine.num_prefill_dispatches
+    assert counts.get("gls_row_race", 0) >= m.rounds, counts
+    assert counts.get("decode_attention", 0) >= \
+        (L_DRAFT + 1) * drafter[1].num_layers * m.rounds, counts
+    assert counts.get("flash_attention", 0) == layers * dispatches // 2, \
+        (counts, dispatches)
+    be = m.mean_block_efficiency
+    log(f"serve: {len(done)} requests, {m.total_tokens} tokens in {wall:.3f}s "
+        f"-> {m.total_tokens / wall:.1f} tok/s; rounds={m.rounds} "
+        f"block_efficiency={be:.3f} host_syncs={m.host_syncs} "
+        f"draft_syncs={m.draft_syncs} prefill_dispatches={dispatches} "
+        f"mean_ttft_ms={np.mean([r.ttft_ms for r in done]):.1f} "
+        f"launches={counts}")
+    return counts, {"wall_s": wall, "tokens": m.total_tokens,
+                    "rounds": m.rounds, "block_efficiency": be}
+
+
+def phase_self_draft(torch, dev, target):
+    from repro_torch import random as R
+    engine, server = make_server(torch, dev, target, target, 2)
+    vocab = target[1].vocab_size
+    for p in np.random.default_rng(SEED + 3).integers(
+            0, vocab, (2, 64)).astype(np.int32):
+        server.submit(p, max_new=48)
+    done = server.run(R.PRNGKey(SEED + 1))
+    m = server.metrics
+    acc = sum(r.accepted for r in done) / max(sum(r.blocks for r in done), 1)
+    log(f"self-draft: rounds={m.rounds} mean accepted per round="
+        f"{acc:.3f} (L={L_DRAFT}, need >= {0.9 * L_DRAFT:.1f})")
+    assert m.rounds >= 8, f"self-draft ran {m.rounds} rounds"
+    assert acc >= 0.9 * L_DRAFT, f"self-draft acceptance {acc:.3f}"
+    return acc
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print("chip_smoke: the port's sources (src/repro_torch) are not "
+              "beside this script", file=sys.stderr)
+        return 1
+    sys.path.insert(0, SRC)
+    import repro_torch  # noqa: F401  (sets the float32 precision flags)
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import build_pair
+
+    # Phase 1: environment and build.
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    log("precision: allow_tf32 matmul=False cudnn=False, float32 matmul "
+        "precision 'highest'")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    build.load_kernels(verbose=os.environ.get("CHIP_SMOKE_VERBOSE") == "1")
+    log(f"phase build: {time.perf_counter() - t0:.1f}s")
+
+    # Phase 2: kernels at the serving shapes.
+    t0 = time.perf_counter()
+    target, drafter = build_pair("smollm-360m", 4, SEED, dev)
+    cfg = target[1]
+    buf_len = PROMPT_MAX + MAX_NEW + L_DRAFT + 2
+    kernels = [kernel_race(torch, dev, cfg.vocab_size),
+               kernel_decode(torch, dev, cfg, buf_len),
+               kernel_flash(torch, dev, cfg, 256, buf_len)]
+    for kr in kernels:
+        log(f"kernel {kr['name']} [{kr['shape']}]: max_abs_err="
+            f"{kr['max_abs_err']:.3g} kernel {kr['ms']:.4f} ms, plain "
+            f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']:.4f} ms "
+            f"({kr['library']}), bound {kr['bound_ms']:.4f} ms "
+            f"({kr['bound_by']})")
+    log(f"phase kernels: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_reference(torch, dev, target)
+    log(f"phase reference: {time.perf_counter() - t0:.1f}s")
+
+    # Phase 3: serve smollm-360m through all three kernels.
+    t0 = time.perf_counter()
+    counts, serve_stats = phase_serve(torch, dev, target, drafter)
+    log(f"phase serve: {time.perf_counter() - t0:.1f}s")
+
+    # Phase 4: self-draft acceptance check.
+    t0 = time.perf_counter()
+    phase_self_draft(torch, dev, target)
+    log(f"phase self-draft: {time.perf_counter() - t0:.1f}s")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; total {time.perf_counter() - t_start:.1f}s")
+
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    for kr in kernels:
+        kr["launches"] = int(counts.get(kr["name"], 0))
+    print(json.dumps({"kernels": [{k: kr[k] for k in keys}
+                                  for kr in kernels]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

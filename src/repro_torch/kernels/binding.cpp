@@ -1,0 +1,159 @@
+// PyTorch bindings of the port's CUDA kernels: the one translation unit
+// that includes PyTorch's headers (the .cu sources expose plain C++
+// launchers taking raw pointers and a stream).  Each wrapper checks
+// device, dtype, shape and contiguity, allocates the outputs, launches on
+// PyTorch's current stream and checks the launch right after it.
+//
+// Every TORCH_CHECK here takes ONE message, a literal or a std::string
+// joined with `+` and std::to_string.  With several message arguments
+// TORCH_CHECK joins them through a std::ostringstream (c10::str), and a
+// std::ostringstream in this extension crashed the process (SIGSEGV) on
+// the machine with the card, so a failed check killed the process
+// instead of raising RuntimeError.
+#include <torch/extension.h>
+
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#include <cuda_runtime_api.h>
+
+#include <string>
+#include <vector>
+
+void launch_gls_row_race(const float* log_s, const float* log_q, float* rmin,
+                         int* rarg, int rows, int n, cudaStream_t stream);
+void launch_decode_attention(const float* q, const float* k, const float* v,
+                             const int* kv_len, float* out, int B, int H,
+                             int Hkv, int T, cudaStream_t stream);
+int decode_attention_head_dim();
+int decode_attention_max_group_dims();
+void launch_flash_attention(const float* q, const float* k, const float* v,
+                            const int* q_offset, const int* kv_len, float* out,
+                            int B, int H, int Hkv, int S, int T, int window,
+                            cudaStream_t stream);
+int flash_attention_head_dim();
+
+namespace {
+
+void check_tensor(const torch::Tensor& t, const char* name,
+                  torch::ScalarType dtype, int64_t dim) {
+  const std::string n(name);
+  TORCH_CHECK(t.is_cuda(), n + " must be a CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == dtype, n + " has dtype " +
+              c10::toString(t.scalar_type()) + ", expected " +
+              c10::toString(dtype));
+  TORCH_CHECK(t.dim() == dim, n + " must have " + std::to_string(dim) +
+              " dims, got " + std::to_string(t.dim()));
+  TORCH_CHECK(t.is_contiguous(), n + " must be contiguous");
+}
+
+void check_same_device(const torch::Tensor& a, const torch::Tensor& b) {
+  TORCH_CHECK(a.device() == b.device(), "tensors on different devices: " +
+              a.device().str() + " vs " + b.device().str());
+}
+
+void check_head_dim(const char* kernel, int64_t d, int compiled) {
+  TORCH_CHECK(d == compiled, std::string(kernel) + ": head dim " +
+              std::to_string(d) + " not compiled (only " +
+              std::to_string(compiled) + ")");
+}
+
+}  // namespace
+
+std::vector<torch::Tensor> gls_row_race(torch::Tensor log_s,
+                                        torch::Tensor log_q) {
+  check_tensor(log_s, "log_s", torch::kFloat32, 3);
+  check_tensor(log_q, "log_q", torch::kFloat32, 3);
+  check_same_device(log_s, log_q);
+  TORCH_CHECK(log_s.sizes() == log_q.sizes(), "log_s/log_q shape mismatch");
+  const int64_t b = log_s.size(0), k = log_s.size(1), n = log_s.size(2);
+  TORCH_CHECK(n > 0 && n < INT32_MAX && b * k < INT32_MAX,
+              "gls_row_race: unsupported shape");
+  const c10::cuda::CUDAGuard guard(log_s.device());
+  auto rmin = torch::empty({b, k}, log_s.options());
+  auto rarg = torch::empty({b, k}, log_s.options().dtype(torch::kInt32));
+  if (b * k == 0) return {rmin, rarg};
+  launch_gls_row_race(log_s.data_ptr<float>(), log_q.data_ptr<float>(),
+                      rmin.data_ptr<float>(), rarg.data_ptr<int>(),
+                      static_cast<int>(b * k), static_cast<int>(n),
+                      c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {rmin, rarg};
+}
+
+torch::Tensor decode_attention(torch::Tensor q, torch::Tensor k,
+                               torch::Tensor v, torch::Tensor kv_len) {
+  check_tensor(q, "q", torch::kFloat32, 3);
+  check_tensor(k, "k", torch::kFloat32, 4);
+  check_tensor(v, "v", torch::kFloat32, 4);
+  check_tensor(kv_len, "kv_len", torch::kInt32, 1);
+  check_same_device(q, k);
+  check_same_device(q, v);
+  check_same_device(q, kv_len);
+  const int64_t B = q.size(0), H = q.size(1), D = q.size(2);
+  const int64_t Hkv = k.size(1), T = k.size(2);
+  TORCH_CHECK(k.sizes() == v.sizes(), "k/v shape mismatch");
+  TORCH_CHECK(k.size(0) == B && k.size(3) == D, "q/k shape mismatch");
+  TORCH_CHECK(kv_len.size(0) == B, "kv_len must be (B,)");
+  TORCH_CHECK(Hkv > 0 && H % Hkv == 0, "H must be a multiple of Hkv");
+  check_head_dim("decode_attention", D, decode_attention_head_dim());
+  TORCH_CHECK((H / Hkv) * D <= decode_attention_max_group_dims(),
+              "decode_attention: G * D exceeds the per-block accumulator");
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto out = torch::empty_like(q);
+  if (B == 0 || H == 0) return out;
+  launch_decode_attention(q.data_ptr<float>(), k.data_ptr<float>(),
+                          v.data_ptr<float>(), kv_len.data_ptr<int>(),
+                          out.data_ptr<float>(), static_cast<int>(B),
+                          static_cast<int>(H), static_cast<int>(Hkv),
+                          static_cast<int>(T),
+                          c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
+                              torch::Tensor v, torch::Tensor q_offset,
+                              torch::Tensor kv_len, int64_t window) {
+  check_tensor(q, "q", torch::kFloat32, 4);
+  check_tensor(k, "k", torch::kFloat32, 4);
+  check_tensor(v, "v", torch::kFloat32, 4);
+  check_tensor(q_offset, "q_offset", torch::kInt32, 1);
+  check_tensor(kv_len, "kv_len", torch::kInt32, 1);
+  check_same_device(q, k);
+  check_same_device(q, v);
+  check_same_device(q, q_offset);
+  check_same_device(q, kv_len);
+  const int64_t B = q.size(0), H = q.size(1), S = q.size(2), D = q.size(3);
+  const int64_t Hkv = k.size(1), T = k.size(2);
+  TORCH_CHECK(k.sizes() == v.sizes(), "k/v shape mismatch");
+  TORCH_CHECK(k.size(0) == B && k.size(3) == D, "q/k shape mismatch");
+  TORCH_CHECK(q_offset.size(0) == B && kv_len.size(0) == B,
+              "q_offset/kv_len must be (B,)");
+  TORCH_CHECK(Hkv > 0 && H % Hkv == 0, "H must be a multiple of Hkv");
+  TORCH_CHECK(B < 65536 && H < 65536, "flash_attention: grid too large");
+  check_head_dim("flash_attention", D, flash_attention_head_dim());
+  TORCH_CHECK(window >= 0, "window must be >= 0");
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto out = torch::empty_like(q);
+  if (B == 0 || H == 0 || S == 0) return out;
+  launch_flash_attention(q.data_ptr<float>(), k.data_ptr<float>(),
+                         v.data_ptr<float>(), q_offset.data_ptr<int>(),
+                         kv_len.data_ptr<int>(), out.data_ptr<float>(),
+                         static_cast<int>(B), static_cast<int>(H),
+                         static_cast<int>(Hkv), static_cast<int>(S),
+                         static_cast<int>(T), static_cast<int>(window),
+                         c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("gls_row_race", &gls_row_race,
+        "per-row (min, argmin) of the GLS race table");
+  m.def("decode_attention", &decode_attention,
+        "one-query GQA decode attention over a KV cache");
+  m.def("flash_attention", &flash_attention,
+        "causal (optionally windowed) prefill attention with per-row "
+        "offsets");
+}

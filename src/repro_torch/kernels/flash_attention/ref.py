@@ -1,0 +1,52 @@
+"""Plain PyTorch version of the ``flash_attention`` kernel (the port's
+counterpart of ``repro/kernels/flash_attention/ref.py``), with the same
+masked-row contract (``masked_softmax``)."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis of the entries ``mask`` selects.  A row
+    with at least one valid entry equals ``softmax`` over the -inf-masked
+    scores; a fully masked row gives zeros (the max is pinned to 0 and
+    the denominator floored at 1e-30), the kernels' contract."""
+    neg_inf = torch.full((), float("-inf"), dtype=scores.dtype,
+                         device=scores.device)
+    neg = torch.where(mask, scores, neg_inf)
+    m = torch.amax(neg, dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(mask, torch.exp(neg - m_safe), torch.zeros_like(neg))
+    return p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          q_offset: Optional[torch.Tensor] = None,
+                          kv_len: Optional[torch.Tensor] = None, *,
+                          window: int = 0) -> torch.Tensor:
+    """Causal attention.  q: (B, H, S, D); k/v: (B, Hkv, T, D); optional
+    (B,) per-row ``q_offset`` (position of row b's first query) and
+    ``kv_len`` (valid key prefix).  Returns (B, H, S, D)."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = h // hkv
+    dev = q.device
+    qr = q.reshape(b, hkv, g, s, d).float()
+    scores = torch.einsum("bhgsd,bhtd->bhgst", qr, k.float()) / math.sqrt(d)
+    q_off = (torch.zeros(b, dtype=torch.int64, device=dev) if q_offset is None
+             else q_offset.to(torch.int64).reshape(-1).expand(b))
+    kvl = (torch.full((b,), t, dtype=torch.int64, device=dev) if kv_len is None
+           else kv_len.to(torch.int64).reshape(-1).expand(b))
+    q_pos = q_off[:, None] + torch.arange(s, device=dev)        # (B, S)
+    k_pos = torch.arange(t, device=dev)
+    mask = ((k_pos[None, None, :] < kvl[:, None, None])
+            & (k_pos[None, None, :] <= q_pos[:, :, None]))      # (B, S, T)
+    if window:
+        mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
+    w = masked_softmax(scores, mask[:, None, None])
+    out = torch.einsum("bhgst,bhtd->bhgsd", w, v.float())
+    return out.reshape(b, h, s, d).to(q.dtype)

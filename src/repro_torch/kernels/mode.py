@@ -1,0 +1,37 @@
+"""Kernel-or-plain resolution and launch accounting -- the port's
+counterpart of the JAX package's ``kernels/pallas_mode.py``.
+
+The JAX resolver is tri-state (compiled / interpret / jnp fallback) and
+decides from the backend.  Here the tensor decides: a CUDA tensor
+launches the hand-written kernel, a CPU tensor takes the kernel's plain
+PyTorch version, anything else raises.  There is no fallback from
+kernel to plain on a CUDA tensor: a kernel that fails to build or
+launch raises.
+
+``launch_counts`` counts kernel launches by name.  Each wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that
+its main path went through the kernels (``chip_smoke.py`` resets the
+counts before driving the server and reads them after).
+"""
+
+from __future__ import annotations
+
+import collections
+
+import torch
+
+launch_counts: collections.Counter = collections.Counter()
+
+
+def reset_launch_counts() -> None:
+    launch_counts.clear()
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU
+    tensor (run the plain version); raises for any other device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise RuntimeError(f"no kernel or plain route for device {t.device}")

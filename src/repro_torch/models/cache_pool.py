@@ -1,0 +1,109 @@
+"""Slot-based KV arena for multi-request cached serving -- the port's
+counterpart of ``repro/models/cache_pool.py::CachePool`` (contiguous
+arena only; the paged and int8 arenas are later slices).
+
+One pool holds, for every model of a serving step (target and drafter),
+a ``(layers, num_slots * rows_per_slot, kv_heads, buf_len, head_dim)``
+arena.  A request owns one slot = ``rows_per_slot`` consecutive rows
+(the K draft lanes).  Contract, as in the JAX pool:
+
+* ``alloc``/``release`` at admission/completion, lowest free slot first;
+* per-slot positions live on the host (``pool.pos``), mirrored lazily on
+  the device for the fused round (``pos_device``); host lifecycle writes
+  touch one device element, and the round hands back its advanced
+  positions (``adopt_round_device``), refreshed on the host from the
+  round's packed fetch (``refresh_pos_host``);
+* ``ensure_buf`` grows every arena's time axis (zero tail).
+
+The arenas are updated IN PLACE by the model calls and the fused
+round's rollback (the port's stand-in for JAX's donated buffers), so
+``pool.caches`` always holds the live tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import to_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import init_cache
+
+
+class CachePool:
+
+    def __init__(self, cfgs: Dict[str, ModelConfig], num_slots: int,
+                 rows_per_slot: int, buf_len: int, device):
+        assert num_slots >= 1 and rows_per_slot >= 1
+        self.cfgs = dict(cfgs)
+        self.num_slots = num_slots
+        self.rows_per_slot = rows_per_slot
+        self.buf_len = buf_len
+        self.device = torch.device(device)
+        self.caches = {name: self._init_arena(cfg, buf_len)
+                       for name, cfg in self.cfgs.items()}
+        self.pos = np.zeros(num_slots, np.int64)
+        self._pos_dev = None
+        self._free = list(range(num_slots))
+
+    def _init_arena(self, cfg: ModelConfig, buf_len: int) -> dict:
+        return init_cache(cfg, self.num_slots * self.rows_per_slot, buf_len,
+                          self.device)
+
+    # -- slot lifecycle ----------------------------------------------------
+    def alloc(self) -> int:
+        if not self._free:
+            raise RuntimeError(
+                f"CachePool: all {self.num_slots} slots in use")
+        slot = min(self._free)
+        self._free.remove(slot)
+        self.set_pos(slot, 0)
+        return slot
+
+    def release(self, slot: int) -> None:
+        assert 0 <= slot < self.num_slots and slot not in self._free
+        self.set_pos(slot, 0)
+        self._free.append(slot)
+
+    def set_pos(self, slot: int, pos: int) -> None:
+        self.pos[slot] = int(pos)
+        if self._pos_dev is not None:
+            # fill_ passes the value as a kernel argument; item assignment
+            # would make a blocking host-to-device copy (a host sync).
+            self._pos_dev[slot].fill_(int(pos))
+
+    def rows_of(self, slot: int) -> np.ndarray:
+        r = self.rows_per_slot
+        return np.arange(slot * r, (slot + 1) * r)
+
+    # -- buffer growth -----------------------------------------------------
+    def ensure_buf(self, buf_len: int) -> None:
+        """Grow every arena's time axis to at least ``buf_len``; live KV is
+        preserved, the new tail is zero."""
+        if buf_len <= self.buf_len:
+            return
+        for name, cfg in self.cfgs.items():
+            fresh = self._init_arena(cfg, buf_len)
+            for kk, old in self.caches[name].items():
+                fresh[kk][:, :, :, :old.shape[3]].copy_(old)
+            self.caches[name] = fresh
+        self.buf_len = buf_len
+
+    # -- fused-round device state ------------------------------------------
+    def pos_device(self) -> torch.Tensor:
+        """(num_slots,) int32 device positions for the fused round."""
+        if self._pos_dev is None:
+            self._pos_dev = to_device(self.pos.astype(np.int32), self.device)
+        return self._pos_dev
+
+    def adopt_round_device(self, pos_dev: torch.Tensor) -> None:
+        """Adopt a fused round's advanced device positions (its arena
+        updates already happened in place).  The host mirror stays stale
+        for the advanced slots until ``refresh_pos_host``."""
+        self._pos_dev = pos_dev
+
+    def refresh_pos_host(self, pos_host: np.ndarray, slots) -> None:
+        for s in slots:
+            self.pos[s] = int(pos_host[s])

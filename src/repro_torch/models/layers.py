@@ -1,0 +1,188 @@
+"""Shared layers of the dense family: RMSNorm, RoPE (split-half layout),
+GQA attention with its two kernel routes and the dense path, SwiGLU,
+the attention projections and the init helpers -- the port's
+counterpart of ``repro/models/layers.py``.
+
+Parameters are plain dictionaries of tensors in the JAX layout: every
+matmul weight is ``(in, out)`` and applied as ``x @ w``, so converted
+JAX trees (``models/convert.py``) compute the same function.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# Initializers (an explicit torch.Generator; the draws are the port's own,
+# not JAX's -- tests that compare the two convert one tree into the other)
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
+               device) -> torch.Tensor:
+    w = torch.randn((in_dim, out_dim), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype,
+               device) -> torch.Tensor:
+    w = torch.randn((vocab, dim), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * 0.02).to(dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x @ w
+
+
+# ---------------------------------------------------------------------------
+# Norms and RoPE
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_params(dim: int, dtype, device) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * params["scale"].float()).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    expo = torch.arange(half, dtype=torch.float32, device=device) / half
+    # A Python-scalar base: float32 pow on the device, with no blocking
+    # host-to-device copy (which would wait for all queued device work).
+    return 1.0 / torch.pow(float(theta), expo)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, D) with D even; positions: (..., S) integer.  The
+    split-half layout of the JAX package (``layers.py:99-106``)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _per_row(val, b: int, device) -> torch.Tensor:
+    """Scalar or (B,) -> (B,) int32 tensor."""
+    t = torch.as_tensor(val, device=device)
+    return t.to(torch.int32).reshape(-1).expand(b).contiguous()
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, q_offset=0, kv_len=None,
+              use_kernel: bool = False) -> torch.Tensor:
+    """GQA attention: q (B, H, S, D), k/v (B, Hkv, T, D) -> (B, H, S, D).
+
+    Per-row ``q_offset``/``kv_len`` (scalar or (B,)) serve cache arenas
+    where each batch row sits at its own position.  ``use_kernel``
+    routes two cases through the kernels, as the JAX package does
+    (``layers.py:164-178``):
+
+      * the single-query decode case (s == 1, non-causal,
+        ``kv_len``-masked) through ``kernels/decode_attention``;
+      * the causal multi-token case (s > 1) through
+        ``kernels/flash_attention``.
+
+    The flash kernel also takes a sliding ``window``, but no served
+    model has one, so this function never passes it.  Both kernels are
+    compiled for head dim 64 only (smollm-360m); other head dims take
+    the kernels' plain versions on the CPU and raise on the card.
+
+    Both are online-softmax streams, equal to the dense path up to
+    float32 summation order.  Everything else takes the dense path.
+    """
+    b, h, s, d = q.shape
+    if use_kernel and s == 1 and not causal and kv_len is not None:
+        from repro_torch.kernels.decode_attention.ops import decode_attention
+        out = decode_attention(q[:, :, 0], k, v, _per_row(kv_len, b, q.device))
+        return out[:, :, None, :]
+    if use_kernel and s > 1 and causal:
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        kvl = None if kv_len is None else _per_row(kv_len, b, q.device)
+        return flash_attention(q, k, v, _per_row(q_offset, b, q.device), kvl)
+    hkv = k.shape[1]
+    g = h // hkv
+    qr = q.reshape(b, hkv, g, s, d)
+    scores = torch.einsum("bhgsd,bhtd->bhgst", qr, k) / math.sqrt(d)
+    t = k.shape[2]
+    q_pos = torch.arange(s, device=q.device)[None, :]
+    if isinstance(q_offset, torch.Tensor):
+        q_pos = q_offset.to(torch.int64).reshape(-1, 1) + q_pos
+    else:
+        q_pos = q_pos + int(q_offset)
+    k_pos = torch.arange(t, device=q.device)
+    mask = torch.ones((1, s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
+    if isinstance(kv_len, torch.Tensor):
+        mask = mask & (k_pos[None, None, :]
+                       < kv_len.to(torch.int64).reshape(-1, 1, 1))
+    elif kv_len is not None:
+        mask = mask & (k_pos[None, None, :] < int(kv_len))
+    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    w = torch.softmax(scores, dim=-1)
+    # Fully masked rows give NaN; zero them, as the JAX dense path does.
+    w = torch.nan_to_num(w, nan=0.0)
+    out = torch.einsum("bhgst,bhtd->bhgsd", w.to(v.dtype), v)
+    return out.reshape(b, h, s, d)
+
+
+# ---------------------------------------------------------------------------
+# MLP and attention projections
+# ---------------------------------------------------------------------------
+
+
+def swiglu_params(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+                  device) -> dict:
+    return {
+        "w_gate": dense_init(gen, d_model, d_ff, dtype, device),
+        "w_up": dense_init(gen, d_model, d_ff, dtype, device),
+        "w_down": dense_init(gen, d_ff, d_model, dtype, device),
+    }
+
+
+def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+    gate = F.silu(dense(x, params["w_gate"]))
+    return dense(gate * dense(x, params["w_up"]), params["w_down"])
+
+
+def attn_params(gen: torch.Generator, d_model: int, num_heads: int,
+                kv_heads: int, head_dim: int, dtype, device) -> dict:
+    return {
+        "wq": dense_init(gen, d_model, num_heads * head_dim, dtype, device),
+        "wk": dense_init(gen, d_model, kv_heads * head_dim, dtype, device),
+        "wv": dense_init(gen, d_model, kv_heads * head_dim, dtype, device),
+        "wo": dense_init(gen, num_heads * head_dim, d_model, dtype, device),
+    }
+
+
+def project_qkv(params: dict, x: torch.Tensor, num_heads: int, kv_heads: int,
+                head_dim: int):
+    b, s, _ = x.shape
+    q = dense(x, params["wq"]).reshape(b, s, num_heads, head_dim)
+    k = dense(x, params["wk"]).reshape(b, s, kv_heads, head_dim)
+    v = dense(x, params["wv"]).reshape(b, s, kv_heads, head_dim)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def project_out(params: dict, attn_out: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = attn_out.shape
+    return dense(attn_out.transpose(1, 2).reshape(b, s, h * d), params["wo"])

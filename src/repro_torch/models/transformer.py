@@ -1,0 +1,197 @@
+"""Dense llama-family decoder (GQA + RoPE + SwiGLU + RMSNorm), serving
+paths only -- the port's counterpart of ``repro/models/transformer.py``
+(``init_params``, ``init_cache``, ``prefill_slots``,
+``decode_step_slots``, ``verify_step_slots``).
+
+A Python loop over layers replaces ``scan_blocks``.  Parameters are a
+dict ``{"embed", "layers": [per-layer dict, ...], "final_norm",
+"lm_head"}``; a KV arena is ``{"k", "v"}`` of shape
+``(layers, rows, kv_heads, T, head_dim)``.
+
+The slots calls UPDATE THE ARENA IN PLACE and return it: the port's
+stand-in for the JAX package's donated, functionally updated arenas.
+Two JAX semantics are copied exactly because the serving path relies on
+them:
+
+* ``jax.lax.dynamic_update_slice`` clamps its start so the update fits
+  (``transformer.py:222``): a row's write of m positions starting at p
+  lands at ``min(p, T - m)``;
+* ``prefill_slots``' masked write drops rows outside the admission wave
+  and chunk tails past T (``transformer.py:236-241``): those arena rows
+  stay bit-untouched.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import to_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """Random weights drawn from ``gen`` (a generator on ``device``),
+    in the JAX init's distributions (normal / sqrt(fan_in); embeddings
+    0.02 normal; unit norm scales)."""
+    dt = cfg.torch_dtype
+    hd = cfg.resolved_head_dim
+    layers = []
+    embed = L.embed_init(gen, cfg.padded_vocab, cfg.d_model, dt, device)
+    for _ in range(cfg.num_layers):
+        layers.append({
+            "attn_norm": L.rmsnorm_params(cfg.d_model, dt, device),
+            "attn": L.attn_params(gen, cfg.d_model, cfg.num_heads,
+                                  cfg.kv_heads, hd, dt, device),
+            "mlp_norm": L.rmsnorm_params(cfg.d_model, dt, device),
+            "mlp": L.swiglu_params(gen, cfg.d_model, cfg.d_ff, dt, device),
+        })
+    return {
+        "embed": embed,
+        "layers": layers,
+        "final_norm": L.rmsnorm_params(cfg.d_model, dt, device),
+        "lm_head": L.dense_init(gen, cfg.d_model, cfg.padded_vocab, dt,
+                                device),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+    """A zeroed full-attention KV arena (non-ring)."""
+    shape = (cfg.num_layers, batch, cfg.kv_heads, max_len,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
+
+
+def _rowwise_cache_write(cache_k, cache_v, k, v, starts) -> None:
+    """In place: row b's (H, m, hd) keys/values land at time offset
+    ``clamp(starts[b], 0, T - m)`` -- ``dynamic_update_slice``'s clamp.
+    cache_k/v: (B, H, T, hd) views; k/v: (B, H, m, hd); starts: (B,)."""
+    b, _, t, _ = cache_k.shape
+    m = k.shape[2]
+    start = torch.clamp(starts.to(torch.int64), 0, t - m)
+    ti = start[:, None] + torch.arange(m, device=k.device)       # (B, m)
+    bi = torch.arange(b, device=k.device)[:, None].expand(b, m)
+    cache_k.transpose(1, 2).index_put_((bi, ti), k.transpose(1, 2))
+    cache_v.transpose(1, 2).index_put_((bi, ti), v.transpose(1, 2))
+
+
+def _masked_write_index(pos: np.ndarray, write: np.ndarray, m: int, t: int,
+                        device):
+    """Host-side scatter plan of ``prefill_slots``' masked write: the
+    (row, chunk column, time) triples that land inside the arena.  Rows
+    with ``write`` False and columns at or past T are dropped."""
+    rows, cols = np.nonzero(write[:, None]
+                            & (pos[:, None] + np.arange(m)[None, :] < t))
+    times = pos[rows] + cols
+    return tuple(to_device(a.astype(np.int64), device)
+                 for a in (rows, cols, times))
+
+
+def _embed(params, tokens):
+    return params["embed"][tokens.to(torch.int64)]
+
+
+def _mlp_residual(p, cfg, x):
+    return x + L.swiglu(p["mlp"], L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps))
+
+
+def _qkv(p, cfg, x, positions):
+    hd = cfg.resolved_head_dim
+    xin = L.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    q, k, v = L.project_qkv(p["attn"], xin, cfg.num_heads, cfg.kv_heads, hd)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _logits(params, cfg, x):
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.dense(x, params["lm_head"])
+
+
+def prefill_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  cache: dict, pos: np.ndarray,
+                  write: Optional[np.ndarray] = None, *,
+                  use_kernel: bool = False) -> dict:
+    """Admission prefill straight into the arena (``transformer.py:284``):
+    tokens (B, m) land at per-row offsets ``pos`` (B,); rows with
+    ``write`` False are bit-untouched.  ``pos``/``write`` are the host
+    admission plan (numpy), so the masked scatter needs no device sync.
+    No logits are computed.  ``use_kernel`` routes the chunk attention
+    through ``kernels/flash_attention``."""
+    b, m = tokens.shape
+    pos = np.asarray(pos, np.int64)
+    write = (np.ones(b, bool) if write is None
+             else np.asarray(write, bool))
+    dev = tokens.device
+    t = cache["k"].shape[3]
+    rows, cols, times = _masked_write_index(pos, write, m, t, dev)
+    pos_d = to_device(pos, dev)
+    positions = pos_d[:, None, None] + torch.arange(m, device=dev)
+    x = _embed(params, tokens)
+    for li, p in enumerate(params["layers"]):
+        q, k, v = _qkv(p, cfg, x, positions)
+        ck, cv = cache["k"][li], cache["v"][li]
+        ck.transpose(1, 2).index_put_((rows, times),
+                                      k.transpose(1, 2)[rows, cols])
+        cv.transpose(1, 2).index_put_((rows, times),
+                                      v.transpose(1, 2)[rows, cols])
+        out = L.attention(q, ck, cv, causal=True, q_offset=pos_d,
+                          kv_len=pos_d + m, use_kernel=use_kernel)
+        x = x + L.project_out(p["attn"], out)
+        x = _mlp_residual(p, cfg, x)
+    return cache
+
+
+def decode_step_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                      cache: dict, pos: torch.Tensor, *,
+                      use_kernel: bool = False,
+                      return_logits: bool = True):
+    """Per-row-position decode (``transformer.py:357``): tokens (B, 1),
+    pos (B,) -> logits (B, Vpad) (None with ``return_logits=False``, for
+    callers that only need the cache write).  Row b writes its KV at
+    ``pos[b] % T`` and attends the first ``min(pos[b] + 1, T)`` keys.
+    ``use_kernel`` streams the attention through
+    ``kernels/decode_attention``."""
+    t = cache["k"].shape[3]
+    pos = pos.to(torch.int64)
+    positions = pos[:, None, None]                     # (B, 1, 1)
+    kv_len = torch.clamp(pos + 1, max=t)
+    x = _embed(params, tokens)
+    for li, p in enumerate(params["layers"]):
+        q, k, v = _qkv(p, cfg, x, positions)
+        ck, cv = cache["k"][li], cache["v"][li]
+        _rowwise_cache_write(ck, cv, k, v, pos % t)
+        out = L.attention(q, ck, cv, causal=False, kv_len=kv_len,
+                          use_kernel=use_kernel)
+        x = x + L.project_out(p["attn"], out)
+        x = _mlp_residual(p, cfg, x)
+    if not return_logits:
+        return None
+    return _logits(params, cfg, x)[:, 0]
+
+
+def verify_step_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                      cache: dict, pos: torch.Tensor) -> torch.Tensor:
+    """Per-row-position verify chunk (``transformer.py:459``): tokens
+    (B, m), pos (B,) -> logits (B, m, Vpad), row b's column j scoring
+    the continuation after its cache prefix and ``tokens[b, :j+1]``.
+    The attention is the dense path, as in the JAX package (which
+    passes no ``use_kernel`` here)."""
+    m = tokens.shape[1]
+    pos = pos.to(torch.int64)
+    positions = pos[:, None, None] + torch.arange(m, device=pos.device)
+    x = _embed(params, tokens)
+    for li, p in enumerate(params["layers"]):
+        q, k, v = _qkv(p, cfg, x, positions)
+        ck, cv = cache["k"][li], cache["v"][li]
+        _rowwise_cache_write(ck, cv, k, v, pos)
+        out = L.attention(q, ck, cv, causal=True, q_offset=pos,
+                          kv_len=pos + m)
+        x = x + L.project_out(p["attn"], out)
+        x = _mlp_residual(p, cfg, x)
+    return _logits(params, cfg, x)

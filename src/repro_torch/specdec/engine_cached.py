@@ -1,0 +1,438 @@
+"""KV-cached speculative decoding, fused rounds -- the port's counterpart
+of ``repro/specdec/engine_cached.py`` on its ``kv_fused`` path.
+
+One round advances every live request of the slot arena (DESIGN.md §8):
+
+  1. per-slot shared uniforms and strategy keys (``block_randomness``);
+  2. the L-step drafter sweep over the whole arena (``decode_step_slots``,
+     drafted tokens stay on the device);
+  3. ONE stacked target verify chunk (``verify_step_slots``);
+  4. Algorithm 2, batched over slots (``block_verify_batched``);
+  5. rollback: every row of a slot becomes its surviving row;
+  6. the unconditional drafter catch-up step;
+  7. ONE packed device-to-host fetch of {tokens, accepted, active, pos}.
+
+PyTorch runs eagerly, so "one program" becomes: every step of the round
+is queued on the device without a host round-trip, and the packed fetch
+is the round's only device-to-host transfer.  On the card the engine
+counts the host's actual waits (``device.SyncCounter``): those before
+the fetch go to ``num_draft_syncs`` (0: drafts never leave the card),
+those in the fetch to the round's ``verify_syncs`` (1).  The arenas are
+updated in place.
+
+Admission (§9): ``admit_batch`` drains a wave into power-of-two length
+buckets and issues one stacked ``prefill_slots`` per (chunk round,
+bucket) per model; ``round_with_admission`` queues those prefills after
+the round and before its packed fetch, so they overlap the round.
+
+Only the ``kv_fused`` cache mode is ported; the host-driven ``kv`` path,
+paged and int8 arenas and tensor parallelism are later slices (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from repro_torch import random as R
+from repro_torch.device import SyncCounter, resolve_device, to_device
+from repro_torch.models import CachePool, decode_step_slots, prefill_slots
+from repro_torch.models import verify_step_slots
+from repro_torch.specdec import verify as V
+from repro_torch.specdec.block_verify import block_verify_batched
+from repro_torch.specdec.engine import (
+    BlockOutcome,
+    GenerationStats,
+    SpecDecConfig,
+    block_randomness,
+    probs_from_logits,
+)
+
+_MIN_BUCKET = 16
+
+
+class GuardViolation(AssertionError):
+    """A round's packed fetch violates a serving invariant (the port's
+    copy of ``repro/serving/guard.py::GuardViolation``)."""
+
+    def __init__(self, msg: str, uid=None):
+        super().__init__(msg)
+        self.uid = uid
+
+
+def check_packed(host: dict, slot_uids: Sequence, vocab: int,
+                 draft_len: int) -> None:
+    """Validate a fused round's packed fetch per advancing session
+    (``serving/guard.py::check_packed``): token ids in [0, vocab),
+    ``0 <= accepted <= L``, and the rollback invariant (accepted > 0
+    implies some active row)."""
+    for uid, slot in slot_uids:
+        acc = int(host["accepted"][slot])
+        if not 0 <= acc <= draft_len:
+            raise GuardViolation(
+                f"uid {uid}: packed accepted={acc} outside "
+                f"[0, {draft_len}]", uid=uid)
+        toks = np.asarray(host["tokens"][slot][:acc + 1])
+        if toks.size and (int(toks.min()) < 0 or int(toks.max()) >= vocab):
+            raise GuardViolation(
+                f"uid {uid}: packed fetch: token ids outside [0, {vocab}) "
+                f"(range [{int(toks.min())}, {int(toks.max())}])", uid=uid)
+        if acc > 0 and not np.asarray(host["active"][slot]).any():
+            raise GuardViolation(
+                f"rollback invariant violated: num_accepted={acc} "
+                "but no draft row is active", uid=uid)
+
+
+def _max_bucket(buf_len: int) -> int:
+    """Largest admission bucket: the largest power of two <= buf_len,
+    floored at _MIN_BUCKET."""
+    b = _MIN_BUCKET
+    while b * 2 <= buf_len:
+        b *= 2
+    return b
+
+
+def _bucket_plan(n: int, max_bucket: int) -> list:
+    """Chunk an n-token prefill into ``[(offset, length, bucket), ...]``:
+    full ``max_bucket`` chunks first, then the remainder in the smallest
+    power-of-two bucket that holds it."""
+    chunks = []
+    off = 0
+    while n - off > max_bucket:
+        chunks.append((off, max_bucket, max_bucket))
+        off += max_bucket
+    rem = n - off
+    if rem > 0:
+        bucket = _MIN_BUCKET
+        while bucket < rem:
+            bucket *= 2
+        chunks.append((off, rem, bucket))
+    return chunks
+
+
+def build_round_core(cfg: SpecDecConfig, t_cfg, d_cfg, vocab: int,
+                     num_slots: int):
+    """The fused speculative round (``engine_cached.py:164-297``):
+
+    ``(t_params, d_params, t_kv, d_kv, pos, pending, live, subs) ->
+    (new_pos, packed)``
+
+    ``t_kv``/``d_kv`` are updated in place.  ``pos`` (S,) int32,
+    ``pending`` (S,), ``live`` (S,) bool and ``subs`` (S, 2) keys are
+    device tensors.  ``packed`` is one (S, L+1 + 1 + K + 1) int64 tensor
+    holding tokens | accepted | active | new_pos, so the caller's fetch
+    is a single transfer.  Each phase runs under a ``round/<phase>``
+    profiler range (``launch/profile_round.py`` reads them; a range costs
+    about a microsecond of host time when no profiler is active)."""
+    K, L, N = cfg.num_drafts, cfg.draft_len, vocab
+    S = num_slots
+    rows = S * K
+
+    def round_core(t_params, d_params, t_kv, d_kv, pos, pending, live,
+                   subs):
+        dev = pos.device
+        slot_of = torch.arange(S, device=dev).repeat_interleave(K)
+        row_ids = torch.arange(rows, device=dev)
+        pos = pos.to(torch.int64)
+        live_row = live.repeat_interleave(K)
+        # Rows of slots not advancing this round ride along as dead rows
+        # at their own position (free slots sit at 0); their writes land
+        # where the next real round or admission overwrites them.
+        row_pos = pos.repeat_interleave(K)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        with record_function("round/randomness"):
+            log_u, strat_keys = block_randomness(subs, L, K, N)
+
+        with record_function("round/draft_sweep"):
+            # L decode steps; the drafted tokens stay on the device.
+            cur = torch.where(live_row,
+                              pending.to(torch.int64).repeat_interleave(K),
+                              zero)
+            cur0 = cur
+            toks = []
+            for j in range(L):
+                logits = decode_step_slots(d_params, d_cfg, cur[:, None],
+                                           d_kv, row_pos + j,
+                                           use_kernel=cfg.decode_kernel)
+                p_all = probs_from_logits(logits, cfg.draft_temp,
+                                          cfg.top_k, N)
+                tok = V.draft_token_from_uniforms(
+                    log_u[:, j].reshape(rows, N), p_all)
+                cur = torch.where(live_row, tok, zero)
+                toks.append(cur)
+            toks = torch.stack(toks, dim=1)              # (rows, L)
+            d_tokens = toks.reshape(S, K, L)
+
+        with record_function("round/verify_chunk"):
+            # ONE stacked target verify chunk over the arena.
+            chunk = torch.cat([cur0[:, None], toks], dim=1)
+            t_logits = verify_step_slots(t_params, t_cfg, chunk, t_kv,
+                                         row_pos)
+            q = probs_from_logits(t_logits, cfg.target_temp, cfg.top_k,
+                                  N).reshape(S, K, L + 1, N)
+
+        with record_function("round/block_verify"):
+            # Algorithm 2, batched over slots.
+            res = block_verify_batched(log_u, d_tokens, q, strat_keys,
+                                       strategy=cfg.strategy,
+                                       backend=cfg.verifier_backend)
+            a = torch.where(live, res.num_accepted, zero)
+            k_star = torch.where(
+                a > 0, torch.argmax(res.active.to(torch.uint8), dim=1), zero)
+
+        with record_function("round/rollback"):
+            # Every row of a live slot becomes its surviving row.
+            surv = slot_of * K + k_star[slot_of]
+            row_src = torch.where(live_row, surv, row_ids)
+            for arena in (t_kv, d_kv):
+                for leaf in arena.values():
+                    leaf.copy_(leaf.index_select(1, row_src))
+            new_pos = torch.where(live, pos + 1 + a, pos)
+
+        with record_function("round/catch_up"):
+            # Fully accepted slots write Y_L at pos + L; every other row
+            # decodes a dummy token at its post-rollback position, which
+            # the next sweep overwrites before it is read.
+            full = live & (a == L)
+            y_l = res.tokens[:, L - 1]
+            extra_tok = torch.where(full[slot_of], y_l[slot_of], zero)
+            extra_pos = torch.where(full, pos + L, new_pos)
+            decode_step_slots(d_params, d_cfg, extra_tok[:, None], d_kv,
+                              extra_pos.repeat_interleave(K),
+                              use_kernel=cfg.decode_kernel,
+                              return_logits=False)
+
+        packed = torch.cat([res.tokens, a[:, None],
+                            res.active.to(torch.int64), new_pos[:, None]],
+                           dim=1)
+        return new_pos.to(torch.int32), packed
+
+    return round_core
+
+
+def unpack(packed: np.ndarray, draft_len: int, num_drafts: int) -> dict:
+    L, K = draft_len, num_drafts
+    return {"tokens": packed[:, :L + 1],
+            "accepted": packed[:, L + 1],
+            "active": packed[:, L + 2:L + 2 + K].astype(bool),
+            "pos": packed[:, L + 2 + K]}
+
+
+@dataclasses.dataclass
+class _Session:
+    uid: object
+    slot: int
+    pending: int                 # last emitted token, not yet in cache
+
+
+class CachedSpecDecEngine:
+    """Multi-request speculative decoding with persistent KV caches and
+    fused rounds.  ``target``/``drafter`` are ``(params, ModelConfig)``
+    pairs whose tensors live on ``device`` (``None`` = the card)."""
+
+    def __init__(self, target: tuple, drafter: tuple, cfg: SpecDecConfig,
+                 pool_slots: int = 1, device=None):
+        self.device = resolve_device(device)
+        self.t_params, self.t_cfg = target
+        self.d_params, self.d_cfg = drafter
+        for params in (self.t_params, self.d_params):
+            if params["embed"].device.type != self.device.type:
+                raise ValueError(
+                    f"parameters live on {params['embed'].device}, the "
+                    f"engine on {self.device}")
+        self.cfg = cfg
+        self.vocab = self.t_cfg.vocab_size
+        self.pool_slots = pool_slots
+        self.pool: Optional[CachePool] = None
+        self._sessions: dict = {}
+        self._round = None
+        # Serving instrumentation (read by the scheduler / chip_smoke).
+        self.num_target_forwards = 0
+        self.num_prefill_dispatches = 0
+        # Host waits on the card seen while a round and its admissions
+        # are queued (before the packed fetch); 0 on the CPU.
+        self.num_draft_syncs = 0
+
+    # -- pool / session lifecycle ------------------------------------------
+    def _ensure_pool(self, buf_len: int) -> CachePool:
+        if self.pool is None:
+            self.pool = CachePool({"target": self.t_cfg,
+                                   "drafter": self.d_cfg},
+                                  num_slots=self.pool_slots,
+                                  rows_per_slot=self.cfg.num_drafts,
+                                  buf_len=buf_len, device=self.device)
+        else:
+            self.pool.ensure_buf(buf_len)
+        return self.pool
+
+    def release(self, uid) -> None:
+        sess = self._sessions.pop(uid)
+        self.pool.release(sess.slot)
+
+    def admit_batch(self, pairs, buf_len: int) -> None:
+        """Bucketed batched admission (``engine_cached.py:783``): each
+        ``(uid, prompt)`` gets a slot; prompts minus their last token
+        (which becomes the pending token) prefill straight into the
+        arenas, one stacked ``prefill_slots`` per (chunk round, bucket)
+        per model, rows outside the group write-masked."""
+        pairs = [(uid, np.asarray(p, np.int32)) for uid, p in pairs]
+        if not pairs:
+            return
+        pool = self._ensure_pool(buf_len)
+        rows_n = pool.num_slots * self.cfg.num_drafts
+        max_bucket = _max_bucket(pool.buf_len)
+        plans = []
+        for uid, prompt in pairs:
+            assert uid not in self._sessions
+            assert len(prompt) >= 1
+            slot = pool.alloc()
+            self._sessions[uid] = _Session(uid=uid, slot=slot,
+                                           pending=int(prompt[-1]))
+            plans.append((slot, prompt[:-1],
+                          _bucket_plan(len(prompt) - 1, max_bucket)))
+        with record_function("admission/prefill"):
+            self._prefill_plans(plans, rows_n)
+        for slot, toks, _ in plans:
+            pool.set_pos(slot, len(toks))
+
+    def _prefill_plans(self, plans, rows_n: int) -> None:
+        """One stacked prefill_slots per (chunk round, bucket) per model."""
+        pool = self.pool
+        models = {"target": (self.t_params, self.t_cfg),
+                  "drafter": (self.d_params, self.d_cfg)}
+        for c in range(max(len(p[2]) for p in plans)):
+            groups = {}
+            for slot, toks, chunks in plans:
+                if c < len(chunks):
+                    groups.setdefault(chunks[c][2], []).append(
+                        (slot, toks, chunks[c]))
+            for bucket in sorted(groups):
+                tok = np.zeros((rows_n, bucket), np.int32)
+                pos = np.zeros((rows_n,), np.int64)
+                write = np.zeros((rows_n,), bool)
+                for slot, toks, (off, ln, _) in groups[bucket]:
+                    rr = pool.rows_of(slot)
+                    tok[rr, :ln] = toks[off:off + ln]
+                    pos[rr] = off
+                    write[rr] = True
+                tok_d = to_device(tok, self.device)
+                for name, (params, mcfg) in models.items():
+                    prefill_slots(params, mcfg, tok_d, pool.caches[name],
+                                  pos, write,
+                                  use_kernel=self.cfg.prefill_kernel)
+                    self.num_prefill_dispatches += 1
+
+    # -- the fused round -----------------------------------------------------
+    def _block_fused(self, subs: Sequence[torch.Tensor], uids: Sequence,
+                     admits: Sequence = ()) -> list:
+        """Advance every listed session one round; the round's only
+        device-to-host transfer is the packed fetch.  ``admits`` are
+        prefilled after the round is queued and before that fetch."""
+        cfg, pool = self.cfg, self.pool
+        K, L = cfg.num_drafts, cfg.draft_len
+        sessions = [self._sessions[u] for u in uids]
+        with SyncCounter(self.device) as queued:
+            packed = self._queue_round(sessions, subs, admits)
+        self.num_draft_syncs += queued.count
+        with SyncCounter(self.device) as fetched, \
+                record_function("round/fetch"):
+            host = unpack(packed.cpu().numpy(), L, K)   # the ONE transfer
+        # On the CPU the fetch is a copy the host never waits for.
+        syncs = fetched.count if self.device.type == "cuda" else 1
+        pool.refresh_pos_host(host["pos"], [s.slot for s in sessions])
+        check_packed(host, [(s.uid, s.slot) for s in sessions],
+                     vocab=self.vocab, draft_len=L)
+        outs = []
+        for i, sess in enumerate(sessions):
+            s = sess.slot
+            acc = int(host["accepted"][s])
+            toks = [int(t) for t in host["tokens"][s][:acc + 1]]
+            sess.pending = toks[-1]
+            # The packed fetch serves the whole round; its waits go to
+            # the first outcome.
+            outs.append(BlockOutcome(new_tokens=toks, accepted=acc,
+                                     verify_syncs=syncs if i == 0 else 0,
+                                     active=host["active"][s].copy()))
+        return outs
+
+    def _queue_round(self, sessions, subs, admits) -> torch.Tensor:
+        """Build the round's inputs, queue the fused round and the
+        admission prefills; returns the device-side packed result."""
+        cfg, pool = self.cfg, self.pool
+        L, S = cfg.draft_len, pool.num_slots
+        hi = max(pool.pos[s.slot] for s in sessions) + L + 1
+        assert hi <= pool.buf_len, (
+            f"speculative block would write through position {hi - 1} but "
+            f"the cache arena holds {pool.buf_len}; pass a larger buf_len")
+        live = np.zeros(S, bool)
+        pending = np.zeros(S, np.int64)
+        # Free slots still need a valid key; their draws are masked.
+        sub_rows = np.zeros((S, 2), np.int64)
+        for sess, sub in zip(sessions, subs):
+            live[sess.slot] = True
+            pending[sess.slot] = sess.pending
+            sub_rows[sess.slot] = np.asarray(sub.cpu(), np.int64)
+        if self._round is None:
+            self._round = build_round_core(cfg, self.t_cfg, self.d_cfg,
+                                           self.vocab, S)
+        pos_dev, packed = self._round(
+            self.t_params, self.d_params, pool.caches["target"],
+            pool.caches["drafter"], pool.pos_device(),
+            to_device(pending, self.device), to_device(live, self.device),
+            to_device(sub_rows, self.device))
+        self.num_target_forwards += 1
+        pool.adopt_round_device(pos_dev)
+        if admits:
+            self.admit_batch(admits, pool.buf_len)
+        return packed
+
+    # -- scheduler contract ----------------------------------------------
+    def round_with_admission(self, subs, uids, admits, buf_len: int,
+                             tails: Optional[Sequence[int]] = None) -> list:
+        """One kv_fused serving round with overlapped admission
+        (``engine_cached.py:1204``): grow the pool for the whole wave,
+        queue the fused round for ``uids``, queue the bucketed prefills
+        for ``admits``, then fetch.  Admitted sessions join next round."""
+        self._ensure_pool(buf_len)
+        if tails is not None:
+            for uid, tail in zip(uids, tails):
+                sess = self._sessions[uid]
+                assert int(tail) == sess.pending, (
+                    f"uid {uid}: prefix tail {int(tail)} != cached "
+                    f"pending {sess.pending}")
+        if not uids:
+            with SyncCounter(self.device) as queued:
+                self.admit_batch(admits, buf_len)
+            self.num_draft_syncs += queued.count
+            return []
+        return self._block_fused(subs, uids, admits=admits)
+
+    def generate(self, key: torch.Tensor, prompt: np.ndarray,
+                 max_new: Optional[int] = None) -> GenerationStats:
+        """Single-request generation through fused rounds, with the JAX
+        engine's key derivation (``key, sub = split(key)`` per block)."""
+        cfg = self.cfg
+        max_new = max_new or cfg.max_new_tokens
+        prompt = np.asarray(prompt, np.int32)
+        buf = len(prompt) + max_new + cfg.draft_len + 2
+        uid = object()
+        self.admit_batch([(uid, prompt)], buf)
+        out, blocks, accepted, syncs = [], 0, 0, 0
+        key = key.cpu()
+        try:
+            while len(out) < max_new:
+                key, sub = R.split(key)
+                o = self._block_fused([sub], [uid])[0]
+                out.extend(o.new_tokens)
+                accepted += o.accepted
+                syncs += o.verify_syncs
+                blocks += 1
+        finally:
+            self.release(uid)
+        return GenerationStats(output=np.asarray(out[:max_new], np.int32),
+                               blocks=blocks, accepted_drafts=accepted,
+                               host_syncs=syncs)
