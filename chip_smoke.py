@@ -8,11 +8,13 @@ when the port's sources are not beside this file.  Phases:
   1. environment: card name and power limit, torch/CUDA versions, the
      float32 precision flags; build the CUDA kernels from the sources
      (one ``load`` call, timed);
-  2. kernels at the serving path's shapes: each CUDA kernel against its
-     plain PyTorch version on the same inputs (row race: exact; attention:
-     max abs error <= 1e-4), timed with CUDA events (median of 25 samples
-     of 10 back-to-back calls, after warm-up) beside its plain version,
-     one PyTorch library call as a yardstick the port never calls, and
+  2. kernels at the shapes of their paths: each CUDA kernel against its
+     plain PyTorch version on the same inputs (the three races: exact,
+     minima compared bit for bit; attention: max abs error <= 1e-4),
+     timed with CUDA events (median of 25 samples of 10 back-to-back
+     calls, after warm-up; 5 single calls for the slow plain binned
+     race) beside its plain version, one PyTorch library call as a
+     yardstick the port never calls, and
      the bound (bytes over 3.35 TB/s or float32 operations over
      67 TFLOP/s, whichever is larger);
   2b. reference: the cached kernel path (flash prefill, kernel decode)
@@ -27,11 +29,27 @@ when the port's sources are not beside this file.  Phases:
      and that every kernel's launch count grew during the run;
   4. self-draft: drafter = target; with p = q the GLS coupling accepts
      every draft up to float near-ties, so the mean acceptance per round
-     must reach 0.9 * L -- the end-to-end correctness check at full width.
+     must reach 0.9 * L -- the end-to-end correctness check at full width;
+  5. compress: the Gaussian Wyner-Ziv experiment (``run_experiment``,
+     backend "kernel") at the full compression shape -- 2048 trials in
+     chunks of B = 512, N = 2^16 atoms, K = 4 decoders, l_max = 64 --
+     with one ``gls_binned_race`` launch per chunk, every chunk's
+     outputs equal to the sequenced "torch" backend on the same keys,
+     the guard (``validate_wz_batch``) passing and the match rate held
+     to its Prop.-4 bound; a small case against the JAX reference's
+     recorded match rates; then the paper's Fig. 2 grid (N = 4096,
+     2000 trials, K in {1, 2, 4}, l_max in {2, 8, 64}, GLS and the
+     shared-sheet baseline): GLS equals the baseline at K = 1;
+  6. gls: the joint race kernel ``gls_race`` against
+     ``core.gls.gls_sample_heterogeneous`` on the same sheets (20 rows,
+     K = 8, N = 49,152): equal draft and target selections.
 
-The line before the last is a JSON object ``{"kernels": [...]}``; the
-last line is ``{"ok": true, "device": {...}}``.  Every phase failure is
-an exception, so the script exits non-zero after any failure.
+Each of the paths of phases 3, 5 and 6 is driven with the launch counts
+set to 0 just before it and read just after; the ``kernels`` line
+reports each kernel's launches from its own path.  The line before the
+last is a JSON object ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.  Every phase failure is an
+exception, so the script exits non-zero after any failure.
 """
 
 from __future__ import annotations
@@ -57,6 +75,18 @@ S_SLOTS, K_DRAFTS, L_DRAFT = 4, 8, 4
 N_REQUESTS, MAX_NEW = 8, 64
 PROMPT_MIN, PROMPT_MAX = 16, 300
 SEED = 0
+
+# The compression path at full size (DESIGN.md section 10.4's largest
+# list) and the paper's Fig. 2 grid (examples/compress_gaussian.py).
+WZ_SIGMA2 = 0.005
+WZ_BATCH, WZ_ATOMS, WZ_K, WZ_LMAX, WZ_TRIALS = 512, 2 ** 16, 4, 64, 2048
+GRID_ATOMS, GRID_TRIALS = 4096, 2000
+# tests/test_compression.py::test_gaussian_match_rate_meets_prop4_bound
+# holds the match rate to its Prop.-4 bound less this allowance.
+BOUND_ALLOWANCE = 0.05
+# The JAX reference's run_experiment(PRNGKey(0), GaussianWZ(0.005, 2048),
+# K=4, l_max=8, 200 trials) on the CPU: match_prob_any, match_prob_each.
+JAX_SMALL_CASE = (0.79, 0.2)
 
 
 def log(msg: str) -> None:
@@ -142,6 +172,139 @@ def kernel_race(torch, dev, vocab: int):
         "plain_ms": time_ms(lambda: gls_row_race_plain(log_s, log_q)),
         "library_ms": time_ms(lambda: torch.min(score, dim=-1)),
         "library": "torch.min(score, -1) on a precomputed score",
+        "bound_ms": t_bound, "bound_by": by,
+    }
+
+
+def _plant_binned(torch, log_s, log_q, bins, l_max):
+    """Exact ties, an empty bin, a +inf weight, an all-dead row and a
+    -0.0 minimum tied with a later +0.0 (as the CPU tests plant)."""
+    lb = 1 % l_max
+    bins[0][bins[0] == l_max - 1] = 0
+    idx = torch.nonzero(bins[1] == lb).flatten()[:2]
+    log_s[1, 0, idx] = -40.0
+    log_q[1, 0, idx] = 0.0
+    log_s[2, 1, 7] = -100.0
+    log_q[2, 1, 7] = float("inf")
+    log_q[3, -1] = float("-inf")
+    in0 = torch.nonzero(bins[4] == 0).flatten()
+    log_s[4, 2, in0] = 5.0
+    log_q[4, 2, in0] = 0.0
+    log_s[4, 2, in0[0]] = -0.0
+    log_s[4, 2, in0[1]] = 0.0
+    return int(idx[0]), int(in0[0])
+
+
+def kernel_binned(torch, dev, l_max: int):
+    """The binned race at the full compression shape: B trials, K
+    decoders plus the encoder row, N atoms."""
+    from repro_torch.kernels.gls_race.ops import gls_binned_race
+    from repro_torch.kernels.gls_race.ref import gls_binned_race_plain
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 10 + l_max)
+    b, r, n = WZ_BATCH, WZ_K + 1, WZ_ATOMS
+    log_s = torch.empty((b, r, n), device=dev).exponential_(
+        generator=g).clamp_min(1e-38).log()
+    log_q = torch.randn((b, r, n), generator=g, device=dev)
+    log_q[torch.rand((b, r, n), generator=g, device=dev) < 0.2] = \
+        float("-inf")
+    bins = torch.randint(0, l_max, (b, n), generator=g, device=dev,
+                         dtype=torch.int32)
+    tie, neg0 = _plant_binned(torch, log_s, log_q, bins, l_max)
+    bmin_k, barg_k = gls_binned_race(log_s, log_q, bins, l_max=l_max)
+    bmin_p, barg_p = gls_binned_race_plain(log_s, log_q, bins, l_max=l_max)
+    torch.cuda.synchronize()
+    assert torch.equal(barg_k, barg_p), "gls_binned_race argmin != plain"
+    assert torch.equal(bmin_k.view(torch.int32), bmin_p.view(torch.int32)), \
+        "gls_binned_race min != plain (bitwise)"
+    assert int(barg_k[1, 0, 1 % l_max]) == tie
+    assert int(barg_k[4, 2, 0]) == neg0 and \
+        bool(torch.signbit(bmin_k[4, 2, 0]))
+    assert bool((bmin_k[3, -1] == float("inf")).all())
+    assert bool((barg_k[3, -1] == 0).all())
+    if l_max > 1:
+        assert bool((bmin_k[0, :, -1] == float("inf")).all())
+    err = float((bmin_k - bmin_p).abs().nan_to_num(0.0).max())
+    score = torch.where(torch.isfinite(log_q), log_s - log_q,
+                        torch.tensor(float("inf"), device=dev))
+    index = bins[:, None, :].expand(b, r, n).long()
+    base = torch.full((b, r, l_max), float("inf"), device=dev)
+    nbytes = 2 * b * r * n * 4 + b * n * 4 + 2 * b * r * l_max * 4
+    t_bound, by = bound(nbytes, 3 * b * r * n)
+    return {
+        "name": "gls_binned_race", "route": "cuda",
+        "source": "src/repro_torch/kernels/gls_race/binned_race.cu",
+        "replaces": "src/repro/kernels/gls_race/kernel.py:294",
+        "shape": f"log_s/log_q ({b}, {r}, {n}) f32, bins ({b}, {n}) i32, "
+                 f"l_max {l_max}",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: gls_binned_race(log_s, log_q, bins,
+                                              l_max=l_max)),
+        "plain_ms": time_ms(lambda: gls_binned_race_plain(
+            log_s, log_q, bins, l_max=l_max), samples=5, batch=1, warmup=1),
+        "library_ms": time_ms(lambda: base.scatter_reduce(
+            2, index, score, "amin")),
+        "library": "scatter_reduce('amin') over (row, bin) of a precomputed "
+                   "masked score: the minima only, no argmin",
+        "bound_ms": t_bound, "bound_by": by,
+    }
+
+
+def kernel_joint(torch, dev, vocab: int):
+    """The joint race at the serving race shape: S * (L + 1) rows of K
+    drafts over the vocabulary."""
+    from repro_torch.kernels.gls_race.ops import gls_race
+    from repro_torch.kernels.gls_race.ref import gls_race_plain
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 20)
+    b, k, n = S_SLOTS * (L_DRAFT + 1), K_DRAFTS, vocab
+    u = torch.rand((b, k, n), generator=g, device=dev).clamp_min(1e-30)
+    log_s = torch.log(-torch.log(u))
+    log_p = torch.log_softmax(torch.randn((b, k, n), generator=g,
+                                          device=dev), dim=-1)
+    log_q = torch.log_softmax(torch.randn((b, k, n), generator=g,
+                                          device=dev), dim=-1)
+    for t in (log_p, log_q):
+        t[torch.rand((b, k, n), generator=g, device=dev) < 0.3] = \
+            float("-inf")
+    active = torch.rand((b, k), generator=g, device=dev) < 0.7
+    active[:, 0] = True
+    # Exact ties (draft row (0, 0) and the target of row 0 across two
+    # drafts), a +inf weight, an all-dead draft row, a row with no
+    # active draft.
+    log_s[0, :, [300, 100]] = -40.0
+    log_p[0, 0, [300, 100]] = 0.0
+    log_q[0, 0, 300] = 0.0
+    log_q[0, -1, 100] = 0.0
+    active[0, -1] = True
+    log_s[1, 0, 7] = -100.0
+    log_p[1, 0, 7] = float("inf")
+    log_q[1, 0, 7] = float("inf")
+    log_p[2, -1] = float("-inf")
+    active[3] = False
+    x_k, y_k = gls_race(log_s, log_p, log_q, active)
+    x_p, y_p = gls_race_plain(log_s, log_p, log_q, active)
+    torch.cuda.synchronize()
+    assert torch.equal(x_k, x_p) and torch.equal(y_k, y_p), \
+        "gls_race != plain"
+    assert int(x_k[0, 0]) == 100 and int(y_k[0]) == 100
+    assert int(x_k[1, 0]) != 7 and int(x_k[2, -1]) == 0 and int(y_k[3]) == 0
+    score = torch.where(torch.isfinite(log_p), log_s - log_p,
+                        torch.tensor(float("inf"), device=dev))
+    nbytes = 3 * b * k * n * 4 + b * k + (b * k + b) * 4
+    t_bound, by = bound(nbytes, 6 * b * k * n)
+    return {
+        "name": "gls_race", "route": "cuda",
+        "source": "src/repro_torch/kernels/gls_race/joint_race.cu",
+        "replaces": "src/repro/kernels/gls_race/kernel.py:369",
+        "shape": f"log_s/log_p/log_q ({b}, {k}, {n}) f32, active ({b}, {k})",
+        "max_abs_err": 0.0,
+        "ms": time_ms(lambda: gls_race(log_s, log_p, log_q, active)),
+        "plain_ms": time_ms(lambda: gls_race_plain(log_s, log_p, log_q,
+                                                   active)),
+        "library_ms": time_ms(lambda: torch.min(score, dim=-1)),
+        "library": "torch.min(score, -1) on a precomputed draft score: the "
+                   "draft races only, no target race and no mask",
         "bound_ms": t_bound, "bound_by": by,
     }
 
@@ -352,6 +515,133 @@ def phase_self_draft(torch, dev, target):
     return acc
 
 
+# ---------------------------------------------------------------------------
+# Phases 5 and 6: compression and the joint race
+# ---------------------------------------------------------------------------
+
+
+def phase_compress(torch, dev):
+    from repro_torch import random as R
+    from repro_torch.compression import gaussian as G
+    from repro_torch.compression.pipeline import check_wz_batch, WZBatch
+    from repro_torch.kernels.mode import launch_counts, reset_launch_counts
+    cfg = G.GaussianWZ(sigma2_w_given_a=WZ_SIGMA2, n_atoms=WZ_ATOMS)
+    key = R.PRNGKey(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = G.run_experiment(key, cfg, WZ_K, WZ_LMAX, WZ_TRIALS,
+                           backend="kernel", batch_size=WZ_BATCH,
+                           device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    chunks = -(-WZ_TRIALS // WZ_BATCH)
+    assert counts.get("gls_binned_race", 0) == chunks, (counts, chunks)
+    margin = res["match_prob_any"] - res["match_lower_bound"]
+    log(f"compress: {WZ_TRIALS} trials, B={WZ_BATCH} N={WZ_ATOMS} "
+        f"K={WZ_K} l_max={WZ_LMAX} sigma2_w|a={WZ_SIGMA2}: "
+        f"{WZ_TRIALS / wall:.1f} trials/s ({wall:.3f}s), peak device "
+        f"memory {peak:.2f} GiB, launches={counts}; match_prob_any="
+        f"{res['match_prob_any']:.4f} bound={res['match_lower_bound']:.4f} "
+        f"(margin {margin:+.4f}, allowance {BOUND_ALLOWANCE}) distortion="
+        f"{res['distortion_db']:.2f} dB")
+    assert margin >= -BOUND_ALLOWANCE, res
+    # Every chunk again through both backends: equal outputs, the guard
+    # passes.
+    keys = R.split(key.to(dev), WZ_TRIALS)
+    for i in range(0, WZ_TRIALS, WZ_BATCH):
+        outs = [G._batch_trials(keys[i:i + WZ_BATCH], cfg, WZ_K, WZ_LMAX,
+                                False, backend) for backend in ("kernel",
+                                                                "torch")]
+        for name, a, c in zip(("match", "best_sq", "info_bits", "y",
+                               "message", "x", "ok"), *outs):
+            assert torch.equal(a, c), f"chunk {i}: {name} kernel != torch"
+        match, _, _, y, message, x, ok = outs[0]
+        check_wz_batch(WZBatch(y, message, x, match, ok), n_atoms=WZ_ATOMS,
+                       l_max=WZ_LMAX, what=f"chunk {i}")
+    log(f"compress: {chunks} chunks, kernel == torch backend on every "
+        f"output; validate_wz_batch passed")
+    # A small case against the JAX reference's recorded match rates.
+    small = G.run_experiment(key, G.GaussianWZ(sigma2_w_given_a=WZ_SIGMA2,
+                                               n_atoms=2048), 4, 8, 200,
+                             backend="kernel", device=dev)
+    got = (small["match_prob_any"], small["match_prob_each"])
+    log(f"compress: small case (N=2048, K=4, l_max=8, 200 trials) match "
+        f"{got}, JAX reference {JAX_SMALL_CASE}")
+    assert got == JAX_SMALL_CASE, (got, JAX_SMALL_CASE)
+    return counts, {"trials_per_s": WZ_TRIALS / wall, "wall_s": wall,
+                    "peak_gib": peak, **res}
+
+
+def phase_fig2(torch, dev):
+    from repro_torch import random as R
+    from repro_torch.compression import gaussian as G
+    cfg = G.GaussianWZ(sigma2_w_given_a=WZ_SIGMA2, n_atoms=GRID_ATOMS)
+    key = R.PRNGKey(SEED)
+    log(f"fig2 (N={GRID_ATOMS}, {GRID_TRIALS} trials, sigma2_w|a="
+        f"{WZ_SIGMA2}): rate K  GLS match / D(dB)  baseline match / D(dB)"
+        f"  bound  GLS-bound")
+    rows = []
+    for l_max in (2, 8, 64):
+        for k in (1, 2, 4):
+            gls_r = G.run_experiment(key, cfg, k, l_max, GRID_TRIALS,
+                                     backend="kernel", device=dev)
+            base = G.run_experiment(key, cfg, k, l_max, GRID_TRIALS,
+                                    shared_sheet=True, backend="kernel",
+                                    device=dev)
+            margin = gls_r["match_prob_any"] - gls_r["match_lower_bound"]
+            log(f"fig2: {gls_r['rate_bits']:.0f} {k}  "
+                f"{gls_r['match_prob_any']:.4f} / "
+                f"{gls_r['distortion_db']:.2f}  "
+                f"{base['match_prob_any']:.4f} / {base['distortion_db']:.2f}"
+                f"  {gls_r['match_lower_bound']:.4f}  {margin:+.4f}")
+            if k == 1:
+                assert gls_r == base, ("GLS != baseline at K=1", gls_r, base)
+            assert margin >= -BOUND_ALLOWANCE, (l_max, k, gls_r)
+            rows.append((l_max, k, gls_r, base))
+    return rows
+
+
+def phase_gls(torch, dev):
+    """The joint race kernel against the port's Algorithm 1 on the same
+    sheets (as tests/test_kernel_engine_integration.py holds the Pallas
+    kernel against the engine's verifier)."""
+    from repro_torch import random as R
+    from repro_torch.core import gls as C
+    from repro_torch.kernels.gls_race.ops import gls_race
+    from repro_torch.kernels.mode import launch_counts, reset_launch_counts
+    b, k, n = S_SLOTS * (L_DRAFT + 1), K_DRAFTS, 49152
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 30)
+    ps = torch.softmax(2.0 * torch.randn((b, k, n), generator=g,
+                                         device=dev), dim=-1)
+    q = torch.softmax(2.0 * torch.randn((b, n), generator=g, device=dev),
+                      dim=-1)
+    ps[:, :, :16] = 0.0                 # zero-probability symbols
+    keys = R.split(R.PRNGKey(SEED).to(dev), b)
+    ref = C.gls_sample_heterogeneous(keys, ps, q)
+    log_s = C.exponential_races(keys, k, n)
+    log_p = C._safe_log(ps)
+    log_q = C._safe_log(q)[:, None, :].expand(b, k, n)
+    active = torch.ones((b, k), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    x, y = gls_race(log_s, log_p, log_q, active)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    assert counts.get("gls_race", 0) == 1, counts
+    assert torch.equal(x, ref.x) and torch.equal(y, ref.y), \
+        "gls_race != core.gls.gls_sample_heterogeneous"
+    assert bool((x >= 16).all())
+    acc = float(ref.accept.float().mean())
+    log(f"gls: gls_race == gls_sample_heterogeneous on {b} rows x {k} "
+        f"drafts x {n} symbols; acceptance {acc:.3f}; launches={counts}")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -392,8 +682,11 @@ def main() -> int:
     buf_len = PROMPT_MAX + MAX_NEW + L_DRAFT + 2
     kernels = [kernel_race(torch, dev, cfg.vocab_size),
                kernel_decode(torch, dev, cfg, buf_len),
-               kernel_flash(torch, dev, cfg, 256, buf_len)]
-    for kr in kernels:
+               kernel_flash(torch, dev, cfg, 256, buf_len),
+               kernel_binned(torch, dev, WZ_LMAX),
+               kernel_joint(torch, dev, cfg.vocab_size)]
+    binned_l2 = kernel_binned(torch, dev, 2)
+    for kr in kernels + [binned_l2]:
         log(f"kernel {kr['name']} [{kr['shape']}]: max_abs_err="
             f"{kr['max_abs_err']:.3g} kernel {kr['ms']:.4f} ms, plain "
             f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']:.4f} ms "
@@ -413,6 +706,18 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_self_draft(torch, dev, target)
     log(f"phase self-draft: {time.perf_counter() - t0:.1f}s")
+
+    # Phase 5: Wyner-Ziv compression through the binned race kernel.
+    t0 = time.perf_counter()
+    wz_counts, _ = phase_compress(torch, dev)
+    counts["gls_binned_race"] = wz_counts.get("gls_binned_race", 0)
+    phase_fig2(torch, dev)
+    log(f"phase compress: {time.perf_counter() - t0:.1f}s")
+
+    # Phase 6: the joint race against Algorithm 1.
+    t0 = time.perf_counter()
+    counts["gls_race"] = phase_gls(torch, dev).get("gls_race", 0)
+    log(f"phase gls: {time.perf_counter() - t0:.1f}s")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB; total {time.perf_counter() - t_start:.1f}s")
 

@@ -1,9 +1,11 @@
-"""PyTorch + CUDA port of the GLS speculative-decoding serving path.
+"""PyTorch + CUDA port of the GLS speculative-decoding serving path, the
+GLS core and the Gaussian Wyner-Ziv compression path.
 
 A second package beside the JAX reference ``repro``: same module layout
-(``models/``, ``kernels/<name>/``, ``specdec/``, ``launch/``,
-``configs/``), PyTorch idiom inside, and hand-written CUDA kernels for
-the three Pallas kernels on the serving path (``kernels/gls_race``,
+(``core/``, ``compression/``, ``models/``, ``kernels/<name>/``,
+``specdec/``, ``serving/``, ``launch/``, ``configs/``), PyTorch idiom
+inside, and hand-written CUDA kernels for the Pallas kernels on those
+paths (``kernels/gls_race``: the row, binned and joint races;
 ``kernels/decode_attention``, ``kernels/flash_attention``).  It imports
 ``torch`` and ``numpy`` only -- never ``jax`` and nothing of ``repro``.
 

@@ -32,6 +32,14 @@ void launch_flash_attention(const float* q, const float* k, const float* v,
                             int B, int H, int Hkv, int S, int T, int window,
                             cudaStream_t stream);
 int flash_attention_head_dim();
+void launch_gls_binned_race(const float* log_s, const float* log_q,
+                            const int* bins, float* bmin, int* barg,
+                            int batch, int rows_per_batch, int n, int l_max,
+                            cudaStream_t stream);
+int gls_binned_race_max_bins();
+void launch_gls_race(const float* log_s, const float* log_p,
+                     const float* log_q, const bool* active, int* x, int* y,
+                     int batch, int k_drafts, int n, cudaStream_t stream);
 
 namespace {
 
@@ -79,6 +87,71 @@ std::vector<torch::Tensor> gls_row_race(torch::Tensor log_s,
                       c10::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {rmin, rarg};
+}
+
+std::vector<torch::Tensor> gls_binned_race(torch::Tensor log_s,
+                                           torch::Tensor log_q,
+                                           torch::Tensor bins,
+                                           int64_t l_max) {
+  check_tensor(log_s, "log_s", torch::kFloat32, 3);
+  check_tensor(log_q, "log_q", torch::kFloat32, 3);
+  check_tensor(bins, "bins", torch::kInt32, 2);
+  check_same_device(log_s, log_q);
+  check_same_device(log_s, bins);
+  TORCH_CHECK(log_s.sizes() == log_q.sizes(), "log_s/log_q shape mismatch");
+  const int64_t b = log_s.size(0), k = log_s.size(1), n = log_s.size(2);
+  TORCH_CHECK(bins.size(0) == b && bins.size(1) == n,
+              "bins must be (B, N) of log_s (B, K, N)");
+  TORCH_CHECK(l_max >= 1 && l_max <= gls_binned_race_max_bins(),
+              "gls_binned_race: l_max " + std::to_string(l_max) +
+              " outside [1, " + std::to_string(gls_binned_race_max_bins()) +
+              "]");
+  TORCH_CHECK(n > 0 && n < INT32_MAX && b * k < INT32_MAX,
+              "gls_binned_race: unsupported shape");
+  const c10::cuda::CUDAGuard guard(log_s.device());
+  auto bmin = torch::empty({b, k, l_max}, log_s.options());
+  auto barg = torch::empty({b, k, l_max},
+                           log_s.options().dtype(torch::kInt32));
+  if (b * k == 0) return {bmin, barg};
+  launch_gls_binned_race(log_s.data_ptr<float>(), log_q.data_ptr<float>(),
+                         bins.data_ptr<int>(), bmin.data_ptr<float>(),
+                         barg.data_ptr<int>(), static_cast<int>(b),
+                         static_cast<int>(k), static_cast<int>(n),
+                         static_cast<int>(l_max),
+                         c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {bmin, barg};
+}
+
+std::vector<torch::Tensor> gls_race(torch::Tensor log_s, torch::Tensor log_p,
+                                    torch::Tensor log_q,
+                                    torch::Tensor active) {
+  check_tensor(log_s, "log_s", torch::kFloat32, 3);
+  check_tensor(log_p, "log_p", torch::kFloat32, 3);
+  check_tensor(log_q, "log_q", torch::kFloat32, 3);
+  check_tensor(active, "active", torch::kBool, 2);
+  check_same_device(log_s, log_p);
+  check_same_device(log_s, log_q);
+  check_same_device(log_s, active);
+  TORCH_CHECK(log_s.sizes() == log_p.sizes() &&
+              log_s.sizes() == log_q.sizes(),
+              "log_s/log_p/log_q shape mismatch");
+  const int64_t b = log_s.size(0), k = log_s.size(1), n = log_s.size(2);
+  TORCH_CHECK(active.size(0) == b && active.size(1) == k,
+              "active must be (B, K) of log_s (B, K, N)");
+  TORCH_CHECK(n > 0 && n < INT32_MAX && b * k < INT32_MAX,
+              "gls_race: unsupported shape");
+  const c10::cuda::CUDAGuard guard(log_s.device());
+  auto x = torch::empty({b, k}, log_s.options().dtype(torch::kInt32));
+  auto y = torch::empty({b}, log_s.options().dtype(torch::kInt32));
+  if (b == 0) return {x, y};
+  launch_gls_race(log_s.data_ptr<float>(), log_p.data_ptr<float>(),
+                  log_q.data_ptr<float>(), active.data_ptr<bool>(),
+                  x.data_ptr<int>(), y.data_ptr<int>(), static_cast<int>(b),
+                  static_cast<int>(k), static_cast<int>(n),
+                  c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {x, y};
 }
 
 torch::Tensor decode_attention(torch::Tensor q, torch::Tensor k,
@@ -151,6 +224,10 @@ torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gls_row_race", &gls_row_race,
         "per-row (min, argmin) of the GLS race table");
+  m.def("gls_binned_race", &gls_binned_race,
+        "per-(row, sheet, bin) (min, argmin) of the binned GLS race");
+  m.def("gls_race", &gls_race,
+        "draft argmins and the active target argmin of the joint GLS race");
   m.def("decode_attention", &decode_attention,
         "one-query GQA decode attention over a KV cache");
   m.def("flash_attention", &flash_attention,

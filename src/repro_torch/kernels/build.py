@@ -21,6 +21,8 @@ BUILD_DIR = _REPO_ROOT / "build" / "repro_torch_kernels"
 SOURCES = (
     _KERNEL_DIR / "binding.cpp",
     _KERNEL_DIR / "gls_race" / "row_race.cu",
+    _KERNEL_DIR / "gls_race" / "binned_race.cu",
+    _KERNEL_DIR / "gls_race" / "joint_race.cu",
     _KERNEL_DIR / "decode_attention" / "decode_attention.cu",
     _KERNEL_DIR / "flash_attention" / "flash_attention.cu",
 )

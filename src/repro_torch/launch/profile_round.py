@@ -57,14 +57,18 @@ def _union_us(intervals) -> float:
     return total
 
 
-def analyse(trace: dict, rounds: int) -> dict:
+def analyse(trace: dict, rounds: int, prefix: str = "round/",
+            step: str = "serve/step") -> dict:
+    """Per-step numbers of a Chrome trace of ``rounds`` steps, each under
+    a ``step`` range, with phase ranges named ``prefix<phase>``."""
     events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
     device = [e for e in events if e.get("cat") in _DEVICE_CATS]
     ranges = [e for e in events if e.get("cat") == "user_annotation"
-              and str(e.get("name", "")).startswith("round/")]
+              and str(e.get("name", "")).startswith(prefix)
+              and e.get("name") != step]
     steps = [(e["ts"], e["ts"] + e["dur"]) for e in events
              if e.get("cat") == "user_annotation"
-             and e.get("name") == "serve/step"]
+             and e.get("name") == step]
     launches = {e["args"].get("correlation"): e["ts"] for e in events
                 if e.get("cat") == "cuda_runtime" and "args" in e}
     busy_us = _union_us((e["ts"], e["ts"] + e["dur"]) for e in device)

@@ -12,7 +12,10 @@ as JAX.  This module reproduces ``jax.random`` as JAX 0.9.0 runs it with
 * ``random_bits(key, shape)`` hashes the row-major flat index of every
   element and XORs the two output words;
 * ``uniform`` keeps the top 23 bits as a mantissa in [1, 2), subtracts
-  1, scales to [minval, maxval) and clamps at ``minval``.
+  1, scales to [minval, maxval) and clamps at ``minval``;
+* ``exponential`` is ``-log1p(-u)``, ``normal`` is ``sqrt(2) *
+  erf_inv(u)`` over ``u`` in [nextafter(-1, 0), 1), and ``randint``
+  reduces two 32-bit streams modulo the span, as ``jax.random`` does.
 
 uint32 arithmetic is held in int64 tensors and masked after every add
 and shift, so the same code runs on the CPU and on the card as plain
@@ -130,3 +133,69 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     last ulp, so a draw can differ only at a Gumbel near-tie."""
     g = gumbel(key, (logits.shape[-1],))
     return torch.argmax(g + logits, dim=-1)
+
+
+def exponential(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.exponential`` in float32: ``-log1p(-u)``.  The uniform
+    bits are exact; torch's ``log1p`` may differ from XLA's in the last
+    ulp, so the draws agree to rtol 2.4e-7."""
+    return -torch.log1p(-uniform(key, shape))
+
+
+# Giles' single-precision erf^-1 ("Approximating the erfinv function",
+# GPU Computing Gems, 2011): the polynomial XLA evaluates for float32
+# ``erf_inv``, one branch for w = -log1p(-x^2) < 5 and one beyond.
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function as XLA computes it (``torch.erfinv``
+    is another approximation and differs on most inputs).  Each Horner
+    step ``c + p * w`` is one fused multiply-add in XLA's float32 code;
+    it is formed here in float64, where ``p * w`` is exact, and rounded
+    back, which gives the fused result on every device.  ``±1`` maps to
+    ``±inf``."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    coef = [(float(np.float32(a)), float(np.float32(b)))
+            for a, b in zip(_ERFINV_W_LT_5, _ERFINV_W_GE_5)]
+    p = torch.where(small, *coef[0])
+    for a, b in coef[1:]:
+        p = (torch.where(small, a, b).double() + p.double() * w).float()
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+_SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)`` with
+    ``u`` uniform in [nextafter(-1, 0), 1).  The uniform bits are exact;
+    ``log1p`` inside ``erf_inv`` may differ from XLA's by an ulp, so the
+    draws agree to rtol 4e-7 (about 3 ulp)."""
+    return _SQRT2_F32 * erf_inv(uniform(key, shape, _NORMAL_LO, 1.0))
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` for int32, bit for bit: two 32-bit streams
+    from ``split(key)`` reduced modulo ``span = maxval - minval`` through
+    a multiplier formed in wrapping uint32 arithmetic, as JAX forms it.
+    An empty range returns ``minval``, as JAX does."""
+    minval, maxval = int(minval), int(maxval)
+    if not -(1 << 31) <= minval <= maxval < (1 << 31):
+        raise ValueError(f"randint range [{minval}, {maxval}) is not int32")
+    span = max(maxval - minval, 1)
+    keys = split(key, 2)
+    hi = random_bits(keys[..., 0, :], shape)
+    lo = random_bits(keys[..., 1, :], shape)
+    mult = (((1 << 16) % span) ** 2 & _MASK) % span
+    offset = ((hi % span) * mult & _MASK) + lo % span
+    return ((offset & _MASK) % span + minval).to(torch.int32)

@@ -4,10 +4,10 @@ against the JAX reference, on the same numpy inputs.  The CUDA kernels
 themselves run only on the card: their kernel-vs-plain tests carry the
 ``cuda`` marker and skip here.
 
-Tolerances: the row race is bit-exact (a min/argmin reduction over the
-same floats); attention is allclose at rtol 1e-5 / atol 1e-6, because
-the Pallas kernel's online softmax sums in another float32 order than
-one dense softmax.
+Tolerances: the three races (row, binned, joint) are bit-exact (min/
+argmin reductions over the same floats); attention is allclose at rtol
+1e-5 / atol 1e-6, because the Pallas kernel's online softmax sums in
+another float32 order than one dense softmax.
 
 The JAX side is imported inside the CPU tests, so the ``cuda`` tests run
 on a machine with the card and no JAX:
@@ -21,8 +21,11 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
-from repro_torch.kernels.gls_race.ops import gls_row_race
-from repro_torch.kernels.gls_race.ref import gls_row_race_plain
+from repro_torch.kernels.gls_race.ops import (gls_binned_race, gls_race,
+                                              gls_row_race)
+from repro_torch.kernels.gls_race.ref import (gls_binned_race_plain,
+                                              gls_race_plain,
+                                              gls_row_race_plain)
 from repro_torch.kernels.mode import launch_counts, use_kernel
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -39,12 +42,16 @@ def jx():
     from repro.kernels.decode_attention.ref import decode_attention_ref
     from repro.kernels.flash_attention.kernel import flash_attention
     from repro.kernels.flash_attention.ref import flash_attention_ref
-    from repro.kernels.gls_race.kernel import gls_row_race
-    from repro.kernels.gls_race.ref import gls_row_race_ref
+    from repro.kernels.gls_race.kernel import (gls_binned_race, gls_race,
+                                               gls_row_race)
+    from repro.kernels.gls_race.ref import (gls_binned_race_ref, gls_race_ref,
+                                            gls_row_race_ref)
     return types.SimpleNamespace(
         jnp=jnp, decode=decode_attention, decode_ref=decode_attention_ref,
         flash=flash_attention, flash_ref=flash_attention_ref,
-        row_race=gls_row_race, row_race_ref=gls_row_race_ref)
+        row_race=gls_row_race, row_race_ref=gls_row_race_ref,
+        binned=gls_binned_race, binned_ref=gls_binned_race_ref,
+        joint=gls_race, joint_ref=gls_race_ref)
 
 
 @pytest.fixture
@@ -100,6 +107,120 @@ def test_row_race_plain_masks_nonfinite_log_q(jx):
     rm, ra = jx.row_race_ref(jx.jnp.asarray(log_s), jx.jnp.asarray(log_q))
     assert int(a[0, 0]) == int(ra[0, 0]) == 0
     assert float(m[0, 0]) == float(rm[0, 0]) == 1.0
+
+
+def _binned_inputs(b, k, n, l_max, seed):
+    """Race tables with dead atoms, +inf garbage weights, exact ties, an
+    empty bin, an all-dead row, a -0.0 minimum tied with a later +0.0,
+    and a bin id outside [0, l_max) (an atom of no bin)."""
+    rng = np.random.RandomState(seed)
+    log_s = np.log(rng.exponential(size=(b, k, n))).astype(np.float32)
+    log_q = rng.randn(b, k, n).astype(np.float32)
+    log_q[rng.uniform(size=(b, k, n)) < 0.2] = -np.inf
+    log_q[rng.uniform(size=(b, k, n)) < 0.02] = np.inf
+    bins = rng.randint(0, l_max, (b, n)).astype(np.int32)
+    # Exact ties in one bin of row (0, 0): the lower atom index wins.
+    i, j = n // 5, n // 3
+    bins[0, [i, j]] = 0
+    log_s[0, 0, [i, j]] = -30.0
+    log_q[0, 0, [i, j]] = 0.0
+    # A +inf weight with the smallest score of its row stays dead.
+    log_s[0, -1, n // 2] = -100.0
+    log_q[0, -1, n // 2] = np.inf
+    if l_max > 1:
+        bins[-1][bins[-1] == l_max - 1] = 0          # an empty bin
+        bins[-1, 1] = l_max                          # an atom of no bin
+    log_q[-1, -1] = -np.inf                          # an all-dead row
+    if b > 1:
+        # -0.0 at a lower index than +0.0, both the minimum of bin 0.
+        in0 = np.flatnonzero(bins[1] == 0)
+        log_s[1, 0, in0] = 5.0
+        log_q[1, 0, in0] = 0.0
+        log_s[1, 0, in0[:2]] = (-0.0, 0.0)
+    return log_s, log_q, bins
+
+
+@pytest.mark.parametrize("b,k,n,l_max", [(1, 1, 128, 1), (3, 5, 500, 2),
+                                         (4, 3, 1000, 8), (2, 5, 777, 64)])
+def test_binned_race_plain_bit_exact(jx, b, k, n, l_max):
+    """Plain binned race == JAX ref bit for bit (minima compared as int32
+    patterns), and == the JAX interpret kernel in value and index.  The
+    two JAX versions differ in one bit: at a -0.0 minimum tied with a
+    later +0.0 the reference gathers the winning atom's -0.0 while the
+    Pallas body's ``min`` reports +0.0.  The port follows the
+    reference."""
+    log_s, log_q, bins = _binned_inputs(b, k, n, l_max, seed=n + l_max)
+    pm, pa = gls_binned_race_plain(torch.from_numpy(log_s),
+                                   torch.from_numpy(log_q),
+                                   torch.from_numpy(bins), l_max=l_max)
+    args = [jx.jnp.asarray(x) for x in (log_s, log_q, bins)]
+    km, ka = jx.binned(*args, l_max=l_max, interpret=True)
+    rm, ra = jx.binned_ref(*args, l_max=l_max)
+    np.testing.assert_array_equal(np.asarray(rm).view(np.int32),
+                                  pm.numpy().view(np.int32))
+    np.testing.assert_array_equal(np.asarray(km), pm.numpy())
+    for a in (ka, ra):
+        np.testing.assert_array_equal(np.asarray(a), pa.numpy())
+    assert pa.dtype == torch.int32 and pm.shape == (b, k, l_max)
+    if b * k > 1:
+        assert int(pa[0, 0, 0]) == n // 5              # lower index wins
+    assert (pm[-1, -1] == np.inf).all() and (pa[-1, -1] == 0).all()
+    if l_max > 1:
+        assert (pm[-1, :, -1] == np.inf).all() and (pa[-1, :, -1] == 0).all()
+    if b > 1:
+        assert float(pm[1, 0, 0]) == 0.0 and np.signbit(float(pm[1, 0, 0]))
+
+
+def _joint_inputs(b, k, n, seed, plant_posinf=True):
+    rng = np.random.RandomState(seed)
+    u = rng.uniform(1e-6, 1.0, (b, k, n)).astype(np.float32)
+    log_s = np.log(-np.log(u)).astype(np.float32)
+    log_p = np.log(rng.dirichlet(np.ones(n), (b, k))).astype(np.float32)
+    log_q = np.log(rng.dirichlet(np.ones(n), (b, k))).astype(np.float32)
+    log_p[rng.uniform(size=(b, k, n)) < 0.3] = -np.inf
+    log_q[rng.uniform(size=(b, k, n)) < 0.3] = -np.inf
+    active = rng.uniform(size=(b, k)) < 0.7
+    active[:, 0] = True
+    # Exact ties: draft (0, 0) and the target of row 0 (across drafts).
+    i, j = n // 3, n // 5
+    log_s[0, :, [i, j]] = -40.0
+    log_p[0, 0, [i, j]] = 0.0
+    log_q[0, 0, j] = 0.0
+    log_q[0, -1, i] = 0.0
+    active[0, -1] = True
+    if plant_posinf:
+        log_s[-1, 0, 7] = -100.0
+        log_p[-1, 0, 7] = np.inf
+        log_q[-1, 0, 7] = np.inf
+    if b > 1:
+        log_p[1, -1] = -np.inf        # an all-dead draft row
+        active[2 % b] = False         # a row with no active draft
+    return log_s, log_p, log_q, active
+
+
+@pytest.mark.parametrize("b,k,n", [(1, 1, 128), (3, 4, 300), (5, 8, 1000)])
+def test_joint_race_plain_bit_exact(jx, b, k, n):
+    """Plain joint race == JAX ref on every input (ties, dead rows, no
+    active draft, +inf weights), and == the interpret kernel where no
+    weight is +inf: the Pallas body masks ``> -inf`` and would let a +inf
+    weight win, the reference (and the port) mask ``isfinite``."""
+    for posinf in (True, False):
+        log_s, log_p, log_q, active = _joint_inputs(b, k, n, n, posinf)
+        px, py = gls_race_plain(*[torch.from_numpy(x) for x in
+                                  (log_s, log_p, log_q, active)])
+        args = [jx.jnp.asarray(x) for x in (log_s, log_p, log_q, active)]
+        outs = [jx.joint_ref(*args)]
+        if not posinf:
+            outs.append(jx.joint(*args, tile_n=128, interpret=True))
+        for x, y in outs:
+            np.testing.assert_array_equal(np.asarray(x), px.numpy())
+            np.testing.assert_array_equal(np.asarray(y), py.numpy())
+        assert px.dtype == py.dtype == torch.int32
+        assert int(px[0, 0]) == n // 5 and int(py[0]) == n // 5
+        if b > 1:
+            assert int(px[1, -1]) == 0 and int(py[2 % b]) == 0
+        if posinf:
+            assert int(px[-1, 0]) != 7
 
 
 def _attn_inputs(rng, b, h, hkv, s, t, d):
@@ -174,6 +295,13 @@ def test_wrappers_take_plain_route_on_cpu():
                        decode_attention_plain(q[:, :, 0], k, v, kvl))
     assert torch.equal(flash_attention(q, k, v, off, kvl),
                        flash_attention_plain(q, k, v, off, kvl))
+    ins = [torch.from_numpy(x) for x in _binned_inputs(2, 3, 50, 4, 0)]
+    for a, b_ in zip(gls_binned_race(*ins, l_max=4),
+                     gls_binned_race_plain(*ins, l_max=4)):
+        assert torch.equal(a, b_)
+    ins = [torch.from_numpy(x) for x in _joint_inputs(3, 2, 50, 0)]
+    for a, b_ in zip(gls_race(*ins), gls_race_plain(*ins)):
+        assert torch.equal(a, b_)
     assert dict(launch_counts) == before
     assert not use_kernel(log_s)
     with pytest.raises(RuntimeError):
@@ -235,3 +363,34 @@ def test_attention_kernels_reject_uncompiled_head_dim(cuda):
         flash_attention(q, k, v, torch.zeros_like(kvl), kvl)
     with pytest.raises(RuntimeError, match="q has dtype Double"):
         flash_attention(q.double(), k, v, torch.zeros_like(kvl), kvl)
+
+
+@pytest.mark.cuda
+def test_binned_race_kernel_bit_exact_on_card(cuda):
+    """At the compression shape class (K + 1 = 5 rows, l_max up to 64)
+    and on the scalar-load path (N not a multiple of 4)."""
+    for b, k, n, l_max in ((64, 5, 4096, 64), (8, 5, 65536, 2),
+                           (16, 3, 301, 8), (2, 5, 777, 64)):
+        ins = [torch.from_numpy(x).to(cuda)
+               for x in _binned_inputs(b, k, n, l_max, seed=n + l_max)]
+        km, ka = gls_binned_race(*ins, l_max=l_max)
+        pm, pa = gls_binned_race_plain(*ins, l_max=l_max)
+        assert torch.equal(ka, pa)
+        assert torch.equal(km.view(torch.int32), pm.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_joint_race_kernel_bit_exact_on_card(cuda):
+    for b, k, n in ((20, 8, 49152), (3, 4, 301), (5, 8, 1000)):
+        ins = [torch.from_numpy(x).to(cuda)
+               for x in _joint_inputs(b, k, n, seed=n)]
+        for a, b_ in zip(gls_race(*ins), gls_race_plain(*ins)):
+            assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_binned_race_rejects_too_many_bins(cuda):
+    ins = [torch.from_numpy(x).to(cuda) for x in _binned_inputs(2, 3, 64, 4,
+                                                                 0)]
+    with pytest.raises(RuntimeError, match="l_max 65 outside"):
+        gls_binned_race(*ins, l_max=65)

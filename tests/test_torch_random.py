@@ -101,3 +101,76 @@ def test_block_randomness_matches(seed):
                                atol=0)
     assert np.asarray(jl).shape == tuple(tl.shape) == (4, 4, 300)
     assert np.isfinite(tl.numpy()).all() and (tl.numpy() < 0).all()
+
+
+# Tolerances of the float samplers: the uniform bits underneath are exact;
+# torch's ``log1p`` differs from XLA's in the last ulp on ~7 % of inputs,
+# so ``exponential`` (one log1p) agrees to rtol 2.4e-7 (1-2 ulp) and
+# ``normal`` (log1p inside erf_inv, then a degree-8 polynomial) to
+# rtol 4e-7 (about 3 ulp).
+EXP_RTOL, NORMAL_RTOL = 2.4e-7, 4e-7
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+@pytest.mark.parametrize("shape", [(7,), (3, 4, 300), (50_000,)])
+def test_exponential_matches(seed, shape):
+    je = np.asarray(jax.random.exponential(jax.random.PRNGKey(seed), shape))
+    te = R.exponential(R.PRNGKey(seed), shape).numpy()
+    np.testing.assert_allclose(te, je, rtol=EXP_RTOL, atol=0)
+    assert (te.view(np.int32) == je.view(np.int32)).mean() > 0.85
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+@pytest.mark.parametrize("shape", [(), (7,), (3, 4, 300), (50_000,)])
+def test_normal_matches(seed, shape):
+    jn = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape))
+    tn = R.normal(R.PRNGKey(seed), shape).numpy()
+    np.testing.assert_allclose(tn, jn, rtol=NORMAL_RTOL, atol=0)
+    assert (tn.view(np.int32) == jn.view(np.int32)).mean() > 0.95
+
+
+def test_erf_inv_matches_xla():
+    """The port's erf_inv against ``jax.lax.erf_inv`` (XLA's float32
+    polynomial) on 400k uniform inputs over (-1, 1) and the edges: within
+    rtol 4e-7, ±1 -> ±inf, 0 -> 0; ``torch.erfinv`` misses the same bar
+    (another approximation, off by up to ~6e-6 relative)."""
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    x = np.asarray(jax.random.uniform(jax.random.PRNGKey(7), (400_000,),
+                                      minval=lo, maxval=1.0))
+    # +-2^-23 is the smallest magnitude the uniform sampler gives besides
+    # 0 (XLA flushes a subnormal result to 0, PyTorch keeps it, so
+    # inputs below ~1e-38 are outside what the samplers reach).
+    edges = np.array([-1.0, lo, -0.5, -2.0**-23, 0.0, 2.0**-23, 0.5,
+                      np.nextafter(np.float32(1), np.float32(0)), 1.0],
+                     np.float32)
+    x = np.concatenate([x, edges])
+    want = np.asarray(jax.lax.erf_inv(x))
+    got = R.erf_inv(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=NORMAL_RTOL, atol=0)
+    assert got[-1] == np.inf and got[-9] == -np.inf and got[-5] == 0.0
+    assert (got.view(np.int32) == want.view(np.int32)).mean() > 0.95
+    loose = torch.erfinv(torch.from_numpy(x[:-9])).numpy()
+    assert not np.allclose(loose, want[:-9], rtol=NORMAL_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("lo,hi", [(0, 2), (0, 64), (0, 7), (-5, 1000),
+                                   (3, 3), (0, 2**31 - 1),
+                                   (-2**31, 2**31 - 1)])
+def test_randint_bit_exact(seed, lo, hi):
+    jr = np.asarray(jax.random.randint(jax.random.PRNGKey(seed), (3, 333),
+                                       lo, hi))
+    tr = R.randint(R.PRNGKey(seed), (3, 333), lo, hi)
+    assert tr.dtype == torch.int32
+    np.testing.assert_array_equal(jr, tr.numpy())
+
+
+def test_randint_batched_keys_match_vmap():
+    """``make_bins`` draws one bin row per trial key, as ``jax.vmap``."""
+    keys = jax.random.split(jax.random.PRNGKey(5), 6)
+    jr = np.asarray(jax.vmap(lambda k: jax.random.randint(k, (500,), 0, 8))(
+        keys))
+    np.testing.assert_array_equal(jr, R.randint(_t(keys), (500,), 0,
+                                                8).numpy())
+    with pytest.raises(ValueError):
+        R.randint(R.PRNGKey(0), (3,), 0, 2**31)
