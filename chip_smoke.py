@@ -42,11 +42,34 @@ when the port's sources are not beside this file.  Phases:
      shared-sheet baseline): GLS equals the baseline at K = 1;
   6. gls: the joint race kernel ``gls_race`` against
      ``core.gls.gls_sample_heterogeneous`` on the same sheets (20 rows,
-     K = 8, N = 49,152): equal draft and target selections.
+     K = 8, N = 49,152): equal draft and target selections;
+  7. ssm: Mamba-2 through the reference engine.  ``gls_row_race``
+     against its plain version at the reprefill verifier's shape (L + 1,
+     K, vocab) = (5, 8, 50280), bitwise, as in phase 2; the ``ssd_chunk``
+     kernel against its plain version at the serve shape (x (32, 4, 64, 32,
+     64): 4 requests x 8 drafts, a 230-token buffer in 4 chunks of 64;
+     atol = rtol = 5e-4 on y and the states, 1e-5 on the total, the
+     tolerances of the JAX kernel test), timed like the others; then
+     mamba2-370m at its published widths (48 layers): the logits of one
+     ``forward`` over 2 x 100 tokens (the kernel) against 100
+     ``decode_step`` calls (the recurrence, no kernel) at every
+     position, and against ``prefill`` of 99 tokens plus one
+     ``decode_step`` (the kernel's chunk states carried into the cache),
+     within 2e-3 (``tests/test_decode_consistency.py``); then serve it
+     (48-layer target, 4-layer drafter of the same widths, weights from
+     seeds 0 and 1) with ``SpecDecServer(cache_mode="reprefill")``
+     (batched), GLS, K = 8, L = 4, top-k 50, the kernel verifier, 4
+     requests with prompts of 64-192 tokens, 32 new tokens each (the
+     workload of ``repro_torch.launch.profile_reprefill``): completion,
+     token range, ``ssd_chunk`` launches equal to (4 L + 48) per round,
+     ``gls_row_race`` launches equal to the requests' blocks; and the
+     self-draft check (drafter = the 48-layer target, acceptance >=
+     0.9 L).
 
-Each of the paths of phases 3, 5 and 6 is driven with the launch counts
+Each of the paths of phases 3, 5, 6 and 7 is driven with the launch counts
 set to 0 just before it and read just after; the ``kernels`` line
-reports each kernel's launches from its own path.  The line before the
+reports each kernel's launches from its own path (``gls_row_race``: the
+sum over the kv_fused and the reprefill serve paths).  The line before the
 last is a JSON object ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Every phase failure is an
 exception, so the script exits non-zero after any failure.
@@ -81,6 +104,11 @@ SEED = 0
 WZ_SIGMA2 = 0.005
 WZ_BATCH, WZ_ATOMS, WZ_K, WZ_LMAX, WZ_TRIALS = 512, 2 ** 16, 4, 64, 2048
 GRID_ATOMS, GRID_TRIALS = 4096, 2000
+# Phase 7 serves the reprefill workload of
+# repro_torch.launch.profile_reprefill (model pair, K, L and traffic).
+# tests/test_ssd_kernel.py: the kernel against its reference, and
+# tests/test_decode_consistency.py: decode against forward.
+SSD_TOL, SSD_TOL_TOTAL, SSM_LOGIT_TOL = 5e-4, 1e-5, 2e-3
 # tests/test_compression.py::test_gaussian_match_rate_meets_prop4_bound
 # holds the match rate to its Prop.-4 bound less this allowance.
 BOUND_ALLOWANCE = 0.05
@@ -122,13 +150,16 @@ def bound(nbytes: float, flops: float):
 # ---------------------------------------------------------------------------
 
 
-def kernel_race(torch, dev, vocab: int):
+def kernel_race(torch, dev, rows: int, vocab: int):
+    """``gls_row_race`` against its plain version at (rows, K, vocab):
+    bitwise equal minima and argmins, with planted ties, a +inf log_q and
+    an all-dead row (``rows`` >= 4)."""
     from repro_torch.kernels.gls_race.ops import gls_row_race
     from repro_torch.kernels.gls_race.ref import gls_row_race_plain
     from repro_torch.specdec.engine import probs_from_logits
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
-    b, k, n = S_SLOTS * (L_DRAFT + 1), K_DRAFTS, vocab
+    b, k, n = rows, K_DRAFTS, vocab
     u = torch.rand((b, k, n), generator=g, device=dev).clamp_min(1e-30)
     log_s = torch.log(-torch.log(u))
     q = probs_from_logits(torch.randn((b, k, n), generator=g, device=dev),
@@ -642,6 +673,203 @@ def phase_gls(torch, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: Mamba-2 through the reference engine
+# ---------------------------------------------------------------------------
+
+
+def ssd_serve_shape(cfg):
+    """The ``ssd_chunk`` shape of the serve sub-phase: R * K rows and the
+    buffer of the longest request padded to whole chunks."""
+    from repro_torch.launch import profile_reprefill as W
+    q = cfg.ssm_chunk
+    return (W.REQUESTS * W.DRAFTS, -(-W.buffer_len() // q), q,
+            cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state)
+
+
+def _ssd_float64(torch, x, dt, a, b_in, c_in):
+    """``ssd_chunk_ref``'s y and states in float64: the yardstick that
+    says whether the kernel or the plain version sums more exactly."""
+    x, dt, a, b_in, c_in = (t.double() for t in (x, dt, a, b_in, c_in))
+    q = x.shape[2]
+    cum = torch.cumsum(dt * a, dim=2)                      # (b, nc, q, h)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    diff = cum[:, :, :, None] - cum[:, :, None]            # (b, nc, i, j, h)
+    decay = torch.where(tri[..., None], torch.exp(torch.where(
+        tri[..., None], diff, 0.0)), 0.0)
+    w = torch.einsum("bcin,bcjn->bcij", c_in, b_in)[..., None] * decay
+    xdt = x * dt[..., None]
+    rem = torch.exp(cum[:, :, -1:] - cum)
+    return (torch.einsum("bcijh,bcjhp->bcihp", w, xdt),
+            torch.einsum("bcjh,bcjn,bcjhp->bchpn", rem, b_in, xdt))
+
+
+def kernel_ssd(torch, dev, cfg):
+    """``ssd_chunk`` against its plain version at the serve shape, on the
+    input distributions of the JAX kernel test."""
+    from repro_torch.kernels.ssd_chunk.ops import ssd_chunk
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_plain
+    b, nc, q, h, p, n = ssd_serve_shape(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 40)
+    x = torch.randn((b, nc, q, h, p), generator=g, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, nc, q, h), generator=g, device=dev))
+    a = -torch.exp(0.3 * torch.randn((h,), generator=g, device=dev))
+    b_in = torch.randn((b, nc, q, n), generator=g, device=dev)
+    c_in = torch.randn((b, nc, q, n), generator=g, device=dev)
+    args = (x, dt, a, b_in, c_in)
+    got = ssd_chunk(*args)
+    want = ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, k_, p_, tol in zip(("y", "states", "total"), got, want,
+                                 (SSD_TOL, SSD_TOL, SSD_TOL_TOTAL)):
+        assert bool(torch.isfinite(k_).all()), f"ssd_chunk {name} not finite"
+        d = (k_ - p_).abs()
+        assert bool((d <= tol + tol * p_.abs()).all()), \
+            f"ssd_chunk {name}: max abs err {float(d.max())}"
+        err = max(err, float(d.max()))
+    exact = _ssd_float64(torch, *args)
+    err64 = {route: [float((o.double() - e).abs().max())
+                     for o, e in zip(outs[:2], exact)]
+             for route, outs in (("kernel", got), ("plain", want))}
+    del exact
+    # The library yardstick: the three products as torch.matmul calls
+    # over a precomputed decay, x dt and B (.) exp(total - cum).
+    cum = torch.cumsum(dt * a, dim=2).permute(0, 1, 3, 2)   # (b, nc, h, q)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dev))
+    diff = torch.where(tri, cum[..., :, None] - cum[..., None, :], 0.0)
+    decay = torch.where(tri, torch.exp(diff), 0.0)         # (b, nc, h, q, q)
+    xdt = (x * dt[..., None]).permute(0, 1, 3, 2, 4).contiguous()
+    brem = b_in[:, :, None] * torch.exp(cum[..., -1:] - cum)[..., None]
+
+    def products():
+        cb = torch.matmul(c_in, b_in.transpose(-1, -2))
+        yy = torch.matmul(cb[:, :, None] * decay, xdt)
+        st = torch.matmul(xdt.transpose(-1, -2), brem)
+        return yy, st
+
+    # The least work: C B^T on and below the diagonal once per (batch,
+    # chunk); per head the cumsum, the decay (subtract, exp), W, x dt,
+    # the causal half of W (x dt), B (.) rem and the state product.
+    tri_n = q * (q + 1) // 2
+    flops = b * nc * (tri_n * 2 * n + h * (
+        2 * q + 3 * tri_n + q * p + tri_n * 2 * p + q * n + 2 * q * n * p))
+    nbytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + b_in.numel()
+                  + c_in.numel() + got[1].numel() + got[2].numel())
+    t_bound, by = bound(nbytes, flops)
+    return {
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_chunk/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_chunk/kernel.py:61",
+        "shape": f"x ({b}, {nc}, {q}, {h}, {p}), B/C ({b}, {nc}, {q}, {n}) "
+                 f"f32",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ssd_chunk(*args)),
+        "plain_ms": time_ms(lambda: ssd_chunk_plain(*args)),
+        "library_ms": time_ms(products),
+        "library": "torch.matmul chain of the three products only (C B^T, "
+                   "(C B^T * decay) x dt, x dt^T (B * rem)) over a "
+                   "precomputed decay, x dt and B * rem",
+        "bound_ms": t_bound, "bound_by": by,
+        "flops": flops, "bytes": nbytes, "err_vs_float64": err64,
+    }
+
+
+def phase_ssm_reference(torch, dev, target):
+    """The chunked kernel path against the recurrence at full width: the
+    logits of one ``forward`` over 2 x 100 tokens against 100
+    ``decode_step`` calls from an empty cache at every position, and the
+    last position against ``prefill`` of 99 tokens plus one
+    ``decode_step``.  Tolerance 2e-3 absolute, the JAX test's."""
+    from repro_torch.models import decode_step, forward, init_cache, prefill
+    params, cfg = target
+    toks = torch.from_numpy(np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32)).to(dev)
+    full = forward(params, cfg, {"tokens": toks})
+    cache = init_cache(cfg, 2, 128, dev)
+    err_rec = 0.0
+    for i in range(100):
+        lg, cache = decode_step(params, cfg, toks[:, i:i + 1], cache)
+        err_rec = max(err_rec, float((lg - full[:, i]).abs().max()))
+    last, pre = prefill(params, cfg, {"tokens": toks[:, :99]},
+                        init_cache(cfg, 2, 128, dev))
+    lg, _ = decode_step(params, cfg, toks[:, 99:], pre)
+    err_pre = max(float((last - full[:, 98]).abs().max()),
+                  float((lg - full[:, 99]).abs().max()))
+    scale = float(full.abs().max())
+    log(f"ssm reference: {cfg.name} {cfg.num_layers} layers, forward (the "
+        f"ssd_chunk kernel) vs 100 decode steps (the recurrence): max abs "
+        f"logit err {err_rec:.3g}; vs prefill(99) + decode: {err_pre:.3g} "
+        f"(max |logit| {scale:.3g}, tolerance {SSM_LOGIT_TOL})")
+    assert bool(torch.isfinite(full).all()), "non-finite logits"
+    assert err_rec <= SSM_LOGIT_TOL, f"forward vs recurrence: {err_rec}"
+    assert err_pre <= SSM_LOGIT_TOL, f"forward vs prefill+decode: {err_pre}"
+    return err_rec, err_pre
+
+
+def phase_ssm_serve(torch, dev, target, drafter, smi):
+    from repro_torch import random as R
+    from repro_torch.kernels.mode import launch_counts, reset_launch_counts
+    from repro_torch.launch import profile_reprefill as W
+    vocab = target[1].vocab_size
+    engine, server = W.make_server(target, drafter, dev)
+    for p in W.workload_prompts(vocab, SEED):
+        server.submit(p, max_new=W.MAX_NEW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    done = server.run(R.PRNGKey(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m = server.metrics
+    assert len(done) == W.REQUESTS, f"{len(done)}/{W.REQUESTS} finished"
+    for r in done:
+        out = np.asarray(r.output)
+        assert len(out) == W.MAX_NEW, f"uid {r.uid}: {len(out)} tokens"
+        assert out.min() >= 0 and out.max() < vocab, f"uid {r.uid} range"
+    per_round = drafter[1].num_layers * W.DRAFT_LEN + target[1].num_layers
+    assert counts.get("ssd_chunk", 0) == per_round * m.rounds, \
+        (counts, per_round, m.rounds)
+    # One (L+1, K, vocab) race per request and block.
+    blocks = sum(r.blocks for r in done)
+    assert counts.get("gls_row_race", 0) == blocks, (counts, blocks)
+    be = m.mean_block_efficiency
+    log(f"ssm serve [{smi}]: {target[1].name} {target[1].num_layers}+"
+        f"{drafter[1].num_layers} layers, reprefill batched, {len(done)} "
+        f"requests, {m.total_tokens} tokens in {wall:.3f}s -> "
+        f"{m.total_tokens / wall:.1f} tok/s; rounds={m.rounds} round wall "
+        f"{wall / m.rounds * 1e3:.1f} ms block_efficiency={be:.3f} "
+        f"ssd_chunk per round={counts.get('ssd_chunk', 0) / m.rounds:.0f} "
+        f"gls_row_race={counts.get('gls_row_race', 0)} (= {blocks} request "
+        f"blocks) "
+        f"peak device memory {peak:.2f} GiB launches={counts}")
+    return counts, {"wall_s": wall, "tokens": m.total_tokens,
+                    "rounds": m.rounds, "block_efficiency": be,
+                    "peak_gib": peak}
+
+
+def phase_ssm_self_draft(torch, dev, target):
+    from repro_torch import random as R
+    from repro_torch.launch import profile_reprefill as W
+    el = W.DRAFT_LEN
+    engine, server = W.make_server(target, target, dev, max_batch=1)
+    prompt = np.random.default_rng(SEED + 10).integers(
+        0, target[1].vocab_size, 64).astype(np.int32)
+    server.submit(prompt, max_new=4 * (el + 1))
+    done = server.run(R.PRNGKey(SEED + 1))
+    acc = sum(r.accepted for r in done) / max(sum(r.blocks for r in done), 1)
+    log(f"ssm self-draft: blocks={server.metrics.rounds} mean accepted per "
+        f"block={acc:.3f} (L={el}, need >= {0.9 * el:.1f})")
+    assert server.metrics.rounds >= 3, server.metrics.rounds
+    assert acc >= 0.9 * el, f"ssm self-draft acceptance {acc:.3f}"
+    return acc
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -680,7 +908,8 @@ def main() -> int:
     target, drafter = build_pair("smollm-360m", 4, SEED, dev)
     cfg = target[1]
     buf_len = PROMPT_MAX + MAX_NEW + L_DRAFT + 2
-    kernels = [kernel_race(torch, dev, cfg.vocab_size),
+    kernels = [kernel_race(torch, dev, S_SLOTS * (L_DRAFT + 1),
+                           cfg.vocab_size),
                kernel_decode(torch, dev, cfg, buf_len),
                kernel_flash(torch, dev, cfg, 256, buf_len),
                kernel_binned(torch, dev, WZ_LMAX),
@@ -718,6 +947,38 @@ def main() -> int:
     t0 = time.perf_counter()
     counts["gls_race"] = phase_gls(torch, dev).get("gls_race", 0)
     log(f"phase gls: {time.perf_counter() - t0:.1f}s")
+
+    # Phase 7: Mamba-2 through the reference engine and ssd_chunk.
+    t0 = time.perf_counter()
+    from repro_torch.launch import profile_reprefill as W
+    ssm_target, ssm_drafter = build_pair(W.ARCH, W.DRAFT_LAYERS, SEED, dev)
+    # The row race at the shape this path gives it: one request's block.
+    kr = kernel_race(torch, dev, W.DRAFT_LEN + 1, ssm_target[1].vocab_size)
+    log(f"kernel {kr['name']} [{kr['shape']}, the reprefill verifier]: "
+        f"bitwise equal to plain, kernel {kr['ms']:.4f} ms, plain "
+        f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']:.4f} ms, "
+        f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}) [{smi}]")
+    kr = kernel_ssd(torch, dev, ssm_target[1])
+    log(f"kernel {kr['name']} [{kr['shape']}]: max_abs_err="
+        f"{kr['max_abs_err']:.3g} (tolerance {SSD_TOL} abs + rel) kernel "
+        f"{kr['ms']:.4f} ms, plain {kr['plain_ms']:.4f} ms, library "
+        f"{kr['library_ms']:.4f} ms ({kr['library']}), bound "
+        f"{kr['bound_ms']:.4f} ms ({kr['bound_by']}: {kr['flops']:.4g} "
+        f"flop, {kr['bytes']:.4g} bytes) [{smi}]")
+    log(f"kernel ssd_chunk max abs err (y, states) against float64: "
+        + ", ".join(f"{k} {v[0]:.3g}, {v[1]:.3g}"
+                    for k, v in kr["err_vs_float64"].items()))
+    kernels.append(kr)
+    phase_ssm_reference(torch, dev, ssm_target)
+    ssm_counts, _ = phase_ssm_serve(torch, dev, ssm_target, ssm_drafter, smi)
+    counts["ssd_chunk"] = ssm_counts.get("ssd_chunk", 0)
+    # The row race serves both paths: its launches are the sum.
+    log(f"gls_row_race launches: kv_fused serve {counts['gls_row_race']}, "
+        f"reprefill serve {ssm_counts.get('gls_row_race', 0)}")
+    counts["gls_row_race"] += ssm_counts.get("gls_row_race", 0)
+    phase_ssm_self_draft(torch, dev, ssm_target)
+    del ssm_target, ssm_drafter
+    log(f"phase ssm: {time.perf_counter() - t0:.1f}s")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB; total {time.perf_counter() - t_start:.1f}s")
 

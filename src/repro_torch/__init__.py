@@ -1,12 +1,15 @@
-"""PyTorch + CUDA port of the GLS speculative-decoding serving path, the
-GLS core and the Gaussian Wyner-Ziv compression path.
+"""PyTorch + CUDA port of the GLS speculative-decoding serving paths
+(fused rounds over KV caches for dense models; the reference engine,
+which serves Mamba-2), the GLS core and the Gaussian Wyner-Ziv
+compression path.
 
 A second package beside the JAX reference ``repro``: same module layout
 (``core/``, ``compression/``, ``models/``, ``kernels/<name>/``,
 ``specdec/``, ``serving/``, ``launch/``, ``configs/``), PyTorch idiom
 inside, and hand-written CUDA kernels for the Pallas kernels on those
 paths (``kernels/gls_race``: the row, binned and joint races;
-``kernels/decode_attention``, ``kernels/flash_attention``).  It imports
+``kernels/decode_attention``, ``kernels/flash_attention``,
+``kernels/ssd_chunk``).  It imports
 ``torch`` and ``numpy`` only -- never ``jax`` and nothing of ``repro``.
 
 Precision policy: float32 matmuls run in full float32 everywhere.

@@ -1,6 +1,7 @@
-"""Architecture registry of the port (``--arch <id>``).  Only the dense
-configurations the port serves are listed; the other families of the
-JAX registry wait for their slice (ROADMAP queue 1, item 15)."""
+"""Architecture registry of the port (``--arch <id>``).  Only the
+configurations the port serves are listed (dense and SSM); the other
+families of the JAX registry wait for their slice (ROADMAP queue 1,
+item 15)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "smollm-360m": "smollm_360m",
+    "mamba2-370m": "mamba2_370m",
 }
 
 ARCH_NAMES = tuple(_MODULES)

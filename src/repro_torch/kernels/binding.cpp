@@ -40,6 +40,13 @@ int gls_binned_race_max_bins();
 void launch_gls_race(const float* log_s, const float* log_p,
                      const float* log_q, const bool* active, int* x, int* y,
                      int batch, int k_drafts, int n, cudaStream_t stream);
+cudaError_t launch_ssd_chunk(const float* x, const float* dt, const float* a,
+                             const float* b_in, const float* c_in, float* y,
+                             float* states, float* total, int batch,
+                             int n_chunks, int n_heads, cudaStream_t stream);
+int ssd_chunk_tile_q();
+int ssd_chunk_tile_p();
+int ssd_chunk_tile_n();
 
 namespace {
 
@@ -221,6 +228,57 @@ torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
   return out;
 }
 
+std::vector<torch::Tensor> ssd_chunk(torch::Tensor x, torch::Tensor dt,
+                                     torch::Tensor a, torch::Tensor b_in,
+                                     torch::Tensor c_in) {
+  check_tensor(x, "x", torch::kFloat32, 5);
+  check_tensor(dt, "dt", torch::kFloat32, 4);
+  check_tensor(a, "a", torch::kFloat32, 1);
+  check_tensor(b_in, "b_in", torch::kFloat32, 4);
+  check_tensor(c_in, "c_in", torch::kFloat32, 4);
+  check_same_device(x, dt);
+  check_same_device(x, a);
+  check_same_device(x, b_in);
+  check_same_device(x, c_in);
+  const int64_t B = x.size(0), NC = x.size(1), Q = x.size(2), H = x.size(3),
+                P = x.size(4), N = b_in.size(3);
+  TORCH_CHECK(dt.size(0) == B && dt.size(1) == NC && dt.size(2) == Q &&
+              dt.size(3) == H, "dt must be (B, NC, Q, H) of x");
+  TORCH_CHECK(a.size(0) == H, "a must be (H,) of x");
+  TORCH_CHECK(b_in.sizes() == c_in.sizes(), "b_in/c_in shape mismatch");
+  TORCH_CHECK(b_in.size(0) == B && b_in.size(1) == NC && b_in.size(2) == Q,
+              "b_in must be (B, NC, Q, N) of x");
+  TORCH_CHECK(Q == ssd_chunk_tile_q() && P == ssd_chunk_tile_p() &&
+              N == ssd_chunk_tile_n(),
+              "ssd_chunk: tile (Q, P, N) = (" + std::to_string(Q) + ", " +
+              std::to_string(P) + ", " + std::to_string(N) +
+              ") not compiled (only (" +
+              std::to_string(ssd_chunk_tile_q()) + ", " +
+              std::to_string(ssd_chunk_tile_p()) + ", " +
+              std::to_string(ssd_chunk_tile_n()) + "))");
+  TORCH_CHECK(B * NC * H < INT32_MAX, "ssd_chunk: unsupported shape");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(x.data_ptr()) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(b_in.data_ptr()) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(c_in.data_ptr()) % 16 == 0,
+              "ssd_chunk: x, b_in and c_in must be 16-byte aligned");
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto y = torch::empty_like(x);
+  auto states = torch::empty({B, NC, H, P, N}, x.options());
+  auto total = torch::empty({B, NC, H}, x.options());
+  if (B * NC * H == 0) return {y, states, total};
+  const cudaError_t err = launch_ssd_chunk(
+      x.data_ptr<float>(), dt.data_ptr<float>(), a.data_ptr<float>(),
+      b_in.data_ptr<float>(), c_in.data_ptr<float>(), y.data_ptr<float>(),
+      states.data_ptr<float>(), total.data_ptr<float>(), static_cast<int>(B),
+      static_cast<int>(NC), static_cast<int>(H),
+      c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(err == cudaSuccess,
+              std::string("ssd_chunk: setting its shared memory size failed: ") +
+                  cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {y, states, total};
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gls_row_race", &gls_row_race,
         "per-row (min, argmin) of the GLS race table");
@@ -228,6 +286,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "per-(row, sheet, bin) (min, argmin) of the binned GLS race");
   m.def("gls_race", &gls_race,
         "draft argmins and the active target argmin of the joint GLS race");
+  m.def("ssd_chunk", &ssd_chunk,
+        "Mamba-2 SSD intra-chunk output, chunk states and total log-decay");
   m.def("decode_attention", &decode_attention,
         "one-query GQA decode attention over a KV cache");
   m.def("flash_attention", &flash_attention,

@@ -25,6 +25,7 @@ SOURCES = (
     _KERNEL_DIR / "gls_race" / "joint_race.cu",
     _KERNEL_DIR / "decode_attention" / "decode_attention.cu",
     _KERNEL_DIR / "flash_attention" / "flash_attention.cu",
+    _KERNEL_DIR / "ssd_chunk" / "ssd_chunk.cu",
 )
 
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]

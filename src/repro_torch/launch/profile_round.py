@@ -69,8 +69,12 @@ def analyse(trace: dict, rounds: int, prefix: str = "round/",
     steps = [(e["ts"], e["ts"] + e["dur"]) for e in events
              if e.get("cat") == "user_annotation"
              and e.get("name") == step]
+    # cuBLAS launches its GEMMs through the driver API (category
+    # "cuda_driver"); a match on "cuda_runtime" alone left them out of
+    # every phase.
     launches = {e["args"].get("correlation"): e["ts"] for e in events
-                if e.get("cat") == "cuda_runtime" and "args" in e}
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "args" in e}
     busy_us = _union_us((e["ts"], e["ts"] + e["dur"]) for e in device)
     by_name = collections.Counter()
     for e in device:

@@ -1,17 +1,23 @@
 """Serving launcher of the port: GLS multi-draft speculative decoding over
 a target/drafter pair at a registered architecture's published widths,
-driven by the FIFO scheduler with fused rounds (``kv_fused``).
+driven by the FIFO scheduler, with fused rounds over KV caches
+(``--cache-mode kv_fused``, dense models) or through the reference
+engine that re-scores the whole prefix every block (``--cache-mode
+reprefill``, required for the SSM family, batched over live requests).
 
   python -m repro_torch.launch.serve --arch smollm-360m --draft-layers 4 \
       --requests 8 --drafts 8 --draft-len 4 --seed 0 [--device cpu]
+  python -m repro_torch.launch.serve --arch mamba2-370m \
+      --cache-mode reprefill --draft-layers 4 --requests 4 --max-new 32
 
 Both models are initialised from ``--seed`` with the port's own
 generator (no checkpoint is read).  The drafter has the target's widths
 and ``--draft-layers`` layers; ``--target-layers`` cuts the target's
 depth (widths stay).  Prompts of 16..128 tokens are drawn from the
-seed.  GLS-family verification at top-k 50, with the decode and
-prefill attention kernels on.  Runs on the card unless ``--device
-cpu``.  Prints the JAX launcher's summary fields.
+seed.  GLS-family verification at top-k 50; under kv_fused the decode
+and prefill attention kernels are on, under reprefill an SSM model's
+forwards run the ``ssd_chunk`` kernel.  Runs on the card unless
+``--device cpu``.  Prints the JAX launcher's summary fields.
 """
 
 from __future__ import annotations
@@ -26,14 +32,20 @@ from repro_torch import random as R
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
-from repro_torch.specdec import CachedSpecDecEngine, SpecDecConfig
-from repro_torch.specdec import SpecDecServer
+from repro_torch.specdec import (
+    CachedSpecDecEngine,
+    SpecDecConfig,
+    SpecDecEngine,
+    SpecDecServer,
+)
+from repro_torch.specdec.scheduler import CACHE_MODES
 
 
 def build_pair(arch: str, draft_layers: int, seed: int, device,
                target_layers: Optional[int] = None):
     """(target, drafter) as ``(params, cfg)`` pairs on ``device``, drawn
-    from ``seed`` (target) and ``seed + 1`` (drafter)."""
+    from ``seed`` (target) and ``seed + 1`` (drafter) through the
+    family registry's ``init_params``."""
     device = resolve_device(device)
     t_cfg = get_config(arch)
     if target_layers:
@@ -56,15 +68,27 @@ def draw_prompts(n: int, vocab: int, min_len: int, max_len: int,
             for ln in lens]
 
 
+def check_cache_mode(arch: str, cache_mode: str) -> None:
+    """The cached engine serves the dense family only (as in JAX, whose
+    ``engine_cached.py`` asserts it); other families need reprefill."""
+    family = get_config(arch).family
+    if cache_mode == "kv_fused" and family != "dense":
+        raise ValueError(
+            f"--arch {arch} is a {family} model: the kv_fused engine serves "
+            "dense models only; use --cache-mode reprefill")
+
+
 def summary(args, server, done, engine) -> str:
     m = server.metrics
     be = float(np.mean([r.block_efficiency for r in done])) if done else 0.0
     ttft = float(np.mean([r.ttft_ms for r in done])) if done else 0.0
+    dispatches = getattr(engine, "num_prefill_dispatches", 0)
     return (f"strategy={args.strategy} K={engine.cfg.num_drafts} "
-            f"L={args.draft_len} backend={args.backend} cache_mode=kv_fused "
+            f"L={args.draft_len} backend={args.backend} "
+            f"cache_mode={args.cache_mode} "
             f"admission=bucketed BE={be:.2f} tok/s={m.tokens_per_s:.1f} "
             f"mean-ttft={ttft:.1f}ms "
-            f"prefill-dispatches={engine.num_prefill_dispatches} "
+            f"prefill-dispatches={dispatches} "
             f"rounds={m.rounds} target-forwards={m.target_forwards} "
             f"verify-syncs={m.host_syncs} draft-syncs={m.draft_syncs} "
             f"evictions=0 preemptions=0 over {len(done)} requests")
@@ -73,6 +97,10 @@ def summary(args, server, done, engine) -> str:
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="smollm-360m", choices=ARCH_NAMES)
+    ap.add_argument("--cache-mode", default="kv_fused", choices=CACHE_MODES,
+                    help="kv_fused: fused rounds over KV caches (dense); "
+                         "reprefill: the reference engine, batched "
+                         "(required for ssm)")
     ap.add_argument("--draft-layers", type=int, default=4)
     ap.add_argument("--target-layers", type=int, default=None,
                     help="cut the target's depth (default: published)")
@@ -94,18 +122,26 @@ def parser() -> argparse.ArgumentParser:
 
 def serve(args):
     """Build the pair, serve the requests; returns (server, done, engine)."""
+    check_cache_mode(args.arch, args.cache_mode)
     device = resolve_device(args.device)
     target, drafter = build_pair(args.arch, args.draft_layers, args.seed,
                                  device, args.target_layers)
     k = 1 if args.strategy == "daliri" else args.drafts
+    fused = args.cache_mode == "kv_fused"
     cfg = SpecDecConfig(num_drafts=k, draft_len=args.draft_len,
                         strategy=args.strategy, top_k=50,
                         max_new_tokens=args.max_new,
                         verifier_backend=args.backend,
-                        decode_kernel=True, prefill_kernel=True)
-    engine = CachedSpecDecEngine(target, drafter, cfg,
-                                 pool_slots=args.max_batch, device=device)
-    server = SpecDecServer(engine, max_batch=args.max_batch)
+                        decode_kernel=fused, prefill_kernel=fused)
+    if fused:
+        engine = CachedSpecDecEngine(target, drafter, cfg,
+                                     pool_slots=args.max_batch,
+                                     device=device)
+        server = SpecDecServer(engine, max_batch=args.max_batch)
+    else:
+        engine = SpecDecEngine(target, drafter, cfg, device=device)
+        server = SpecDecServer(engine, max_batch=args.max_batch,
+                               cache_mode="reprefill")
     for p in draw_prompts(args.requests, target[1].vocab_size, 16, 128,
                           args.seed):
         server.submit(p, max_new=args.max_new)

@@ -1,12 +1,20 @@
-"""Dense-family model code of the port (see ``transformer.py``)."""
+"""Model code of the port: the dense family (``transformer.py``), Mamba-2
+(``mamba2.py``) and the family registry (``registry.py``), whose
+dispatching ``init_params``/``forward``/``init_cache``/``prefill``/
+``decode_step`` are this package's."""
 
 from repro_torch.models.cache_pool import CachePool
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import params_from_jax
-from repro_torch.models.transformer import (
-    decode_step_slots,
+from repro_torch.models.registry import (
+    decode_step,
+    forward,
     init_cache,
     init_params,
+    prefill,
+)
+from repro_torch.models.transformer import (
+    decode_step_slots,
     prefill_slots,
     verify_step_slots,
 )
@@ -14,10 +22,13 @@ from repro_torch.models.transformer import (
 __all__ = [
     "CachePool",
     "ModelConfig",
+    "decode_step",
     "decode_step_slots",
+    "forward",
     "init_cache",
     "init_params",
     "params_from_jax",
+    "prefill",
     "prefill_slots",
     "verify_step_slots",
 ]

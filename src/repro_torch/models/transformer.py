@@ -1,7 +1,8 @@
-"""Dense llama-family decoder (GQA + RoPE + SwiGLU + RMSNorm), serving
-paths only -- the port's counterpart of ``repro/models/transformer.py``
-(``init_params``, ``init_cache``, ``prefill_slots``,
-``decode_step_slots``, ``verify_step_slots``).
+"""Dense llama-family decoder (GQA + RoPE + SwiGLU + RMSNorm) -- the
+port's counterpart of ``repro/models/transformer.py`` (``init_params``,
+``init_cache``, the full-sequence ``forward`` of the reference engine,
+and the serving calls ``prefill_slots``, ``decode_step_slots``,
+``verify_step_slots``).
 
 A Python loop over layers replaces ``scan_blocks``.  Parameters are a
 dict ``{"embed", "layers": [per-layer dict, ...], "final_norm",
@@ -111,6 +112,31 @@ def _qkv(p, cfg, x, positions):
 def _logits(params, cfg, x):
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.dense(x, params["lm_head"])
+
+
+# Above this length JAX's ``forward`` switches to ``chunked_attention``.
+MAX_DENSE_FORWARD = 2048
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Full-sequence causal pass (``transformer.py:91``, its
+    ``chunked=False`` branch): tokens (B, S) -> logits (B, S, Vpad),
+    dense attention.  The reprefill engine scores its token buffers with
+    it."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    if s > MAX_DENSE_FORWARD:
+        raise NotImplementedError(
+            f"forward over {s} > {MAX_DENSE_FORWARD} tokens needs "
+            "chunked attention, not ported (ROADMAP queue 1, item 11)")
+    positions = torch.arange(s, device=tokens.device)[None, None, :].expand(
+        b, 1, s)
+    x = _embed(params, tokens)
+    for p in params["layers"]:
+        q, k, v = _qkv(p, cfg, x, positions)
+        x = x + L.project_out(p["attn"], L.attention(q, k, v, causal=True))
+        x = _mlp_residual(p, cfg, x)
+    return _logits(params, cfg, x)
 
 
 def prefill_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

@@ -1,6 +1,7 @@
 """Speculative-decoding serving of the port: the race-family verifiers,
-fused block verification, the KV-cached engine's fused rounds and the
-FIFO scheduler (``cache_mode="kv_fused"``)."""
+fused block verification, the KV-cached engine's fused rounds, the
+reference engine and the FIFO scheduler (``cache_mode="kv_fused"`` and
+``"reprefill"``)."""
 
 from repro_torch.specdec.block_verify import (
     BACKENDS,
@@ -11,6 +12,8 @@ from repro_torch.specdec.engine import (
     BlockOutcome,
     GenerationStats,
     SpecDecConfig,
+    SpecDecEngine,
+    autoregressive_reference,
     block_randomness,
     probs_from_logits,
 )
@@ -26,7 +29,9 @@ __all__ = [
     "Request",
     "ServerMetrics",
     "SpecDecConfig",
+    "SpecDecEngine",
     "SpecDecServer",
+    "autoregressive_reference",
     "block_randomness",
     "block_verify_batched",
     "probs_from_logits",

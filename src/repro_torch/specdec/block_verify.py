@@ -11,15 +11,19 @@ ops) and ``"kernel"`` (the twin of "pallas": the ``gls_row_race`` CUDA
 kernel on the card, its plain version on the CPU).  The two compute the
 same score floats with the same mask, so their outputs are bit-identical.
 
-Everything here takes a leading request axis R and performs no host
-transfer: the fused round packs the result into its single fetch.
-The rejection-sampling strategies are a later slice (ROADMAP).
+``block_verify_batched`` takes a leading request axis R and performs no
+host transfer: the fused round packs the result into its single fetch.
+``block_verify``/``run_block_verify`` verify one request's block for the
+reference engine (``engine.py::SpecDecEngine``); ``run_block_verify``
+fetches the result in ONE device-to-host transfer.  The
+rejection-sampling strategies are a later slice (ROADMAP).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import random as R
@@ -36,6 +40,15 @@ class BlockVerifyResult(NamedTuple):
     num_accepted: torch.Tensor  # (R,) int64 accepted DRAFT tokens
     bonus: torch.Tensor         # (R,) bool -- all L accepted
     active: torch.Tensor        # (R, K) bool final active mask
+
+
+class HostBlockResult(NamedTuple):
+    """Host-side unpacked block outcome (what the reference engine
+    consumes)."""
+    new_tokens: list            # python ints, length num_accepted + 1
+    num_accepted: int
+    active: np.ndarray          # (K,) bool
+    host_syncs: int             # device-to-host transfers spent verifying
 
 
 def _race_row_stats(log_u: torch.Tensor, q_steps: torch.Tensor,
@@ -138,3 +151,35 @@ def block_verify_batched(log_u: torch.Tensor, draft_tokens: torch.Tensor,
     return _race_block(strategy, rmin.reshape(r, l1, k),
                        rarg.reshape(r, l1, k), draft_tokens, q_all,
                        strat_keys)
+
+
+def block_verify(log_u: torch.Tensor, draft_tokens: torch.Tensor,
+                 q_all: torch.Tensor, strat_keys: torch.Tensor, *,
+                 strategy: str = "gls",
+                 backend: str = "torch") -> BlockVerifyResult:
+    """One request's block (``block_verify.py:206``): log_u (L+1, K, N),
+    draft_tokens (K, L), q_all (K, L+1, N), strat_keys (L+1, 2).  The
+    R = 1 case of ``block_verify_batched``, so the race runs as one
+    (L+1, K, N) pass, as JAX's does; the leaves lose the R axis."""
+    res = block_verify_batched(log_u[None], draft_tokens[None], q_all[None],
+                               strat_keys[None], strategy=strategy,
+                               backend=backend)
+    return BlockVerifyResult(*(t[0] for t in res))
+
+
+def run_block_verify(log_u: torch.Tensor, draft_tokens, q_all: torch.Tensor,
+                     strat_keys: torch.Tensor, *, strategy: str,
+                     backend: str = "torch") -> HostBlockResult:
+    """Run ``block_verify`` and unpack it on the host
+    (``block_verify.py:348``): tokens, the accepted count and the active
+    mask come back packed in ONE device-to-host transfer."""
+    res = block_verify(log_u, torch.as_tensor(draft_tokens,
+                                              device=log_u.device),
+                       q_all, strat_keys, strategy=strategy, backend=backend)
+    l1 = res.tokens.shape[0]
+    packed = torch.cat([res.tokens, res.num_accepted.reshape(1),
+                        res.active.to(torch.int64)]).cpu().numpy()
+    a = int(packed[l1])
+    return HostBlockResult(new_tokens=[int(t) for t in packed[:a + 1]],
+                           num_accepted=a, active=packed[l1 + 1:] != 0,
+                           host_syncs=1)

@@ -1,19 +1,32 @@
 """Batched request scheduler for speculative-decoding serving -- the port's
-counterpart of ``repro/specdec/scheduler.py`` with the FIFO policy,
-``cache_mode="kv_fused"`` and bucketed admission.
+counterpart of ``repro/specdec/scheduler.py`` with the FIFO policy and
+two cache modes:
 
-Requests join a queue; up to ``max_batch`` live requests advance one
-speculative block per round.  Requests admitted in a step only prefill
-(overlapped with the round advancing the earlier ones) and emit from the
-next step on.  Per-request randomness is
+* ``cache_mode="kv_fused"`` (default here) over a ``CachedSpecDecEngine``:
+  fused rounds and bucketed admission.  Requests admitted in a step only
+  prefill (overlapped with the round advancing the earlier ones) and
+  emit from the next step on;
+* ``cache_mode="reprefill"`` over the reference ``SpecDecEngine``: every
+  block re-scores the whole prefix, so admitted requests advance in the
+  step that admits them; ``batched=True`` (the default) stacks all live
+  requests into (R*K, T) forwards (``gen_blocks``), ``batched=False``
+  runs one block per request, as JAX's default does.  This is how an SSM target (Mamba-2) is served, as in
+  JAX, where the cached engine is dense-only.
+
+Up to ``max_batch`` live requests advance one speculative block per
+round.  Per-request randomness is
 ``fold_in(fold_in(key, uid), blocks)`` -- nested folds, the SAME key
 every round -- so a request's stream depends only on (uid, blocks),
 exactly as in the JAX scheduler; the keys are derived on the host (a few
 dozen integer ops) and uploaded with the round's inputs.
 
-The v2 policy (eviction, preemption, priorities), the ``reprefill`` and
-``kv`` cache modes, per-request admission and the fault/journal layers
-are later slices (ROADMAP).
+Buffer lengths grow monotonically to the largest live requirement
+(``_required_buf``, as JAX's), so a request's buffer -- and therefore
+its tokens -- never depend on the mode that ran it.
+
+The v2 policy (eviction, preemption, priorities), the ``kv`` cache mode,
+per-request admission and the fault/journal layers are later slices
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -88,9 +101,11 @@ class ServerMetrics:
     total_blocks: int = 0
     rounds: int = 0
     target_forwards: int = 0
-    # Host waits on the card, counted by ``device.SyncCounter``: in the
-    # rounds' packed fetches (one per round; the CPU counts the fetch as
-    # one), and while rounds and admissions are queued (0 when fused).
+    # kv_fused: host waits on the card, counted by ``device.SyncCounter``:
+    # in the rounds' packed fetches (one per round; the CPU counts the
+    # fetch as one), and while rounds and admissions are queued (0 when
+    # fused).  reprefill: the engine's fetches, verification's (one per
+    # request per block) and the draft tokens' (one per draft step).
     host_syncs: int = 0
     draft_syncs: int = 0
     wall_s: float = 0.0
@@ -104,19 +119,34 @@ class ServerMetrics:
         return self.total_tokens / max(self.total_blocks, 1)
 
 
-class SpecDecServer:
-    """FIFO block scheduler over a ``CachedSpecDecEngine`` with fused
-    rounds and bucketed, overlapped admission: the JAX server's
-    ``cache_mode="kv_fused"``, ``admission="bucketed"``,
-    ``policy="fifo"``."""
+CACHE_MODES = ("reprefill", "kv_fused")
 
-    def __init__(self, engine, max_batch: int = 8):
-        if engine.pool_slots < max_batch:
-            raise ValueError(
-                f"engine pool has {engine.pool_slots} slots < "
-                f"max_batch={max_batch}")
+
+class SpecDecServer:
+    """FIFO block scheduler: over a ``CachedSpecDecEngine`` with fused
+    rounds and bucketed, overlapped admission (``cache_mode="kv_fused"``,
+    the JAX server's ``admission="bucketed"``, ``policy="fifo"``), or
+    over a reference ``SpecDecEngine`` (``cache_mode="reprefill"``,
+    sequential or ``batched``)."""
+
+    def __init__(self, engine, max_batch: int = 8, batched: bool = True,
+                 cache_mode: str = "kv_fused"):
+        if cache_mode not in CACHE_MODES:
+            raise ValueError(f"unknown cache_mode {cache_mode!r}")
+        if cache_mode == "kv_fused":
+            if not hasattr(engine, "round_with_admission"):
+                raise TypeError(
+                    "cache_mode='kv_fused' needs a CachedSpecDecEngine")
+            if engine.pool_slots < max_batch:
+                raise ValueError(
+                    f"engine pool has {engine.pool_slots} slots < "
+                    f"max_batch={max_batch}")
+        elif not hasattr(engine, "gen_blocks"):
+            raise TypeError("cache_mode='reprefill' needs a SpecDecEngine")
         self.engine = engine
         self.max_batch = max_batch
+        self.batched = batched
+        self.cache_mode = cache_mode
         self.queue: deque = deque()
         self.live: list = []
         self._uid = 0
@@ -152,20 +182,16 @@ class SpecDecServer:
                 return []
             self._buf_len = max([self._buf_len]
                                 + [self._required_buf(r) for r in self.live])
+            overlap = self.cache_mode == "kv_fused"
             new_ids = {id(r) for r in newly}
-            advancing = [r for r in self.live if id(r) not in new_ids]
+            advancing = [r for r in self.live if id(r) not in new_ids] \
+                if overlap else list(self.live)
             key = key.cpu()
             subs = [R.fold_in(R.fold_in(key, r.uid), r.blocks)
                     for r in advancing]
             fw0 = self.engine.num_target_forwards
             ds0 = self.engine.num_draft_syncs
-            tails = [int(r.output[-1]) if r.output else int(r.prompt[-1])
-                     for r in advancing]
-            outs = self.engine.round_with_admission(
-                subs, [r.uid for r in advancing],
-                [(r.uid, np.concatenate([r.prompt,
-                                         np.asarray(r.output, np.int32)]))
-                 for r in newly], self._buf_len, tails=tails)
+            outs = self._engine_round(subs, advancing, newly, overlap)
             if advancing:
                 self.metrics.rounds += 1
             self.metrics.target_forwards += \
@@ -174,6 +200,24 @@ class SpecDecServer:
             return self._commit(advancing, outs)
         finally:
             self.metrics.wall_s += time.perf_counter() - t0
+
+    def _engine_round(self, subs, advancing, newly, overlap) -> list:
+        """One engine round (``scheduler.py:741``)."""
+        if overlap:
+            tails = [int(r.output[-1]) if r.output else int(r.prompt[-1])
+                     for r in advancing]
+            return self.engine.round_with_admission(
+                subs, [r.uid for r in advancing],
+                [(r.uid, np.concatenate([r.prompt,
+                                         np.asarray(r.output, np.int32)]))
+                 for r in newly], self._buf_len, tails=tails)
+        prefixes = [np.concatenate([r.prompt,
+                                    np.asarray(r.output, np.int32)])
+                    for r in advancing]
+        if self.batched:
+            return self.engine.gen_blocks(subs, prefixes, self._buf_len)
+        return [self.engine.gen_block(sub, prefix, self._buf_len)
+                for sub, prefix in zip(subs, prefixes)]
 
     def _commit(self, advancing, outs) -> list:
         finished = []
@@ -190,7 +234,8 @@ class SpecDecServer:
                 finished.append(req)
         for req in finished:
             self.live.remove(req)
-            self.engine.release(req.uid)
+            if self.cache_mode == "kv_fused":
+                self.engine.release(req.uid)
             self.metrics.completed += 1
             self.metrics.total_tokens += len(req.output)
             self.metrics.total_blocks += req.blocks

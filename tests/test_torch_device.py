@@ -1,6 +1,8 @@
 """``repro_torch.device.SyncCounter``: the engine's count of the host's
 waits on the card (``draft_syncs``, ``host_syncs``).  On the CPU nothing
-is waited for; on the card each synchronising operation counts once."""
+is waited for; on the card each synchronising operation counts once.
+Also ``launch/profile_round.analyse``, which splits a profiler trace's
+device time by phase, on a synthetic trace."""
 
 import warnings
 
@@ -47,3 +49,27 @@ def test_sync_counter_counts_host_waits_on_card(cuda):
     assert (none.count, three.count, other.count) == (0, 3, 0)
     assert [str(w.message) for w in outer] == ["unrelated"]
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_analyse_attributes_runtime_and_driver_launches():
+    """A kernel belongs to the phase range its launch call falls in,
+    whether the call is a runtime launch (PyTorch's own kernels) or a
+    driver launch (cuBLAS's GEMMs): both kernels below count."""
+    from repro_torch.launch.profile_round import analyse
+
+    def x(cat, name, ts, dur, **args):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                "args": args}
+    trace = {"traceEvents": [
+        x("user_annotation", "serve/step", 0, 100),
+        x("user_annotation", "block/forward", 0, 50),
+        x("cuda_runtime", "cudaLaunchKernel", 10, 1, correlation=1),
+        x("cuda_driver", "cuLaunchKernelEx", 20, 1, correlation=2),
+        x("kernel", "elementwise", 30, 5, correlation=1),
+        x("kernel", "sgemm", 40, 20, correlation=2),
+    ]}
+    res = analyse(trace, 1, prefix="block/")
+    assert res["phases"]["block/forward"]["device_ms"] == pytest.approx(
+        0.025)
+    assert res["device_busy_ms_per_round"] == pytest.approx(0.025)
+    assert res["launches_per_round"] == 2
