@@ -27,10 +27,11 @@ void launch_decode_attention(const float* q, const float* k, const float* v,
                              int Hkv, int T, cudaStream_t stream);
 int decode_attention_head_dim();
 int decode_attention_max_group_dims();
-void launch_flash_attention(const float* q, const float* k, const float* v,
-                            const int* q_offset, const int* kv_len, float* out,
-                            int B, int H, int Hkv, int S, int T, int window,
-                            cudaStream_t stream);
+cudaError_t launch_flash_attention(const float* q, const float* k,
+                                   const float* v, const int* q_offset,
+                                   const int* kv_len, float* out, int B, int H,
+                                   int Hkv, int S, int T, int window,
+                                   cudaStream_t stream);
 int flash_attention_head_dim();
 void launch_gls_binned_race(const float* log_s, const float* log_q,
                             const int* bins, float* bmin, int* barg,
@@ -214,16 +215,22 @@ torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
   TORCH_CHECK(B < 65536 && H < 65536, "flash_attention: grid too large");
   check_head_dim("flash_attention", D, flash_attention_head_dim());
   TORCH_CHECK(window >= 0, "window must be >= 0");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(q.data_ptr()) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(k.data_ptr()) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(v.data_ptr()) % 16 == 0,
+              "flash_attention: q, k and v must be 16-byte aligned");
   const c10::cuda::CUDAGuard guard(q.device());
   auto out = torch::empty_like(q);
   if (B == 0 || H == 0 || S == 0) return out;
-  launch_flash_attention(q.data_ptr<float>(), k.data_ptr<float>(),
-                         v.data_ptr<float>(), q_offset.data_ptr<int>(),
-                         kv_len.data_ptr<int>(), out.data_ptr<float>(),
-                         static_cast<int>(B), static_cast<int>(H),
-                         static_cast<int>(Hkv), static_cast<int>(S),
-                         static_cast<int>(T), static_cast<int>(window),
-                         c10::cuda::getCurrentCUDAStream());
+  const cudaError_t err = launch_flash_attention(
+      q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
+      q_offset.data_ptr<int>(), kv_len.data_ptr<int>(), out.data_ptr<float>(),
+      static_cast<int>(B), static_cast<int>(H), static_cast<int>(Hkv),
+      static_cast<int>(S), static_cast<int>(T), static_cast<int>(window),
+      c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(err == cudaSuccess,
+              std::string("flash_attention: setting its shared memory size "
+                          "failed: ") + cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }

@@ -19,138 +19,293 @@
 // What bounds it on the card: at the admission shapes (S up to 256
 // queries against up to a few hundred keys, D = 64) the work is
 // ~4*S*T*D flops per head against (S + 2T)*D*4 bytes, tens of flops per
-// byte, so float32 arithmetic bounds it (the serving path keeps float32
-// "highest" precision, which rules out TF32 tensor cores).  Design: one
-// block per (q-tile of 32 rows, head, batch row), four threads per query
-// row, looping over KV tiles staged in shared memory; GQA maps head h to
-// KV head h / G in the index arithmetic, so grouped heads share K/V
-// without a repeated copy.  The KV loop is clipped to the tiles the
-// block's masks can reach: it ends at min(kv_len, last causal position
-// of the tile) and starts at the window's lower edge, so causal
-// prefill does about half the work of the full square.  Query and K
-// rows are padded to D + 1 floats in shared memory (conflict-free dot
-// products); each thread owns D/4 output columns interleaved by 4 so the
-// P@V reads of a warp hit distinct banks.
+// byte, so float32 FMAs bound it (the serving path keeps float32
+// "highest" precision, which rules out TF32 tensor cores).  The design
+// keeps the FMA pipes, not shared memory, the limit:
+//   * a warp group of 2 kBQ threads owns kBQ (64) query rows of one head;
+//     thread (tr, tc) holds the scores of rows tr + kBQ/8 r (r < 8)
+//     against keys tc + 16 n (n < 4) of a 64-key tile, built from float4
+//     shared loads, 12 per 128 FMAs; the two half-warps of a warp read
+//     neighbouring rows of Q, in different banks;
+//   * the online softmax runs in the log2 domain (Q is staged times
+//     log2(e) / sqrt(D); ex2.approx.ftz maps a masked -inf score to an
+//     exact 0); a row's max is reduced across its 16 threads with
+//     shuffles, its sum stays per thread (every thread of a row rescales
+//     by the same factor) and is reduced once at the end;
+//   * P goes once to shared memory, transposed, in rows the warp itself
+//     owns (a warp barrier, not a block one), and P V is a register-
+//     tiled product into an 8 x 4 output tile per thread, 3 loads per
+//     32 FMAs;
+//   * the K/V tiles are double-buffered with cp.async 16-byte copies
+//     (keys past T zero-filled), one block barrier per tile;
+//   * one block serves up to three query heads of one KV head (GQA), one
+//     warp group each, so a K/V tile is staged once for all of them:
+//     168 KB of shared memory, 384 threads, one block per SM.
+// The KV loop is clipped to the tiles the block's masks can reach: it
+// ends at min(kv_len, last causal position of the block) and starts at
+// the window's lower edge; a tile inside every row's mask skips the
+// mask test.  The q tile is the slowest grid dimension, last tile first,
+// so the blocks with the longest KV ranges launch first and the short
+// ones fill the tail.
 #include <cuda_runtime.h>
 #include <cmath>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTQ = 32;  // query rows per block: kThreads / 4
-constexpr int kD = 64;   // head dim
-constexpr int kTK = 32;  // keys per KV tile
+constexpr int kD = 64;                  // head dim
+constexpr int kBQ = 64;                 // query rows per warp group
+constexpr int kRowStep = kBQ / 8;       // thread row r is row tr + kRowStep r
+constexpr int kBK = 64;                 // keys per KV tile
+constexpr int kKN = kBK / 16;           // keys of a tile per thread
+constexpr int kGroup = 2 * kBQ;         // threads per warp group
+constexpr int kMaxHeads = 3;            // query heads per block
+constexpr int kDP = kD + 4;             // padded row of Q and K
+constexpr int kPP = kBQ + 4;            // padded row of P^T
+// 1 / sqrt(kD) times log2(e): scores live in the log2 domain.
+constexpr float kScaleLog2 = 0.125f * 1.4426950408889634f;
 
-template <int D, int TK>
-__global__ void __launch_bounds__(kThreads)
+// Shared memory, in floats: the two K/V stages, then Q and P^T per group.
+constexpr int kKStage = kBK * kDP;
+constexpr int kVStage = kBK * kD;
+constexpr int kOffV = 2 * kKStage;
+constexpr int kOffGroups = kOffV + 2 * kVStage;
+constexpr int kGroupFloats = kBQ * kDP + kBK * kPP;
+
+constexpr size_t smem_bytes(int heads) {
+  return (kOffGroups + heads * kGroupFloats) * sizeof(float);
+}
+
+static_assert(kD == 64, "kScaleLog2 and the thread tiles assume D = 64");
+static_assert(kBQ % 32 == 0 && kBK % 16 == 0 && kD == 4 * 16,
+              "thread (tr, tc): 8 rows, kKN keys, 4 output columns");
+static_assert(smem_bytes(kMaxHeads) <= 232448, "one block fits on an SM");
+static_assert(kDP % 4 == 0 && kPP % 4 == 0 && kGroupFloats % 4 == 0,
+              "float4 alignment");
+
+__device__ __forceinline__ void cp_async16_zfill(float* smem_dst,
+                                                 const float* gmem_src,
+                                                 bool valid) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  const int src_bytes = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem_src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 2^x, flushing subnormal results to 0; 2^-inf = 0, so a masked score
+// (-inf) needs no test.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One K/V tile (keys k0 .. k0 + kBK - 1) into a stage, by every thread of
+// the block.
+__device__ __forceinline__ void load_kv(float* ks, float* vs,
+                                        const float* __restrict__ k,
+                                        const float* __restrict__ v,
+                                        size_t kv_base, int k0, int T) {
+  for (int e = threadIdx.x; e < kBK * kD / 4; e += blockDim.x) {
+    const int r = e / (kD / 4), d4 = e % (kD / 4);
+    const int kk = k0 + r;
+    const bool ok = kk < T;
+    const size_t off = kv_base + static_cast<size_t>(ok ? kk : 0) * kD + 4 * d4;
+    cp_async16_zfill(ks + r * kDP + 4 * d4, k + off, ok);
+    cp_async16_zfill(vs + r * kD + 4 * d4, v + off, ok);
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kGroup * kMaxHeads, 1)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v,
                        const int* __restrict__ q_offset,
                        const int* __restrict__ kv_len,
                        float* __restrict__ out, int H, int Hkv, int S, int T,
-                       int window) {
-  constexpr int DP = D + 1;
-  constexpr int DT = D / 4;
-  constexpr int PP = TK + 1;
-  __shared__ float q_s[kTQ * DP];
-  __shared__ float k_s[TK * DP];
-  __shared__ float v_s[TK * D];
-  __shared__ float p_s[kTQ * PP];
-
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int G = H / Hkv;
-  const int kvh = h / G;
-  const int tid = threadIdx.x;
-  const int r = tid / 4, sub = tid % 4;
-  const int row0 = iq * kTQ;
-  const int my_q = row0 + r;
+                       int window, int heads) {
+  extern __shared__ __align__(16) float smem[];
+  const int g = threadIdx.x / kGroup, t = threadIdx.x % kGroup;
+  const int tr = t / 16, tc = t % 16;
+  const int iq = gridDim.z - 1 - blockIdx.z;  // the longest KV ranges first
+  const int b = blockIdx.y;
+  const int h = blockIdx.x * heads + g;
+  const int kvh = h / (H / Hkv);              // the same for every group
+  const int row0 = iq * kBQ;
   const int qoff = q_offset[b];
-  const int qpos = qoff + my_q;
   const int klen = min(kv_len[b], T);
+  float* Qs = smem + kOffGroups + g * kGroupFloats;
+  float* Pt = Qs + kBQ * kDP;
 
-  const size_t q_base = (static_cast<size_t>(b) * H + h) * S * D;
-  const size_t kv_base = (static_cast<size_t>(b) * Hkv + kvh) * T * D;
-  for (int i = tid; i < kTQ * D; i += kThreads) {
-    const int rr = i / D, d = i % D;
-    const int s = row0 + rr;
-    q_s[rr * DP + d] = s < S ? __ldg(q + q_base + static_cast<size_t>(s) * D + d) : 0.f;
-  }
+  const size_t q_base = (static_cast<size_t>(b) * H + h) * S * kD;
+  const size_t kv_base = (static_cast<size_t>(b) * Hkv + kvh) * T * kD;
 
-  const int kend = min(klen, qoff + min(row0 + kTQ, S));
+  const int kend = min(klen, qoff + min(row0 + kBQ, S));
   int kbeg = 0;
   if (window > 0) kbeg = max(0, qoff + row0 - window + 1);
-  kbeg = (kbeg / TK) * TK;
+  kbeg = (kbeg / kBK) * kBK;
+  const int n_tiles = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
+  if (n_tiles > 0) load_kv(smem, smem + kOffV, k, v, kv_base, kbeg, T);
 
-  float acc[DT];
-#pragma unroll
-  for (int i = 0; i < DT; ++i) acc[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
-  const float inv_sqrt_d = 1.0f / sqrtf(static_cast<float>(D));
-  __syncthreads();
-
-  for (int k0 = kbeg; k0 < kend; k0 += TK) {
-    for (int i = tid; i < TK * D; i += kThreads) {
-      const int t = i / D, d = i % D;
-      const int kk = k0 + t;
-      const bool ok = kk < T;
-      const size_t off = kv_base + static_cast<size_t>(kk) * D + d;
-      k_s[t * DP + d] = ok ? __ldg(k + off) : 0.f;
-      v_s[t * D + d] = ok ? __ldg(v + off) : 0.f;
+  // This group's Q tile times kScaleLog2; rows past S are zeros (their
+  // outputs are not stored).
+  for (int e = t; e < kBQ * kD / 4; e += kGroup) {
+    const int r = e / (kD / 4), d4 = e % (kD / 4);
+    const int s = row0 + r;
+    float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s < S) {
+      qv = __ldg(reinterpret_cast<const float4*>(
+                     q + q_base + static_cast<size_t>(s) * kD) + d4);
+      qv.x *= kScaleLog2;
+      qv.y *= kScaleLog2;
+      qv.z *= kScaleLog2;
+      qv.w *= kScaleLog2;
     }
-    __syncthreads();
-
-    float sc[TK / 4];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < TK / 4; ++j) {
-      const int c = sub + 4 * j;
-      const int kk = k0 + c;
-      const bool ok = kk < T && kk < klen && kk <= qpos &&
-                      (window <= 0 || kk > qpos - window);
-      float s = -INFINITY;
-      if (ok) {
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) dot += q_s[r * DP + d] * k_s[c * DP + d];
-        s = dot * inv_sqrt_d;
-      }
-      sc[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float m_safe = isfinite(m_new) ? m_new : 0.f;
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < TK / 4; ++j) {
-      // A masked score is exactly -inf; a live one is finite.
-      const float p = sc[j] == -INFINITY ? 0.f : expf(sc[j] - m_safe);
-      p_s[r * PP + sub + 4 * j] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    const float alpha = isfinite(m) ? expf(m - m_safe) : 0.f;
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < DT; ++i) acc[i] *= alpha;
-    for (int c = 0; c < TK; ++c) {
-      const float p = p_s[r * PP + c];
-#pragma unroll
-      for (int i = 0; i < DT; ++i) acc[i] += p * v_s[c * D + sub + 4 * i];
-    }
-    __syncthreads();
+    *reinterpret_cast<float4*>(Qs + r * kDP + 4 * d4) = qv;
   }
 
-  if (my_q < S) {
-    const float denom = fmaxf(l, 1e-30f);
-    float* o = out + q_base + static_cast<size_t>(my_q) * D;
+  float o[8][4] = {};
+  float m[8], l[8];
 #pragma unroll
-    for (int i = 0; i < DT; ++i) o[sub + 4 * i] = acc[i] / denom;
+  for (int r = 0; r < 8; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+  // Thread row r is row tr + kRowStep r of the tile: the two half-warps
+  // read neighbouring rows of Q, in different banks.
+  const int qpos0 = qoff + row0 + tr;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    cp_async_wait_all();
+    // Tile `it` (and the Q tiles) visible to all, and every warp done with
+    // tile it - 1, whose stage the next copy overwrites.
+    __syncthreads();
+    const int k0 = kbeg + it * kBK;
+    if (it + 1 < n_tiles) {
+      load_kv(smem + (stage ^ 1) * kKStage, smem + kOffV + (stage ^ 1) * kVStage,
+              k, v, kv_base, k0 + kBK, T);
+    }
+    const float* ks = smem + stage * kKStage;
+    const float* vs = smem + kOffV + stage * kVStage;
+
+    // Scores: rows tr + kRowStep r, keys tc + 16 n.
+    float sc[8][kKN] = {};
+#pragma unroll
+    for (int d = 0; d < kD; d += 4) {
+      float4 kv4[kKN];
+#pragma unroll
+      for (int n = 0; n < kKN; ++n) {
+        kv4[n] = *reinterpret_cast<const float4*>(ks + (tc + 16 * n) * kDP + d);
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float4 qv = *reinterpret_cast<const float4*>(
+            Qs + (tr + kRowStep * r) * kDP + d);
+#pragma unroll
+        for (int n = 0; n < kKN; ++n) {
+          sc[r][n] = fmaf(qv.x, kv4[n].x, sc[r][n]);
+          sc[r][n] = fmaf(qv.y, kv4[n].y, sc[r][n]);
+          sc[r][n] = fmaf(qv.z, kv4[n].z, sc[r][n]);
+          sc[r][n] = fmaf(qv.w, kv4[n].w, sc[r][n]);
+        }
+      }
+    }
+
+    // A tile inside every row's mask skips the test (block-uniform).
+    const bool full = k0 + kBK <= klen && k0 + kBK - 1 <= qoff + row0 &&
+                      (window <= 0 || k0 > qoff + row0 + kBQ - 1 - window);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int qpos = qpos0 + kRowStep * r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < kKN; ++n) {
+        float s = sc[r][n];
+        if (!full) {
+          const int kk = k0 + tc + 16 * n;
+          const bool ok = kk < klen && kk <= qpos &&
+                          (window <= 0 || kk > qpos - window);
+          if (!ok) s = -INFINITY;
+        }
+        sc[r][n] = s;
+        mx = fmaxf(mx, s);
+      }
+      // The 16 threads of a row are the lanes of one half-warp.
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      const float m_new = fmaxf(m[r], mx);
+      const float m_safe = isfinite(m_new) ? m_new : 0.f;
+      const float alpha = exp2_ftz(m[r] - m_safe);  // 0 while m is -inf
+      float psum = 0.f;
+#pragma unroll
+      for (int n = 0; n < kKN; ++n) {
+        const float p = exp2_ftz(sc[r][n] - m_safe);  // masked: exactly 0
+        sc[r][n] = p;
+        psum += p;
+      }
+      l[r] = l[r] * alpha + psum;
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[r][c] *= alpha;
+    }
+
+    // P^T (key, 8 tr + r) in the rows this warp owns.
+#pragma unroll
+    for (int n = 0; n < kKN; ++n) {
+      float* pt = Pt + (tc + 16 * n) * kPP + 8 * tr;
+      *reinterpret_cast<float4*>(pt) =
+          make_float4(sc[0][n], sc[1][n], sc[2][n], sc[3][n]);
+      *reinterpret_cast<float4*>(pt + 4) =
+          make_float4(sc[4][n], sc[5][n], sc[6][n], sc[7][n]);
+    }
+    __syncwarp();
+
+    // O += P V: rows tr + kRowStep r, columns 4 tc .. 4 tc + 3.
+#pragma unroll 16
+    for (int key = 0; key < kBK; ++key) {
+      const float4 p0 = *reinterpret_cast<const float4*>(Pt + key * kPP + 8 * tr);
+      const float4 p1 = *reinterpret_cast<const float4*>(Pt + key * kPP + 8 * tr + 4);
+      const float4 vv = *reinterpret_cast<const float4*>(vs + key * kD + 4 * tc);
+      const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        o[r][0] = fmaf(pr[r], vv.x, o[r][0]);
+        o[r][1] = fmaf(pr[r], vv.y, o[r][1]);
+        o[r][2] = fmaf(pr[r], vv.z, o[r][2]);
+        o[r][3] = fmaf(pr[r], vv.w, o[r][3]);
+      }
+    }
+    __syncwarp();  // P^T is rewritten by the next tile
+  }
+
+  // Row sums across the row's 16 threads, then the normalised rows.
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    float lt = l[r];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 4);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 8);
+    const int s = row0 + tr + kRowStep * r;
+    if (s < S) {
+      const float denom = fmaxf(lt, 1e-30f);
+      *reinterpret_cast<float4*>(out + q_base + static_cast<size_t>(s) * kD +
+                                 4 * tc) =
+          make_float4(o[r][0] / denom, o[r][1] / denom, o[r][2] / denom,
+                      o[r][3] / denom);
+    }
   }
 }
 
@@ -158,11 +313,30 @@ flash_attention_kernel(const float* __restrict__ q,
 
 int flash_attention_head_dim() { return kD; }
 
-void launch_flash_attention(const float* q, const float* k, const float* v,
-                            const int* q_offset, const int* kv_len, float* out,
-                            int B, int H, int Hkv, int S, int T, int window,
-                            cudaStream_t stream) {
-  const dim3 grid((S + kTQ - 1) / kTQ, H, B);
-  flash_attention_kernel<kD, kTK><<<grid, kThreads, 0, stream>>>(
-      q, k, v, q_offset, kv_len, out, H, Hkv, S, T, window);
+cudaError_t launch_flash_attention(const float* q, const float* k,
+                                   const float* v, const int* q_offset,
+                                   const int* kv_len, float* out, int B, int H,
+                                   int Hkv, int S, int T, int window,
+                                   cudaStream_t stream) {
+  // The dynamic shared memory above 48 KB is granted once per device.
+  constexpr int kMaxDevices = 64;
+  static bool granted[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices || !granted[device]) {
+    err = cudaFuncSetAttribute(flash_attention_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bytes(kMaxHeads)));
+    if (err != cudaSuccess) return err;
+    if (device < kMaxDevices) granted[device] = true;
+  }
+  // The most query heads of one KV head (a divisor of H / Hkv) per block.
+  const int G = H / Hkv;
+  int heads = kMaxHeads;
+  while (G % heads) --heads;
+  const dim3 grid(H / heads, B, (S + kBQ - 1) / kBQ);
+  flash_attention_kernel<<<grid, kGroup * heads, smem_bytes(heads), stream>>>(
+      q, k, v, q_offset, kv_len, out, H, Hkv, S, T, window, heads);
+  return cudaSuccess;
 }

@@ -8,7 +8,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
-from repro_torch.kernels.mode import launch_counts, use_kernel
+from repro_torch.kernels.mode import aligned16, launch_counts, use_kernel
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,7 +31,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_len is None:
         kv_len = torch.full((b,), t, dtype=torch.int32, device=dev)
     out = ext.flash_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(),
+        aligned16(q), aligned16(k), aligned16(v),
         q_offset.to(torch.int32).reshape(-1).expand(b).contiguous(),
         kv_len.to(torch.int32).reshape(-1).expand(b).contiguous(),
         int(window))

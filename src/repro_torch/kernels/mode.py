@@ -35,3 +35,11 @@ def use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise RuntimeError(f"no kernel or plain route for device {t.device}")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, at a 16-byte aligned address (the kernels read rows
+    with 16-byte loads and copies); a contiguous view at an odd offset is
+    copied."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t

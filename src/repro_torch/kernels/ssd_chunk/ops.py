@@ -17,16 +17,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.mode import launch_counts, use_kernel
+from repro_torch.kernels.mode import aligned16, launch_counts, use_kernel
 from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_plain
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous float32 at a 16-byte aligned address (the kernel reads
-    rows with 16-byte loads); a contiguous view at an odd offset is
-    copied."""
-    t = t.float().contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -40,8 +32,8 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         return ssd_chunk_plain(x, dt, a, b_in, c_in)
     from repro_torch.kernels.build import load_kernels
     ext = load_kernels()
-    y, states, total = ext.ssd_chunk(*(_aligned(t) for t in (x, dt, a, b_in,
-                                                             c_in)))
+    y, states, total = ext.ssd_chunk(*(aligned16(t.float())
+                                       for t in (x, dt, a, b_in, c_in)))
     launch_counts["ssd_chunk"] += 1
     return y, states, total
 

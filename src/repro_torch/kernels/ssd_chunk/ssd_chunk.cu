@@ -9,86 +9,163 @@
 //   decay   = exp(cum_i - cum_j) for i >= j, exactly 0 above the diagonal
 //   y       = (C B^T (.) decay) (x dt)                       (Q, P)
 //   state   = (B (.) exp(total - cum))^T (x dt), stored (P, N)
-// exactly what ssd_chunk_ref (src/repro/kernels/ssd_chunk/ref.py)
-// computes, up to float32 summation order.  `exp` is never evaluated
-// above the diagonal, where cum_i - cum_j > 0 would overflow.
+// what ssd_chunk_ref (src/repro/kernels/ssd_chunk/ref.py) computes, up
+// to rounding (the cumsum and the decay differences are float64 here).
+// `exp` is never evaluated above the diagonal, where cum_i - cum_j > 0
+// would overflow.
 //
 // What bounds it on the card: at the served tile (Q 64, P 64, N 128)
-// the float32 operations and the bytes (the (P, N) states dominate the
-// traffic) are about even.  Design: the Pallas grid recomputes C B^T
-// for every head; here one block owns a (b, c) chunk and a group of
-// kHeads heads, loads B and C into shared memory once and forms
-// C B^T (Q x Q) once for the group.  Per head it stages x dt and the
-// decay-weighted W = C B^T (.) decay in shared memory (over C, which is
-// dead by then), and every thread accumulates a register tile of y and
-// of the state with float32 FMAs from shared memory; no wgmma or TMA
-// yet, and no TF32, as the port's precision policy requires.  Shared
-// rows are padded so the column reads of each product are free of bank
-// conflicts.  About 85 KB of dynamic shared memory per block, above the
-// 48 KB static limit, hence cudaFuncSetAttribute before the first
-// launch on each device.
+// the float32 FMAs (the (P, N) state product is 4/5 of them) and the
+// bytes (the (P, N) states are half the traffic) are about even, so the
+// design keeps the FMA pipes fed and the stores streaming at once.
+//
+// One block of 8 warps owns a (b, c) chunk and a group of kHeads (16)
+// heads.  At block start B and C arrive by cp.async, C B^T is formed
+// once for the group (on and below the diagonal only), and one lane per
+// head runs the cumsum of every head of the group in order and in
+// float64, then exp(total - cum) dt for all of them.  Per head there are
+// no serial phases and one barrier:
+//   * each warp forms W = C B^T (.) decay (.) dt for its own rows only
+//     -- the 4-row blocks w and 15 - w, so every warp has the same causal
+//     work -- in a warp-private buffer, and runs the y product over j <=
+//     the block's last row: the causal half, 8 rows x 2 columns per lane;
+//   * each warp runs the state product for 16 rows of P against 64
+//     columns of N, 8 x 4 per lane, with B weighted by exp(total - cum)
+//     dt: per step of j, two broadcast float4 loads of x and one float4
+//     of B feed 32 FMAs, and each half-warp writes a 256-byte row of the
+//     state (streaming stores: nothing here reads them again);
+//   * the next head's x arrives by cp.async in the other half of a
+//     double buffer while this head's products run.
+// The decay differences cum_i - cum_j and total - cum_j come from the
+// float64 cumsum, so the kernel carries none of the float32 prefix
+// rounding that dominates the plain version's error against float64;
+// the products are float32 FMAs in ascending j.  No wgmma and no TF32,
+// as the port's precision policy requires.  106 KB of dynamic shared
+// memory and 256 threads per block: two blocks per SM, and the serve
+// shape's 256 blocks in one wave.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kQ = 64;     // chunk length
-constexpr int kP = 64;     // SSM head dim
-constexpr int kN = 128;    // SSM state
-constexpr int kHeads = 8;  // heads per block (C B^T shared by them)
-constexpr int kThreads = 256;
-constexpr int kBN = kN + 4;   // padded row of B and C (float4 aligned)
-constexpr int kWQ = kQ + 1;   // padded row of C B^T and W
+constexpr int kQ = 64;      // chunk length
+constexpr int kP = 64;      // SSM head dim
+constexpr int kN = 128;     // SSM state
+constexpr int kHeads = 16;  // heads per block (C B^T shared)
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBN = kN + 4;     // padded row of B and C (float4 aligned)
+constexpr int kWQ = kQ + 1;     // padded row of C B^T
+constexpr int kRows = 4;        // rows of y in one W block
+constexpr int kWarpW = kRows * (kQ + kRows);  // W floats of one warp
 
 // Shared memory layout, in floats.
-constexpr int kOffB = 0;                        // B  (Q, kBN)
-constexpr int kOffC = kOffB + kQ * kBN;         // C  (Q, kBN); later W, xdt
-constexpr int kOffW = kOffC;                    // W  (Q, kWQ)
-constexpr int kOffX = kOffW + kQ * kWQ;         // xdt (Q, P)
-constexpr int kOffCB = kOffC + kQ * kBN;        // C B^T (Q, kWQ)
-constexpr int kOffCum = kOffCB + kQ * kWQ;      // cum (Q)
-constexpr int kOffRem = kOffCum + kQ;           // exp(total - cum) (Q)
-constexpr int kOffDt = kOffRem + kQ;            // dt (Q)
-constexpr int kSmemFloats = kOffDt + kQ;
+constexpr int kOffB = 0;                          // B     (Q, kBN)
+constexpr int kOffCB = kOffB + kQ * kBN;          // C B^T (Q, kWQ)
+constexpr int kOffDt = kOffCB + kQ * kWQ;         // dt    (kHeads, Q)
+constexpr int kOffWt = kOffDt + kHeads * kQ;     // exp(total - cum) dt
+constexpr int kOffCum = kOffWt + kHeads * kQ;     // cum   (kHeads, Q) f64
+constexpr int kOffX = kOffCum + 2 * kHeads * kQ;  // x     (2, Q, P)
+constexpr int kOffW = kOffX + 2 * kQ * kP;        // W     (kWarps, kWarpW)
+constexpr int kOffC = kOffX;                      // C     (Q, kBN), dead
+                                                  // once C B^T is formed
+constexpr int kSmemFloats = kOffW + kWarps * kWarpW;
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
-static_assert(kOffX + kQ * kP <= kOffCB, "W and xdt must fit over C");
-static_assert(kThreads == 256, "the register tiles assume 256 threads");
+static_assert(kOffC + kQ * kBN <= kSmemFloats, "C must fit");
+static_assert(kOffWt % 4 == 0 && kOffCum % 2 == 0 && kOffX % 4 == 0 && kOffW % 4 == 0 &&
+                  kWarpW % 4 == 0,
+              "double and float4 alignment");
+static_assert(kHeads % kWarps == 0, "the cumsum lanes map heads to warps");
+static_assert(kRows * 2 * kWarps == kQ, "two W blocks per warp cover Q");
+static_assert(kP == 16 * (kWarps / 2) && kN == 2 * 64,
+              "state tile: 16 rows of P x 64 columns of N per warp");
+static_assert(kThreads == 256, "the C B^T tiles assume 256 threads");
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async16(float* smem_dst,
+                                           const float* gmem_src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem_src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One head's x (Q rows of P floats, H * P apart) into a half of the
+// double buffer, by every thread of the block.
+__device__ __forceinline__ void copy_x(float* xs, const float* __restrict__ x,
+                                       size_t row0, int n_heads, int h) {
+  for (int e = threadIdx.x; e < kQ * kP / 4; e += kThreads) {
+    const int i = e / (kP / 4), p4 = e % (kP / 4);
+    cp_async16(xs + i * kP + 4 * p4, x + ((row0 + i) * n_heads + h) * kP +
+                                         4 * p4);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ a, const float* __restrict__ b_in,
                  const float* __restrict__ c_in, float* __restrict__ y,
                  float* __restrict__ states, float* __restrict__ total,
-                 int n_chunks, int n_heads, int head_groups) {
+                 int n_heads, int head_groups) {
   extern __shared__ __align__(16) float smem[];
   float* Bs = smem + kOffB;
   float* Cs = smem + kOffC;
-  float* Ws = smem + kOffW;
-  float* Xs = smem + kOffX;
   float* CBs = smem + kOffCB;
-  float* cum = smem + kOffCum;
-  float* rem = smem + kOffRem;
   float* dts = smem + kOffDt;
+  float* wts = smem + kOffWt;
+  double* cums = reinterpret_cast<double*>(smem + kOffCum);
 
   const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
   const int group = blockIdx.x % head_groups;
   const size_t bc = blockIdx.x / head_groups;  // b * n_chunks + c
   const int h0 = group * kHeads;
-  const int h1 = min(n_heads, h0 + kHeads);
+  const int nh = min(kHeads, n_heads - h0);
+  const size_t row0 = bc * kQ;  // (b, c, i = 0) in the (B, NC, Q) rows
 
-  // B and C of the chunk, 16-byte loads, into padded rows.
-  const float4* b4 = reinterpret_cast<const float4*>(b_in + bc * kQ * kN);
-  const float4* c4 = reinterpret_cast<const float4*>(c_in + bc * kQ * kN);
+  // B and C of the chunk into padded rows, the first head's x, and dt of
+  // the group's heads.
+  const float* bsrc = b_in + bc * kQ * kN;
+  const float* csrc = c_in + bc * kQ * kN;
   for (int e = tid; e < kQ * kN / 4; e += kThreads) {
     const int i = e / (kN / 4), n4 = e % (kN / 4);
-    *reinterpret_cast<float4*>(Bs + i * kBN + 4 * n4) = __ldg(b4 + e);
-    *reinterpret_cast<float4*>(Cs + i * kBN + 4 * n4) = __ldg(c4 + e);
+    cp_async16(Bs + i * kBN + 4 * n4, bsrc + 4 * e);
+    cp_async16(Cs + i * kBN + 4 * n4, csrc + 4 * e);
   }
+  for (int e = tid; e < kQ * kHeads; e += kThreads) {
+    const int i = e / kHeads, hh = e % kHeads;
+    dts[hh * kQ + i] =
+        hh < nh ? __ldg(dt + (row0 + i) * n_heads + h0 + hh) : 0.0f;
+  }
+  cp_async_wait_all();
   __syncthreads();
 
-  // C B^T once for the head group: thread (ti, tj) holds rows
-  // ti + 16u and columns tj + 16v, u, v < 4.
+  // The inclusive cumsum of every head of the group, in order and in
+  // float64, one lane per head (lane hh / kWarps of warp hh % kWarps).
+  // dt * a is exact in float64, so cum, cum_i - cum_j and total - cum_j
+  // carry none of the float32 prefix rounding that dominates the plain
+  // version's error.
+  {
+    const int hh = lane * kWarps + warp;
+    if (lane < kHeads / kWarps && hh < nh) {
+      const double ah = __ldg(a + h0 + hh);
+      const float* d = dts + hh * kQ;
+      double* cum = cums + hh * kQ;
+      double s = 0.0;
+      for (int i = 0; i < kQ; ++i) {
+        s += static_cast<double>(d[i]) * ah;
+        cum[i] = s;
+      }
+      total[bc * n_heads + h0 + hh] = static_cast<float>(s);
+    }
+  }
+
+  // C B^T once for the head group, on and below the diagonal: thread
+  // (ti, tj) holds rows ti + 16u and columns tj + 16v, u >= v.
   {
     const int ti = tid % 16, tj = tid / 16;
     float acc[4][4] = {};
@@ -102,7 +179,7 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
 #pragma unroll
-        for (int v = 0; v < 4; ++v) {
+        for (int v = 0; v <= u; ++v) {
           acc[u][v] = fmaf(cv[u].x, bv[v].x, acc[u][v]);
           acc[u][v] = fmaf(cv[u].y, bv[v].y, acc[u][v]);
           acc[u][v] = fmaf(cv[u].z, bv[v].z, acc[u][v]);
@@ -113,111 +190,143 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
 #pragma unroll
-      for (int v = 0; v < 4; ++v) {
+      for (int v = 0; v <= u; ++v) {
         CBs[(ti + 16 * u) * kWQ + tj + 16 * v] = acc[u][v];
       }
     }
   }
-  __syncthreads();  // C is dead from here on: W and xdt reuse its space
+  __syncthreads();  // C is dead: the x buffers and W reuse its space
+  copy_x(smem + kOffX, x, row0, n_heads, h0);
+  // exp(total - cum) dt of every head of the group (the state product's
+  // weight of step j).
+  for (int e = tid; e < nh * kQ; e += kThreads) {
+    const double* cum = cums + (e / kQ) * kQ;
+    wts[e] = expf(static_cast<float>(cum[kQ - 1] - cum[e % kQ])) * dts[e];
+  }
+  cp_async_wait_all();
+  __syncthreads();
 
-  for (int h = h0; h < h1; ++h) {
-    const size_t row0 = bc * kQ;  // (b, c, i = 0) in the (B, NC, Q) rows
-    if (tid < kQ) dts[tid] = __ldg(dt + (row0 + tid) * n_heads + h);
-    __syncthreads();
-    if (tid == 0) {
-      // The inclusive cumsum, in order, while the other threads stage
-      // x dt.  In order, cum_i - cum_j keeps the rounding of the prefix
-      // both share, so the decay is as exact as the plain version's; a
-      // warp shuffle scan measured twice its error against float64 at
-      // the same speed (PERF.md).
-      const float ah = __ldg(a + h);
-      float s = 0.0f;
-      for (int i = 0; i < kQ; ++i) {
-        s += dts[i] * ah;
-        cum[i] = s;
-      }
-    }
-    // x dt for this head (rows of P contiguous floats).
-    for (int e = tid; e < kQ * kP / 4; e += kThreads) {
-      const int i = e / (kP / 4), p4 = e % (kP / 4);
-      float4 v = __ldg(reinterpret_cast<const float4*>(
-          x + ((row0 + i) * n_heads + h) * kP) + p4);
-      const float d = dts[i];
-      v.x *= d;
-      v.y *= d;
-      v.z *= d;
-      v.w *= d;
-      *reinterpret_cast<float4*>(Xs + i * kP + 4 * p4) = v;
-    }
-    __syncthreads();
-    const float tot = cum[kQ - 1];
-    if (tid < kQ) rem[tid] = expf(tot - cum[tid]);
-    // W = C B^T (.) decay; exp only on and below the diagonal.
-    for (int e = tid; e < kQ * kQ; e += kThreads) {
-      const int i = e / kQ, j = e % kQ;
-      Ws[i * kWQ + j] = i >= j ? CBs[i * kWQ + j] * expf(cum[i] - cum[j])
-                               : 0.0f;
-    }
-    __syncthreads();
+  // This warp's W blocks: rows rA .. rA + 3 (j < rA + 4) and rB .. rB + 3
+  // (j < rB + 4), stored [j][row] so one float4 holds a step's 4 rows.
+  float* Ww = smem + kOffW + warp * kWarpW;
+  const int rA = kRows * warp;
+  const int rB = kQ - kRows * (warp + 1);
+  const int nA = rA + kRows, nB = rB + kRows;
 
-    // y (Q, P): thread (ti, tp) holds rows ti + 16u and columns
-    // 4 tp .. 4 tp + 3.
+  for (int hh = 0; hh < nh; ++hh) {
+    const int h = h0 + hh;
+    const float* xs = smem + kOffX + (hh & 1) * kQ * kP;
+    if (hh + 1 < nh) {
+      copy_x(smem + kOffX + ((hh + 1) & 1) * kQ * kP, x, row0, n_heads,
+             h + 1);
+    }
+
+    // W = C B^T (.) decay (.) dt_j on this warp's rows; exp only on and
+    // below the diagonal, of the float64 difference.
+    const double* cum = cums + hh * kQ;
+    const float* dth = dts + hh * kQ;
+    for (int e = lane; e < kWarpW; e += 32) {
+      const bool in_a = e < kRows * nA;
+      const int e2 = in_a ? e : e - kRows * nA;
+      const int j = e2 / kRows;
+      const int i = (in_a ? rA : rB) + e2 % kRows;
+      Ww[e] = i >= j ? CBs[i * kWQ + j] *
+                           expf(static_cast<float>(cum[i] - cum[j])) * dth[j]
+                     : 0.0f;
+    }
+    __syncwarp();
+
+    // y: rows of both blocks, columns 2 lane, 2 lane + 1, over the causal
+    // half (W is exactly 0 above the diagonal inside a block).
     {
-      const int ti = tid % 16, tp = tid / 16;
-      float acc[4][4] = {};
-      for (int j = 0; j < kQ; ++j) {
-        const float4 xv = *reinterpret_cast<const float4*>(Xs + j * kP +
-                                                           4 * tp);
+      const float4* wa = reinterpret_cast<const float4*>(Ww);
+      const float4* wb = reinterpret_cast<const float4*>(Ww + kRows * nA);
+      float ya[kRows][2] = {}, yb[kRows][2] = {};
+      int j = 0;
+#pragma unroll 4
+      for (; j < nA; ++j) {
+        const float2 xv = *reinterpret_cast<const float2*>(xs + j * kP +
+                                                           2 * lane);
+        const float4 w4a = wa[j], w4b = wb[j];
+        const float wra[kRows] = {w4a.x, w4a.y, w4a.z, w4a.w};
+        const float wrb[kRows] = {w4b.x, w4b.y, w4b.z, w4b.w};
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float w = Ws[(ti + 16 * u) * kWQ + j];
-          acc[u][0] = fmaf(w, xv.x, acc[u][0]);
-          acc[u][1] = fmaf(w, xv.y, acc[u][1]);
-          acc[u][2] = fmaf(w, xv.z, acc[u][2]);
-          acc[u][3] = fmaf(w, xv.w, acc[u][3]);
+        for (int r = 0; r < kRows; ++r) {
+          ya[r][0] = fmaf(wra[r], xv.x, ya[r][0]);
+          ya[r][1] = fmaf(wra[r], xv.y, ya[r][1]);
+          yb[r][0] = fmaf(wrb[r], xv.x, yb[r][0]);
+          yb[r][1] = fmaf(wrb[r], xv.y, yb[r][1]);
+        }
+      }
+#pragma unroll 4
+      for (; j < nB; ++j) {
+        const float2 xv = *reinterpret_cast<const float2*>(xs + j * kP +
+                                                           2 * lane);
+        const float4 w4b = wb[j];
+        const float wrb[kRows] = {w4b.x, w4b.y, w4b.z, w4b.w};
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          yb[r][0] = fmaf(wrb[r], xv.x, yb[r][0]);
+          yb[r][1] = fmaf(wrb[r], xv.y, yb[r][1]);
         }
       }
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = ti + 16 * u;
-        *reinterpret_cast<float4*>(y + ((row0 + i) * n_heads + h) * kP +
-                                   4 * tp) =
-            make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
+      for (int r = 0; r < kRows; ++r) {
+        __stcs(reinterpret_cast<float2*>(y + ((row0 + rA + r) * n_heads + h) *
+                                                 kP + 2 * lane),
+               make_float2(ya[r][0], ya[r][1]));
+        __stcs(reinterpret_cast<float2*>(y + ((row0 + rB + r) * n_heads + h) *
+                                                 kP + 2 * lane),
+               make_float2(yb[r][0], yb[r][1]));
       }
     }
 
-    // state (P, N): thread (tn, tp) holds rows tp + 16u and columns
-    // 4 tn .. 4 tn + 3 and 64 + 4 tn .. 64 + 4 tn + 3.
+    // state (P, N): warp (pb, nb) = (warp / 2, warp % 2) owns rows
+    // 16 pb .. 16 pb + 15 and columns 64 nb .. 64 nb + 63; lane (ph, nl)
+    // rows p0 .. p0 + 7 (p0 = 16 pb + 8 ph) and columns n0 .. n0 + 3
+    // (n0 = 64 nb + 4 nl).  Per step of j the half-warps share a 256-byte
+    // row of B and each reads 8 rows of x as two broadcast float4s.
     {
-      const int tn = tid % 16, tp = tid / 16;
-      float acc[4][8] = {};
-      for (int j = 0; j < kQ; ++j) {
-        const float r = rem[j];
-        const float4 b0 = *reinterpret_cast<const float4*>(Bs + j * kBN +
-                                                           4 * tn);
-        const float4 b1 = *reinterpret_cast<const float4*>(Bs + j * kBN +
-                                                           64 + 4 * tn);
-        const float bw[8] = {b0.x * r, b0.y * r, b0.z * r, b0.w * r,
-                             b1.x * r, b1.y * r, b1.z * r, b1.w * r};
+      const int p0 = 16 * (warp / 2) + 8 * (lane / 16);
+      const int n0 = 64 * (warp % 2) + 4 * (lane % 16);
+      const float4* wt4 = reinterpret_cast<const float4*>(wts + hh * kQ);
+      float acc[8][4] = {};
+#pragma unroll 2
+      for (int j4 = 0; j4 < kQ / 4; ++j4) {
+        const float4 w4 = wt4[j4];
+        const float wj[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float xv = Xs[j * kP + tp + 16 * u];
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * j4 + jj;
+          const float r = wj[jj];
+          const float4 bv = *reinterpret_cast<const float4*>(Bs + j * kBN + n0);
+          const float bw[4] = {bv.x * r, bv.y * r, bv.z * r, bv.w * r};
+          const float4 x0 = *reinterpret_cast<const float4*>(xs + j * kP + p0);
+          const float4 x1 = *reinterpret_cast<const float4*>(xs + j * kP + p0 +
+                                                             4);
+          const float xv[8] = {x0.x, x0.y, x0.z, x0.w,
+                               x1.x, x1.y, x1.z, x1.w};
 #pragma unroll
-          for (int v = 0; v < 8; ++v) acc[u][v] = fmaf(bw[v], xv, acc[u][v]);
+          for (int u = 0; u < 8; ++u) {
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              acc[u][v] = fmaf(bw[v], xv[u], acc[u][v]);
+            }
+          }
         }
       }
       float* st = states + (bc * n_heads + h) * static_cast<size_t>(kP * kN);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int p = tp + 16 * u;
-        *reinterpret_cast<float4*>(st + p * kN + 4 * tn) =
-            make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
-        *reinterpret_cast<float4*>(st + p * kN + 64 + 4 * tn) =
-            make_float4(acc[u][4], acc[u][5], acc[u][6], acc[u][7]);
+      for (int u = 0; u < 8; ++u) {
+        __stcs(reinterpret_cast<float4*>(st + (p0 + u) * kN + n0),
+               make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]));
       }
     }
-    if (tid == 0) total[bc * n_heads + h] = tot;
-    __syncthreads();  // Xs, Ws, cum, rem are rewritten for the next head
+
+    // The next head's x is visible and every warp is done with this
+    // head's (and with its own W, which the next head rewrites).
+    cp_async_wait_all();
+    __syncthreads();
   }
 }
 
@@ -248,7 +357,6 @@ cudaError_t launch_ssd_chunk(const float* x, const float* dt, const float* a,
   const unsigned blocks = static_cast<unsigned>(batch) * n_chunks *
                           head_groups;
   ssd_chunk_kernel<<<blocks, kThreads, kSmemBytes, stream>>>(
-      x, dt, a, b_in, c_in, y, states, total, n_chunks, n_heads,
-      head_groups);
+      x, dt, a, b_in, c_in, y, states, total, n_heads, head_groups);
   return cudaSuccess;
 }

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 # Per-layer leaves of the Mamba-2 block (``repro/models/mamba2.py:45``);
 # the two norms are {"scale": ...} dicts.
 _SSM_NORMS = ("norm", "y_norm")
@@ -45,7 +47,10 @@ def _ssm_layer(stacked, i, device) -> dict:
     return out
 
 
-def params_from_jax(tree: dict, device="cpu") -> dict:
+def params_from_jax(tree: dict, device=None) -> dict:
+    """The port's parameter dict on ``device`` (``None``: the card, or an
+    error when there is none; the tests pass ``"cpu"``)."""
+    device = resolve_device(device)
     stacked = tree["layers"]
     if "in_proj" in stacked:
         n = np.asarray(stacked["in_proj"]).shape[0]

@@ -51,6 +51,26 @@ def test_sync_counter_counts_host_waits_on_card(cuda):
     assert torch.cuda.get_sync_debug_mode() == 0
 
 
+def test_params_from_jax_defaults_to_the_card(monkeypatch):
+    """Like every entry point, ``params_from_jax`` runs on the card unless
+    the caller asks for the CPU: with no card and no device it raises."""
+    from repro_torch.models import params_from_jax
+    tree = {"embed": np.zeros((4, 2), np.float32),
+            "layers": {"attn_norm": {"scale": np.ones((1, 2), np.float32)},
+                       "attn": {w: np.zeros((1, 2, 2), np.float32)
+                                for w in ("wq", "wk", "wv", "wo")},
+                       "mlp_norm": {"scale": np.ones((1, 2), np.float32)},
+                       "mlp": {w: np.zeros((1, 2, 2), np.float32)
+                               for w in ("w_gate", "w_up", "w_down")}},
+            "final_norm": {"scale": np.ones(2, np.float32)},
+            "lm_head": np.zeros((2, 4), np.float32)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax(tree)
+    cpu = params_from_jax(tree, device="cpu")
+    assert cpu["embed"].device.type == "cpu" and len(cpu["layers"]) == 1
+
+
 def test_analyse_attributes_runtime_and_driver_launches():
     """A kernel belongs to the phase range its launch call falls in,
     whether the call is a runtime launch (PyTorch's own kernels) or a

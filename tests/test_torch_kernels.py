@@ -334,18 +334,42 @@ def test_decode_kernel_matches_plain_on_card(cuda):
     assert float((out - ref).abs().max()) <= 1e-4
 
 
+# Edges of the kernel's tiles (64 query rows per warp group, 64-key KV
+# tiles, up to 3 query heads of one KV head per block): (b, h, hkv, s, t,
+# q_offset, kv_len, windows).  None draws the offsets as the arena does.
+FLASH_CARD_CASES = {
+    "arena": (8, 15, 5, 64, 200, None, None, (0, 33)),
+    "rows_not_tile_multiple": (3, 15, 5, 100, 256, [0, 0, 100],
+                               [100, 70, 200], (0,)),
+    "keys_not_tile_multiple": (2, 6, 2, 64, 130, [0, 66], [64, 130], (0,)),
+    "kv_len_zero_row": (3, 6, 2, 80, 150, [0, 10, 0], [80, 0, 150], (0,)),
+    "chunk_past_t": (2, 15, 5, 128, 150, [100, 0], [228, 128], (0,)),
+    "window": (2, 6, 2, 200, 300, [0, 90], [200, 290], (1, 5, 70)),
+    "one_head_per_kv_head": (2, 4, 4, 96, 160, [0, 40], [96, 136], (0, 9)),
+    "two_heads_per_kv_head": (2, 4, 2, 96, 160, [0, 40], [96, 136], (0,)),
+}
+
+
 @pytest.mark.cuda
-def test_flash_kernel_matches_plain_on_card(cuda):
+@pytest.mark.parametrize("case", sorted(FLASH_CARD_CASES))
+def test_flash_kernel_matches_plain_on_card(cuda, case):
+    """Against the plain version within 1e-4 (float32 summation order);
+    a row with kv_len == 0 is exactly zero on both routes."""
+    b, h, hkv, s, t, off, kvl, windows = FLASH_CARD_CASES[case]
     rng = np.random.RandomState(2)
     q, k, v = (torch.from_numpy(x).to(cuda)
-               for x in _attn_inputs(rng, 8, 15, 5, 64, 200, 64))
-    off = torch.from_numpy(rng.randint(0, 150, 8).astype(np.int32)).to(cuda)
-    kvl = off + 64
-    kvl[0] = 0
-    for window in (0, 33):
+               for x in _attn_inputs(rng, b, h, hkv, s, t, 64))
+    if off is None:
+        off = rng.randint(0, 150, b)
+        kvl = off + s
+        kvl[0] = 0
+    off, kvl = (torch.tensor(np.asarray(x, np.int32), device=cuda)
+                for x in (off, kvl))
+    for window in windows:
         out = flash_attention(q, k, v, off, kvl, window=window)
         ref = flash_attention_plain(q, k, v, off, kvl, window=window)
-        assert float((out - ref).abs().max()) <= 1e-4
+        assert float((out - ref).abs().max()) <= 1e-4, window
+        assert bool((out[kvl == 0] == 0).all())
 
 
 @pytest.mark.cuda

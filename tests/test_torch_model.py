@@ -31,7 +31,8 @@ B, T = 4, 40
 def model():
     jcfg, tcfg = JCfg(**KW), ModelConfig(**KW)
     jp = j_init(jax.random.PRNGKey(0), jcfg)
-    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                         device="cpu")
     return jcfg, tcfg, jp, tp
 
 

@@ -48,7 +48,8 @@ J_BACKEND = {"torch": "xla", "kernel": "pallas"}
 
 
 def _convert(p):
-    return params_from_jax(jax.tree_util.tree_map(np.asarray, p))
+    return params_from_jax(jax.tree_util.tree_map(np.asarray, p),
+                           device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -57,7 +57,8 @@ def pair():
                                                "num_layers": 1})
     jtp = j_init(jax.random.PRNGKey(0), jt)
     jdp = j_init(jax.random.PRNGKey(1), jd)
-    conv = lambda p: params_from_jax(jax.tree_util.tree_map(np.asarray, p))
+    conv = lambda p: params_from_jax(jax.tree_util.tree_map(np.asarray, p),
+                                     device="cpu")
     return {"jax": ((jtp, jt), (jdp, jd)),
             "torch": ((conv(jtp), tt), (conv(jdp), td))}
 

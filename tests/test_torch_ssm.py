@@ -71,7 +71,8 @@ def model(jx):
     from repro.models import init_params as j_init
     jcfg, tcfg = JCfg(**SSM), ModelConfig(**SSM)
     jp = j_init(jx.jax.random.PRNGKey(0), jcfg)
-    tp = params_from_jax(jx.jax.tree_util.tree_map(np.asarray, jp))
+    tp = params_from_jax(jx.jax.tree_util.tree_map(np.asarray, jp),
+                         device="cpu")
     return jcfg, tcfg, jp, tp
 
 
@@ -257,16 +258,36 @@ def test_dense_serving_calls_raise_in_registry():
 # ---------------------------------------------------------------------------
 
 
+def _ssd_float64(x, dt, a, b_in, c_in):
+    """``ssd_chunk_ref``'s y and states in float64: the yardstick that
+    says whether the kernel or the plain version sums more exactly."""
+    x, dt, a, b_in, c_in = (t.double() for t in (x, dt, a, b_in, c_in))
+    q = x.shape[2]
+    cum = torch.cumsum(dt * a, dim=2)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    diff = cum[:, :, :, None] - cum[:, :, None]
+    decay = torch.where(tri[..., None], torch.exp(torch.where(
+        tri[..., None], diff, 0.0)), 0.0)
+    w = torch.einsum("bcin,bcjn->bcij", c_in, b_in)[..., None] * decay
+    xdt = x * dt[..., None]
+    rem = torch.exp(cum[:, :, -1:] - cum)
+    return (torch.einsum("bcijh,bcjhp->bcihp", w, xdt),
+            torch.einsum("bcjh,bcjn,bcjhp->bchpn", rem, b_in, xdt))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads", [32, 12])
-def test_ssd_chunk_kernel_matches_plain_on_card(cuda, heads):
-    """The served tile (Q 64, P 64, N 128), 32 heads (four full groups
-    of 8) or 12 (a partial group): the kernel against the plain version
-    at atol = rtol = 5e-4.  B and C are views at an offset of one float
-    (the wrapper realigns them for the kernel's 16-byte loads)."""
+@pytest.mark.parametrize("batch,chunks,heads", [(3, 2, 32), (3, 2, 12),
+                                                (1, 1, 8), (5, 3, 20)])
+def test_ssd_chunk_kernel_matches_plain_on_card(cuda, batch, chunks, heads):
+    """The served tile (Q 64, P 64, N 128): four full groups of 8 heads,
+    a partial group (12, 20 heads), one chunk, an odd batch.  The kernel
+    against the plain version at atol = rtol = 5e-4, and no further from
+    a float64 reference than the plain version on y and the states.  B
+    and C are views at an offset of one float (the wrapper realigns them
+    for the kernel's 16-byte loads)."""
     x, dt, a, b_in, c_in = (torch.from_numpy(t).to(cuda)
-                            for t in _chunk_inputs(3, 3, 2, 64, heads, 64,
-                                                   128))
+                            for t in _chunk_inputs(3, batch, chunks, 64,
+                                                   heads, 64, 128))
     b_in = torch.cat([b_in.flatten(), b_in.new_zeros(1)])[:-1].reshape(
         b_in.shape)
     c_in = torch.cat([c_in.new_zeros(1), c_in.flatten()])[1:].reshape(
@@ -280,6 +301,10 @@ def test_ssd_chunk_kernel_matches_plain_on_card(cuda, heads):
     assert launch_counts["ssd_chunk"] == before + 1
     for g, w, tol in zip(got, want, (ATOL_CHUNK, ATOL_CHUNK, TOL_TOTAL)):
         _close(g.cpu(), w.cpu(), tol, tol)
+    for g, w, e in zip(got, want, _ssd_float64(*args)):
+        err_kernel = float((g.double() - e).abs().max())
+        err_plain = float((w.double() - e).abs().max())
+        assert err_kernel <= err_plain, (err_kernel, err_plain)
 
 
 @pytest.mark.cuda
