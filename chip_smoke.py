@@ -13,7 +13,17 @@ when the port's sources are not beside this file.  Phases:
      minima compared bit for bit; attention: max abs error <= 1e-4),
      timed with CUDA events (median of 25 samples of 10 back-to-back
      calls, after warm-up; 5 single calls for the slow plain binned
-     race) beside its plain version, one PyTorch library call as a
+     race) beside its plain version.  ``decode_attention`` and
+     ``gls_row_race`` (16-63 MB of inputs, most of which would stay in
+     the 50 MB L2 cache between back-to-back calls) are timed the way
+     the main path calls them: cycling through distinct input
+     sets (one K/V set per drafter layer; for the race, three L2 caches
+     of tables) so each call finds its inputs cold, and with ``device_ms``
+     beside ``ms``, the kernel's own device time per launch from
+     ``torch.profiler``; the decode check adds the edges of the kernel's
+     split plan, the race check a tie across two splits and a minimum on
+     a split's first element.  Each kernel also has one PyTorch library
+     call as a
      yardstick the port never calls where one computes the kernel's
      function (none for the row and joint races: ``torch.min`` on a
      precomputed score is timed as a note only), and
@@ -80,6 +90,7 @@ exception, so the script exits non-zero after any failure.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -96,6 +107,9 @@ SRC = os.path.join(HERE, "src")
 # float32 rate outside the tensor cores (the port keeps f32 "highest").
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# Its L2 cache: the cycled timings of the two small streaming kernels
+# keep three times as many input bytes.
+L2_BYTES = 50 * 2 ** 20
 
 S_SLOTS, K_DRAFTS, L_DRAFT = 4, 8, 4
 N_REQUESTS, MAX_NEW = 8, 64
@@ -142,6 +156,44 @@ def time_ms(fn, samples: int = 25, batch: int = 10, warmup: int = 3):
     return statistics.median(times)
 
 
+def cold_sets(set_bytes: int, least: int = 4) -> int:
+    """How many input sets to cycle through so that each call finds its
+    inputs cold in L2: at least ``least``, and three L2 caches in all."""
+    return max(least, -(-3 * L2_BYTES // set_bytes))
+
+
+def time_cycled(calls, **kw):
+    """``time_ms`` of ``calls`` (one closure per input set) taken in
+    turn."""
+    it = itertools.cycle(calls)
+    return time_ms(lambda: next(it)(), **kw)
+
+
+def device_ms(torch, calls, kernel: str, rounds: int = 10) -> float:
+    """The kernel's own device time per launch over ``rounds`` passes
+    through ``calls``: ``torch.profiler``'s ``key_averages()``, each
+    kernel whose name holds ``kernel`` its device time over its count,
+    summed over such kernels (a call that launches two).  Raises where
+    the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):  # a first profile may miss the device activity
+        for c in calls:
+            c()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(rounds):
+                for c in calls:
+                    c()
+            torch.cuda.synchronize()
+        per_launch = sum(getattr(e, "device_time_total", 0.0) / e.count
+                         for e in prof.key_averages()
+                         if kernel in e.key and e.count)
+        if per_launch > 0:
+            return per_launch / 1e3
+    raise AssertionError(f"torch.profiler shows no device time for {kernel}")
+
+
 def bound(nbytes: float, flops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
@@ -156,8 +208,10 @@ def log_kernel(kr: dict, smi: str) -> None:
     note = f", note {kr['note_ms']:.4f} ms" if "note_ms" in kr else ""
     work = (f": {kr['flops']:.4g} flop, {kr['bytes']:.4g} bytes"
             if "flops" in kr else "")
+    dev = (f" (device {kr['device_ms']:.4f} ms)" if "device_ms" in kr
+           else "")
     log(f"kernel {kr['name']} [{kr['shape']}]: max_abs_err="
-        f"{kr['max_abs_err']:.3g} kernel {kr['ms']:.4f} ms, plain "
+        f"{kr['max_abs_err']:.3g} kernel {kr['ms']:.4f} ms{dev}, plain "
         f"{kr['plain_ms']:.4f} ms, library {lib}{note} ({kr['library']}), "
         f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}{work}) [{smi}]")
     if "err_vs_float64" in kr:
@@ -171,24 +225,62 @@ def log_kernel(kr: dict, smi: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def kernel_race(torch, dev, rows: int, vocab: int):
-    """``gls_row_race`` against its plain version at (rows, K, vocab):
-    bitwise equal minima and argmins, with planted ties, a +inf log_q and
-    an all-dead row (``rows`` >= 4)."""
-    from repro_torch.kernels.gls_race.ops import gls_row_race
-    from repro_torch.kernels.gls_race.ref import gls_row_race_plain
+def race_inputs(torch, dev, rows: int, vocab: int, n_sets: int, seed: int):
+    """``n_sets`` race tables (log_s, log_q) of (rows, K, vocab): Gumbel
+    race times and the top-50 verifier's log-probabilities."""
     from repro_torch.specdec.engine import probs_from_logits
     g = torch.Generator(device=dev)
-    g.manual_seed(SEED)
+    g.manual_seed(seed)
+    sets = []
+    for _ in range(n_sets):
+        u = torch.rand((rows, K_DRAFTS, vocab), generator=g,
+                       device=dev).clamp_min(1e-30)
+        q = probs_from_logits(torch.randn((rows, K_DRAFTS, vocab),
+                                          generator=g, device=dev),
+                              1.0, 50, vocab)
+        sets.append((torch.log(-torch.log(u)),
+                     torch.where(q > 0, torch.log(q.clamp_min(1e-30)),
+                                 torch.tensor(float("-inf"), device=dev))))
+    return sets
+
+
+def time_race(torch, sets) -> dict:
+    """``gls_row_race``, its plain version and ``torch.min`` on a
+    precomputed score (a note), each cycling through ``sets``."""
+    from repro_torch.kernels.gls_race.ops import gls_row_race
+    from repro_torch.kernels.gls_race.ref import gls_row_race_plain
+    inf = torch.tensor(float("inf"), device=sets[0][0].device)
+    scores = [torch.where(torch.isfinite(lq), ls - lq, inf) for ls, lq in sets]
+    calls = [lambda a=a: gls_row_race(*a) for a in sets]
+    out = {"ms": time_cycled(calls),
+           "device_ms": device_ms(torch, calls, "gls_row_race_kernel"),
+           "plain_ms": time_cycled([lambda a=a: gls_row_race_plain(*a)
+                                    for a in sets]),
+           "note_ms": time_cycled([lambda s_=s_: torch.min(s_, dim=-1)
+                                   for s_ in scores])}
+    del scores
+    return out
+
+
+def kernel_race(torch, dev, rows: int, vocab: int):
+    """``gls_row_race`` against its plain version at (rows, K, vocab):
+    bitwise equal minima and argmins, with planted ties (one across two
+    splits of the kernel's plan), a minimum on a split's first element, a
+    +inf log_q and an all-dead row (``rows`` >= 4); timed on enough input
+    sets to find each cold in L2."""
+    from repro_torch.kernels.gls_race.ops import (gls_row_race,
+                                                  row_race_split_plan)
+    from repro_torch.kernels.gls_race.ref import gls_row_race_plain
     b, k, n = rows, K_DRAFTS, vocab
-    u = torch.rand((b, k, n), generator=g, device=dev).clamp_min(1e-30)
-    log_s = torch.log(-torch.log(u))
-    q = probs_from_logits(torch.randn((b, k, n), generator=g, device=dev),
-                          1.0, 50, n)
-    log_q = torch.where(q > 0, torch.log(q.clamp_min(1e-30)),
-                        torch.tensor(float("-inf"), device=dev))
-    # Exact ties (the lower index must win), a +inf log_q (dead under the
-    # isfinite mask however small its score) and an all-dead row.
+    n_sets = cold_sets(2 * b * k * n * 4)
+    sets = race_inputs(torch, dev, b, vocab, n_sets, SEED)
+    log_s, log_q = sets[0]
+    splits, chunk = row_race_split_plan(b * k, n)
+    assert splits > 1, (splits, chunk)
+    # Exact ties (the lower index must win), one across the first split
+    # boundary, the minimum on the second split's first element, a +inf
+    # log_q (dead under the isfinite mask however small its score) and an
+    # all-dead row.
     log_s[0, 0, :5] = -40.0
     log_q[0, 0, :5] = 0.0
     log_s[1, 0, [300, 100, 200]] = -40.0
@@ -196,6 +288,10 @@ def kernel_race(torch, dev, rows: int, vocab: int):
     log_s[2, 0, 7] = -100.0
     log_q[2, 0, 7] = float("inf")
     log_q[3, 0] = float("-inf")
+    log_s[0, 1, [chunk, chunk - 1]] = -40.0
+    log_q[0, 1, [chunk, chunk - 1]] = 0.0
+    log_s[1, 1, chunk] = -40.0
+    log_q[1, 1, chunk] = 0.0
     rmin_k, rarg_k = gls_row_race(log_s, log_q)
     rmin_p, rarg_p = gls_row_race_plain(log_s, log_q)
     # The scalar-load path of the kernel (a row length not divisible by 4).
@@ -204,26 +300,26 @@ def kernel_race(torch, dev, rows: int, vocab: int):
                                                                   odd_q)
     torch.cuda.synchronize()
     assert torch.equal(rarg_k, rarg_p), "gls_row_race argmin != plain"
-    assert torch.equal(rmin_k, rmin_p), "gls_row_race min != plain"
+    assert torch.equal(rmin_k.view(torch.int32), rmin_p.view(torch.int32)), \
+        "gls_row_race min != plain (bitwise)"
     assert int(rarg_k[0, 0]) == 0 and int(rarg_k[1, 0]) == 100
     assert int(rarg_k[3, 0]) == 0 and float(rmin_k[3, 0]) == float("inf")
+    assert int(rarg_k[0, 1]) == chunk - 1, "cross-split tie: lower index"
+    assert int(rarg_k[1, 1]) == chunk, "minimum on a split's first element"
     assert torch.equal(odd_k[0], odd_p[0]) and torch.equal(odd_k[1],
                                                            odd_p[1])
     err = float((rmin_k - rmin_p).abs().nan_to_num(0.0).max())
-    score = torch.where(torch.isfinite(log_q), log_s - log_q,
-                        torch.tensor(float("inf"), device=dev))
     nbytes = 2 * b * k * n * 4 + b * k * 8
     t_bound, by = bound(nbytes, 3 * b * k * n)
     return {
         "name": "gls_row_race", "route": "cuda",
         "source": "src/repro_torch/kernels/gls_race/row_race.cu",
         "replaces": "src/repro/kernels/gls_race/kernel.py:236",
-        "shape": f"log_s/log_q ({b}, {k}, {n}) f32",
+        "shape": f"log_s/log_q ({b}, {k}, {n}) f32, {splits} splits of "
+                 f"{chunk}, {n_sets} input sets (cold L2)",
         "max_abs_err": err,
-        "ms": time_ms(lambda: gls_row_race(log_s, log_q)),
-        "plain_ms": time_ms(lambda: gls_row_race_plain(log_s, log_q)),
+        **time_race(torch, sets),
         "library_ms": None,
-        "note_ms": time_ms(lambda: torch.min(score, dim=-1)),
         "library": "none: no single call forms the masked score and its "
                    "argmin; torch.min(score, -1) on a precomputed score "
                    "(a note only) reads half the kernel's bytes, applies "
@@ -369,32 +465,84 @@ def kernel_joint(torch, dev, vocab: int):
     }
 
 
-def kernel_decode(torch, dev, cfg, t: int):
+def serve_kv_len(torch, dev, b: int, t: int, seed: int):
+    """kv_len as the drafter sweep sees it: per slot a prompt of 16-300
+    tokens, up to MAX_NEW generated and a draft step of 1..L + 1, shared
+    by the slot's K draft rows; row 0 empty (kv_len 0), row 1 full (T)."""
+    rng = np.random.default_rng(seed)
+    slots = b // K_DRAFTS
+    pos = (rng.integers(PROMPT_MIN, PROMPT_MAX + 1, slots)
+           + rng.integers(0, MAX_NEW + 1, slots)
+           + rng.integers(1, L_DRAFT + 2, slots))
+    kv_len = np.minimum(np.repeat(pos, K_DRAFTS), t).astype(np.int32)
+    kv_len[0], kv_len[1] = 0, t
+    return torch.from_numpy(kv_len).to(dev)
+
+
+def decode_inputs(torch, dev, b: int, h: int, hkv: int, d: int, t: int):
+    """q and one (k, v) set per drafter layer (four of the serve arena's
+    (b, hkv, t, d) f32: ~121 MB at the serve shape, more than the L2
+    cache, so each call finds its K/V cold), kv_len as the serve draws
+    it."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    q = torch.randn((b, h, d), generator=g, device=dev)
+    kv_sets = [(torch.randn((b, hkv, t, d), generator=g, device=dev),
+                torch.randn((b, hkv, t, d), generator=g, device=dev))
+               for _ in range(4)]
+    return q, kv_sets, serve_kv_len(torch, dev, b, t, SEED + 1)
+
+
+def time_decode(torch, q, kv_sets, kv_len) -> dict:
+    """``decode_attention``, its plain version and SDPA, each cycling
+    through the layers' K/V sets as the drafter sweep does."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_plain)
-    g = torch.Generator(device=dev)
-    g.manual_seed(SEED + 1)
+    t = kv_sets[0][0].shape[2]
+    mask = (torch.arange(t, device=q.device)[None, :]
+            < kv_len.clamp_min(1)[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    calls = [lambda k=k, v=v: decode_attention(q, k, v, kv_len)
+             for k, v in kv_sets]
+    return {"ms": time_cycled(calls),
+            "device_ms": device_ms(torch, calls, "decode_attention_kernel"),
+            "plain_ms": time_cycled([
+                lambda k=k, v=v: decode_attention_plain(q, k, v, kv_len)
+                for k, v in kv_sets]),
+            "library_ms": time_cycled([
+                lambda k=k, v=v: F.scaled_dot_product_attention(
+                    q4, k, v, attn_mask=mask, enable_gqa=True)
+                for k, v in kv_sets])}
+
+
+def kernel_decode(torch, dev, cfg, t: int):
+    """``decode_attention`` against its plain version at the serve shape,
+    on the serve's kv_len and on the edges of the kernel's split plan (a
+    range ending exactly on a split boundary, one key past it and one
+    short, kv_len 1 and T); timed on cold K/V."""
+    from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_split_plan)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_plain)
     b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
-    q = torch.randn((b, h, d), generator=g, device=dev)
-    k = torch.randn((b, hkv, t, d), generator=g, device=dev)
-    v = torch.randn((b, hkv, t, d), generator=g, device=dev)
-    kv_len = torch.randint(1, t + 1, (b,), generator=g, device=dev,
-                           dtype=torch.int32)
-    kv_len[0] = 0          # a fully masked row: zeros on both routes
-    kv_len[1] = t
-    out_k = decode_attention(q, k, v, kv_len)
-    out_p = decode_attention_plain(q, k, v, kv_len)
-    torch.cuda.synchronize()
-    err = float((out_k - out_p).abs().max())
-    assert err <= 1e-4, f"decode_attention max abs err {err}"
-    assert bool((out_k[0] == 0).all()), "kv_len == 0 row is not zero"
-    lib_len = kv_len.clamp_min(1)
-    mask = (torch.arange(t, device=dev)[None, :]
-            < lib_len[:, None].long())[:, None, None, :]
-    q4 = q[:, :, None, :]
+    q, kv_sets, kv_len = decode_inputs(torch, dev, b, h, hkv, d, t)
+    splits, chunk = decode_split_plan(b, hkv, t)
+    edges = torch.tensor([0, 1, t, chunk, 2 * chunk, chunk + 1, chunk - 1,
+                          t - 1, (splits - 1) * chunk, 17, 64, 65],
+                         dtype=torch.int32, device=dev).repeat(-(-b // 12))[:b]
+    err = 0.0
+    k, v = kv_sets[0]
+    for lens in (kv_len, edges):
+        out_k = decode_attention(q, k, v, lens)
+        out_p = decode_attention_plain(q, k, v, lens)
+        torch.cuda.synchronize()
+        err = max(err, float((out_k - out_p).abs().max()))
+        assert err <= 1e-4, f"decode_attention max abs err {err}"
+        assert bool((out_k[lens == 0] == 0).all()), \
+            "kv_len == 0 row is not zero"
     keys = float(kv_len.sum())
     nbytes = 4 * (2 * b * h * d + 2 * hkv * keys * d + b)
     t_bound, by = bound(nbytes, h * keys * (4 * d + 4))
@@ -403,12 +551,11 @@ def kernel_decode(torch, dev, cfg, t: int):
         "source": "src/repro_torch/kernels/decode_attention/"
                   "decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:83",
-        "shape": f"q ({b}, {h}, {d}), k/v ({b}, {hkv}, {t}, {d}) f32",
+        "shape": f"q ({b}, {h}, {d}), k/v ({b}, {hkv}, {t}, {d}) f32, "
+                 f"{splits} splits of {chunk} keys, {len(kv_sets)} K/V sets "
+                 f"(cold L2), {int(keys)} live keys",
         "max_abs_err": err,
-        "ms": time_ms(lambda: decode_attention(q, k, v, kv_len)),
-        "plain_ms": time_ms(lambda: decode_attention_plain(q, k, v, kv_len)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k, v, attn_mask=mask, enable_gqa=True)),
+        **time_decode(torch, q, kv_sets, kv_len),
         "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa)",
         "bound_ms": t_bound, "bound_by": by,
     }
@@ -1002,8 +1149,8 @@ def main() -> int:
             "library_ms")
     for kr in kernels:
         kr["launches"] = int(counts.get(kr["name"], 0))
-    print(json.dumps({"kernels": [{k: kr[k] for k in keys}
-                                  for kr in kernels]}))
+    print(json.dumps({"kernels": [{k: kr[k] for k in keys + ("device_ms",)
+                                   if k in kr} for kr in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,13 +20,18 @@
 #include <string>
 #include <vector>
 
-void launch_gls_row_race(const float* log_s, const float* log_q, float* rmin,
-                         int* rarg, int rows, int n, cudaStream_t stream);
-void launch_decode_attention(const float* q, const float* k, const float* v,
-                             const int* kv_len, float* out, int B, int H,
-                             int Hkv, int T, cudaStream_t stream);
+cudaError_t launch_gls_row_race(const float* log_s, const float* log_q,
+                                float* rmin, int* rarg, int rows, int n,
+                                int splits, int chunk, cudaStream_t stream);
+int gls_row_race_max_splits();
+cudaError_t launch_decode_attention(const float* q, const float* k,
+                                    const float* v, const int* kv_len,
+                                    float* out, int B, int H, int Hkv, int T,
+                                    int splits, int chunk,
+                                    cudaStream_t stream);
 int decode_attention_head_dim();
-int decode_attention_max_group_dims();
+int decode_attention_max_group();
+int decode_attention_max_splits();
 cudaError_t launch_flash_attention(const float* q, const float* k,
                                    const float* v, const int* q_offset,
                                    const int* kv_len, float* out, int B, int H,
@@ -68,6 +73,33 @@ void check_same_device(const torch::Tensor& a, const torch::Tensor& b) {
               a.device().str() + " vs " + b.device().str());
 }
 
+// A split plan (ops.py): 1..max_splits blocks per cluster whose ranges
+// of `chunk` items (a multiple of `multiple`) cover the `n` items.
+void check_split_plan(const char* kernel, int64_t splits, int64_t chunk,
+                      int64_t n, int max_splits, int64_t multiple) {
+  TORCH_CHECK(splits >= 1 && splits <= max_splits && chunk >= 1 &&
+              chunk % multiple == 0 && splits * chunk >= n &&
+              chunk < INT32_MAX,
+              std::string(kernel) + ": split plan (" +
+              std::to_string(splits) + ", " + std::to_string(chunk) +
+              ") does not cover " + std::to_string(n) + " items in at most " +
+              std::to_string(max_splits) + " ranges of a multiple of " +
+              std::to_string(multiple));
+}
+
+void check_aligned16(const char* what, const torch::Tensor& t) {
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0,
+              std::string(what) + " must be 16-byte aligned");
+}
+
+// A refused launch raises (and is cleared, so the next kernel's check
+// does not report it again); nothing falls back.
+void check_launch(const char* kernel, cudaError_t err) {
+  if (err != cudaSuccess) cudaGetLastError();
+  TORCH_CHECK(err == cudaSuccess, std::string(kernel) +
+              ": cluster launch failed: " + cudaGetErrorString(err));
+}
+
 void check_head_dim(const char* kernel, int64_t d, int compiled) {
   TORCH_CHECK(d == compiled, std::string(kernel) + ": head dim " +
               std::to_string(d) + " not compiled (only " +
@@ -77,7 +109,8 @@ void check_head_dim(const char* kernel, int64_t d, int compiled) {
 }  // namespace
 
 std::vector<torch::Tensor> gls_row_race(torch::Tensor log_s,
-                                        torch::Tensor log_q) {
+                                        torch::Tensor log_q, int64_t splits,
+                                        int64_t chunk) {
   check_tensor(log_s, "log_s", torch::kFloat32, 3);
   check_tensor(log_q, "log_q", torch::kFloat32, 3);
   check_same_device(log_s, log_q);
@@ -85,14 +118,17 @@ std::vector<torch::Tensor> gls_row_race(torch::Tensor log_s,
   const int64_t b = log_s.size(0), k = log_s.size(1), n = log_s.size(2);
   TORCH_CHECK(n > 0 && n < INT32_MAX && b * k < INT32_MAX,
               "gls_row_race: unsupported shape");
+  check_split_plan("gls_row_race", splits, chunk, n,
+                   gls_row_race_max_splits(), 4);
   const c10::cuda::CUDAGuard guard(log_s.device());
   auto rmin = torch::empty({b, k}, log_s.options());
   auto rarg = torch::empty({b, k}, log_s.options().dtype(torch::kInt32));
   if (b * k == 0) return {rmin, rarg};
-  launch_gls_row_race(log_s.data_ptr<float>(), log_q.data_ptr<float>(),
-                      rmin.data_ptr<float>(), rarg.data_ptr<int>(),
-                      static_cast<int>(b * k), static_cast<int>(n),
-                      c10::cuda::getCurrentCUDAStream());
+  check_launch("gls_row_race", launch_gls_row_race(
+      log_s.data_ptr<float>(), log_q.data_ptr<float>(),
+      rmin.data_ptr<float>(), rarg.data_ptr<int>(), static_cast<int>(b * k),
+      static_cast<int>(n), static_cast<int>(splits),
+      static_cast<int>(chunk), c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {rmin, rarg};
 }
@@ -163,7 +199,8 @@ std::vector<torch::Tensor> gls_race(torch::Tensor log_s, torch::Tensor log_p,
 }
 
 torch::Tensor decode_attention(torch::Tensor q, torch::Tensor k,
-                               torch::Tensor v, torch::Tensor kv_len) {
+                               torch::Tensor v, torch::Tensor kv_len,
+                               int64_t splits, int64_t chunk) {
   check_tensor(q, "q", torch::kFloat32, 3);
   check_tensor(k, "k", torch::kFloat32, 4);
   check_tensor(v, "v", torch::kFloat32, 4);
@@ -178,17 +215,26 @@ torch::Tensor decode_attention(torch::Tensor q, torch::Tensor k,
   TORCH_CHECK(kv_len.size(0) == B, "kv_len must be (B,)");
   TORCH_CHECK(Hkv > 0 && H % Hkv == 0, "H must be a multiple of Hkv");
   check_head_dim("decode_attention", D, decode_attention_head_dim());
-  TORCH_CHECK((H / Hkv) * D <= decode_attention_max_group_dims(),
-              "decode_attention: G * D exceeds the per-block accumulator");
+  TORCH_CHECK(H / Hkv <= decode_attention_max_group(),
+              "decode_attention: more than " +
+              std::to_string(decode_attention_max_group()) +
+              " query heads per KV head");
+  TORCH_CHECK(B < 65536 && Hkv < 65536 && T < (1 << 24),
+              "decode_attention: unsupported shape");
+  check_split_plan("decode_attention", splits, chunk, T,
+                   decode_attention_max_splits(), 1);
+  check_aligned16("decode_attention: q, k and v", q);
+  check_aligned16("decode_attention: q, k and v", k);
+  check_aligned16("decode_attention: q, k and v", v);
   const c10::cuda::CUDAGuard guard(q.device());
   auto out = torch::empty_like(q);
   if (B == 0 || H == 0) return out;
-  launch_decode_attention(q.data_ptr<float>(), k.data_ptr<float>(),
-                          v.data_ptr<float>(), kv_len.data_ptr<int>(),
-                          out.data_ptr<float>(), static_cast<int>(B),
-                          static_cast<int>(H), static_cast<int>(Hkv),
-                          static_cast<int>(T),
-                          c10::cuda::getCurrentCUDAStream());
+  check_launch("decode_attention", launch_decode_attention(
+      q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
+      kv_len.data_ptr<int>(), out.data_ptr<float>(), static_cast<int>(B),
+      static_cast<int>(H), static_cast<int>(Hkv), static_cast<int>(T),
+      static_cast<int>(splits), static_cast<int>(chunk),
+      c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
@@ -288,7 +334,8 @@ std::vector<torch::Tensor> ssd_chunk(torch::Tensor x, torch::Tensor dt,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gls_row_race", &gls_row_race,
-        "per-row (min, argmin) of the GLS race table");
+        "per-row (min, argmin) of the GLS race table, each row split over "
+        "a cluster of `splits` blocks of `chunk` elements");
   m.def("gls_binned_race", &gls_binned_race,
         "per-(row, sheet, bin) (min, argmin) of the binned GLS race");
   m.def("gls_race", &gls_race,
@@ -296,7 +343,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ssd_chunk", &ssd_chunk,
         "Mamba-2 SSD intra-chunk output, chunk states and total log-decay");
   m.def("decode_attention", &decode_attention,
-        "one-query GQA decode attention over a KV cache");
+        "one-query GQA decode attention over a KV cache, each row's keys "
+        "split over a cluster of `splits` blocks of `chunk` keys");
   m.def("flash_attention", &flash_attention,
         "causal (optionally windowed) prefill attention with per-row "
         "offsets");

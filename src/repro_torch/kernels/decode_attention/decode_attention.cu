@@ -1,143 +1,395 @@
-// decode_attention: one-query GQA attention over a KV cache for Hopper.
+// decode_attention: one-query GQA attention over a KV cache for Hopper,
+// each row's keys split over a thread-block cluster.
 //
 // Replaces the Pallas TPU kernel
-// src/repro/kernels/decode_attention/kernel.py (`decode_attention` ->
-// `pl.pallas_call` with body `_kernel`), float32 path.  (The int8-scale
-// branch of that kernel is off this serving path.)
+// src/repro/kernels/decode_attention/kernel.py:83 (`decode_attention` ->
+// `pl.pallas_call` at :128, body `_kernel`), float32 path.  (The
+// int8-scale branch of that kernel is off this serving path.)
 //
 //   q (B, H, D), k/v (B, Hkv, T, D), kv_len (B,) -> out (B, H, D)
 //   out[b, h] = softmax_t(q[b,h] . k[b, h/G, t] / sqrt(D), t < kv_len[b])
 //               @ v[b, h/G]
-// with the Pallas kernel's masked-row contract: an online softmax whose
-// running max starts at -inf, `m_safe` pinned to 0 while the max is
-// still -inf, and the denominator floored at 1e-30, so a row with
-// kv_len == 0 comes out as zeros (not NaN).  Compiled for the served
-// head dim only (D = 64, smollm-360m); the binding rejects any other.
+// with the Pallas kernel's masked-row contract: `m_safe` pinned to 0 while
+// the max is -inf and the denominator floored at 1e-30, so a row with
+// kv_len == 0 comes out as zeros; keys past kv_len are never read.
+// Compiled for the served head dim only (D = 64, smollm-360m); the
+// binding rejects any other.
 //
-// What bounds it on the card: bytes.  One query token per head does 2*D
-// flops per cached key element pair, far below the H100's ~20 flops per
-// byte ridge for f32 CUDA cores, so the time is the K/V stream.  Design:
-// one block per (b, kv-head) holding all G query heads of the group, so
-// each K/V tile is read from device memory ONCE for the whole group (the
-// TPU kernel's "G heads ride the sublanes"); G = 3 for smollm is neither
-// a power of two nor a warp multiple, so work over (head, key) and
-// (head, dim) pairs is flattened and strided, and the ragged tail is
-// masked.  The loop runs over KV tiles up to kv_len[b] only; dead tail
-// positions are never read.  K tiles are staged in shared memory with a
-// padded row (D + 1 floats) so the per-key dot products are free of
-// bank conflicts; loads are coalesced along D.
+// What bounds it on the card: bytes.  One query per head does ~4 D flops
+// per key against the 2 D * 4 bytes of K and V that its G heads share,
+// under two flops per byte, so the time is the K/V stream:
+// 2 * Hkv * sum(min(kv_len, T)) * D * 4 bytes (15-20 MB at the serve shape,
+// 4.6-6 us at 3.35 TB/s).  A stream that short needs the whole card
+// pulling at once, so the design puts every SM's bytes in flight early:
+//   * grid (splits, Hkv, B), launched as clusters of `splits` blocks
+//     (cudaLaunchKernelEx with a cluster dimension).  Block i of a
+//     cluster owns keys [i chunk, (i + 1) chunk) of one (b, KV head) row;
+//     the wrapper's plan (`ops.py::decode_split_plan`) picks the most
+//     splits, up to 8, whose whole grid is resident at once (a second
+//     wave of blocks cost more than the extra splits gained: 2 splits,
+//     320 blocks at the serve shape).  A block whose range starts at or
+//     past kv_len loads nothing and leaves the neutral partial (m = -inf,
+//     l = 0, acc = 0);
+//   * one thread copies the block's live K and V keys, each one contiguous
+//     run of keys * D * 4 bytes, with TMA bulk copies (cp.async.bulk)
+//     that complete on an mbarrier; a range longer than one 64-key tile
+//     streams through a two-stage ring (a full and an empty mbarrier per
+//     stage), so the next tile loads while this one is used;
+//   * each warp owns 16 keys of a tile and keeps its own online softmax
+//     for all G query heads of the group in registers (G is a template
+//     parameter, so the state is sized to the group and a block of 128
+//     threads fits seven to an SM), so each K/V byte is read from device
+//     memory once for the group: the two half-warps split D for the
+//     scores (float4 shared loads, the column order swizzled by key so a
+//     quarter-warp touches 8 distinct bank groups), the lanes split D for
+//     P V.  No block barrier per tile: a warp waits only for its tile to
+//     arrive;
+//   * the warps' partials merge in the block (two barriers: the partials
+//     reuse the K/V stages' shared memory), the blocks' through
+//     distributed shared memory: each block writes its (m, l, acc) into
+//     its slot of rank 0's shared memory (map_shared_rank), and after
+//     one cluster barrier rank 0 merges them (M = max m_i, w_i =
+//     exp(m_i - M) or 0 where m_i = -inf, out = sum w_i acc_i /
+//     max(sum w_i l_i, 1e-30)).  The barrier's first phase, which only
+//     says that rank 0 has started, is arrived at before the keys and
+//     waited on after them, so one barrier blocks, and the peers exit
+//     without waiting for rank 0 (rank 0 pulling the partials took a
+//     second barrier and a remote read round trip: 5 % slower,
+//     `tools/kernel_variants.py`).  No global scratch, no second kernel.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cmath>
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxAcc = 4;  // G * D <= kMaxAcc * kThreads
-constexpr int kD = 64;      // head dim
-constexpr int kTK = 64;     // keys per KV tile
+constexpr int kD = 64;                       // head dim
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWarpKeys = 16;                // keys of a tile per warp
+constexpr int kTK = kWarps * kWarpKeys;      // keys per tile
+constexpr int kStages = 2;                   // tiles in flight per block
+constexpr int kMaxG = 8;                     // query heads per KV head
+constexpr int kMaxSplits = 8;                // the portable cluster size
+constexpr int kPart = kD + 2;                // one head's (m, l, acc[D])
+constexpr float kScale = 0.125f;             // 1 / sqrt(kD)
 
-template <int D, int TK>
-__global__ void __launch_bounds__(kThreads)
+static_assert(kD == 64, "lanes own 2 columns, half-warps 32 columns");
+
+// The dynamic shared memory, in floats: `stages` K/V tiles of `tk` keys
+// each (the warps' partials reuse them once every warp is done), q of the
+// group, one partial per block of the cluster (written by the peers into
+// rank 0's), then a full and an empty mbarrier per stage.
+struct Layout {
+  int tk, stages, G, splits;
+  __host__ __device__ int q_off() const {
+    const int kv = stages * 2 * tk * kD, parts = kWarps * G * kPart;
+    return kv > parts ? kv : parts;
+  }
+  __host__ __device__ int block_off() const { return q_off() + G * kD; }
+  __host__ __device__ int bar_off() const {
+    return (block_off() + splits * G * kPart + 1) & ~1;
+  }
+  __host__ __device__ size_t bytes() const {
+    return sizeof(float) * (bar_off() + 2 * 2 * stages);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The cluster barrier in its two halves: each thread arrives once per
+// phase and waits before it arrives again.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` of global memory into this block's shared memory by the TMA
+// unit, counted against `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Tile j of the block's `n` keys (K at `k`, V at `v`) into its stage.
+__device__ __forceinline__ void load_tile(float* smem, uint64_t* full,
+                                          const float* k, const float* v,
+                                          int j, int n, int tk, int stages) {
+  const int s = j % stages;
+  const uint32_t bytes = sizeof(float) * kD * min(tk, n - j * tk);
+  float* ks = smem + s * 2 * tk * kD;
+  const size_t off = static_cast<size_t>(j) * tk * kD;
+  mbar_expect_tx(&full[s], 2 * bytes);
+  bulk_load(ks, k + off, bytes, &full[s]);
+  bulk_load(ks + tk * kD, v + off, bytes, &full[s]);
+}
+
+// G, the query heads of a KV head, is a template parameter so that the
+// per-head softmax state stays in registers sized to it: up to four heads
+// fit seven blocks per SM (72 registers; a cap of 64 for eight spilled at
+// G = 3), as many as a 47-key single stage's shared memory allows.
+template <int G>
+__global__ void __launch_bounds__(kThreads, G <= 4 ? 7 : 4)
 decode_attention_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
                         const int* __restrict__ kv_len,
-                        float* __restrict__ out, int H, int Hkv, int T) {
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = H / Hkv;
-  const int tid = threadIdx.x;
-  extern __shared__ float smem[];
-  float* q_s = smem;                    // G * D
-  float* k_s = q_s + G * D;             // TK * (D + 1)
-  float* v_s = k_s + TK * (D + 1);      // TK * D
-  float* p_s = v_s + TK * D;            // G * TK
-  float* m_s = p_s + G * TK;            // G running maxima
-  float* l_s = m_s + G;                 // G running denominators
-  float* a_s = l_s + G;                 // G rescale factors of this tile
+                        float* __restrict__ out, int H, int Hkv, int T,
+                        int chunk, int tk, int stages) {
+  cg::cluster_group cluster = cg::this_cluster();
+  // The first barrier phase only says that every block of the cluster
+  // has started (rank 0's shared memory exists): arrive now, wait once
+  // the keys are done, when it has long completed.
+  cluster_arrive_relaxed();
+  const int split = blockIdx.x;  // the block's rank in its cluster
+  const int splits = gridDim.x;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  extern __shared__ __align__(16) float smem[];
+  const Layout lay{tk, stages, G, splits};
+  float* q_s = smem + lay.q_off();
+  float* wpart = smem;
+  float* bpart = smem + lay.block_off();
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar_off());
+  uint64_t* empty = full + stages;
 
-  const float* qb = q + (static_cast<size_t>(b) * H + kvh * G) * D;
-  const size_t kv_base = (static_cast<size_t>(b) * Hkv + kvh) * T * D;
-  for (int i = tid; i < G * D; i += kThreads) q_s[i] = qb[i];
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
-  }
-  float acc[kMaxAcc];
-#pragma unroll
-  for (int j = 0; j < kMaxAcc; ++j) acc[j] = 0.f;
+  // This block's live keys: [k0, k0 + n) of the row.
   const int len = max(0, min(kv_len[b], T));
-  const float inv_sqrt_d = 1.0f / sqrtf(static_cast<float>(D));
+  const long long first = static_cast<long long>(split) * chunk;
+  const int k0 = first < len ? static_cast<int>(first) : len;
+  const int n = min(chunk, len - k0);
+  const int n_tiles = (n + tk - 1) / tk;
+  const size_t kv_base =
+      ((static_cast<size_t>(b) * Hkv + kvh) * T + k0) * kD;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int j = 0; j < min(stages, n_tiles); ++j) {
+      load_tile(smem, full, k + kv_base, v + kv_base, j, n, tk, stages);
+    }
+  }
+  const float4* qb = reinterpret_cast<const float4*>(
+      q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * kD);
+  for (int i = tid; i < G * kD / 4; i += kThreads) {
+    reinterpret_cast<float4*>(q_s)[i] = __ldg(qb + i);
+  }
   __syncthreads();
 
-  for (int t0 = 0; t0 < len; t0 += TK) {
-    for (int i = tid; i < TK * D; i += kThreads) {
-      const int t = i / D, d = i % D;
-      const bool ok = t0 + t < len;
-      const size_t off = kv_base + static_cast<size_t>(t0 + t) * D + d;
-      k_s[t * (D + 1) + d] = ok ? __ldg(k + off) : 0.f;
-      v_s[t * D + d] = ok ? __ldg(v + off) : 0.f;
-    }
-    __syncthreads();
-    for (int i = tid; i < G * TK; i += kThreads) {
-      const int g = i / TK, t = i % TK;
-      float s = -INFINITY;
-      if (t0 + t < len) {
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) dot += q_s[g * D + d] * k_s[t * (D + 1) + d];
-        s = dot * inv_sqrt_d;
-      }
-      p_s[i] = s;
-    }
-    __syncthreads();
-    const int warp = tid / 32, lane = tid % 32;
-    for (int g = warp; g < G; g += kWarps) {
-      float mx = -INFINITY;
-      for (int t = lane; t < TK; t += 32) mx = fmaxf(mx, p_s[g * TK + t]);
+  float m[G], l[G], acc[G][2];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      const float m_safe = isfinite(m_new) ? m_new : 0.f;
-      float sum = 0.f;
-      for (int t = lane; t < TK; t += 32) {
-        const float p = t0 + t < len ? expf(p_s[g * TK + t] - m_safe) : 0.f;
-        p_s[g * TK + t] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = isfinite(m_prev) ? expf(m_prev - m_safe) : 0.f;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-        a_s[g] = alpha;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kMaxAcc; ++j) {
-      const int i = tid + j * kThreads;
-      if (i < G * D) {
-        const int g = i / D, d = i % D;
-        float a = acc[j] * a_s[g];
-        for (int t = 0; t < TK; ++t) a += p_s[g * TK + t] * v_s[t * D + d];
-        acc[j] = a;
-      }
-    }
-    __syncthreads();
+  for (int g = 0; g < G; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+    acc[g][0] = acc[g][1] = 0.f;
   }
+  const int t = lane & 15, half = lane >> 4;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % stages;
+    const uint32_t parity = (j / stages) & 1;
+    mbar_wait(&full[s], parity);
+    const float* ks = smem + s * 2 * tk * kD;
+    const float* vs = ks + tk * kD;
+    const int w0 = warp * kWarpKeys;
+    const int nw = min(kWarpKeys, min(tk, n - j * tk) - w0);
+    if (nw > 0) {
+      // Scores: lane (t, half) takes key w0 + t over columns
+      // [32 half, 32 half + 32), float4 by float4 in swizzled order.
+      const bool valid = t < nw;
+      const float* krow = ks + (w0 + (valid ? t : 0)) * kD + 32 * half;
+      const float* qh = q_s + 32 * half;
+      float sc[G];
 #pragma unroll
-  for (int j = 0; j < kMaxAcc; ++j) {
-    const int i = tid + j * kThreads;
-    if (i < G * D) {
-      const int g = i / D, d = i % D;
-      out[(static_cast<size_t>(b) * H + kvh * G + g) * D + d] =
-          acc[j] / fmaxf(l_s[g], 1e-30f);
+      for (int g = 0; g < G; ++g) sc[g] = 0.f;
+#pragma unroll
+      for (int c4 = 0; c4 < 8; ++c4) {
+        const int c = 4 * (c4 ^ (t & 7));
+        const float4 kk = *reinterpret_cast<const float4*>(krow + c);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float4 qq = *reinterpret_cast<const float4*>(qh + g * kD + c);
+          sc[g] = fmaf(qq.x, kk.x, sc[g]);
+          sc[g] = fmaf(qq.y, kk.y, sc[g]);
+          sc[g] = fmaf(qq.z, kk.z, sc[g]);
+          sc[g] = fmaf(qq.w, kk.w, sc[g]);
+        }
+      }
+      // The online softmax of the warp's keys, per head: lanes t and
+      // t + 16 hold the same key after the halves are summed.
+      float p[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        // Every lane shuffles (a full-mask shuffle skipped by some lanes
+        // is undefined), then the lanes past the warp's keys drop out as
+        // -inf.
+        const float dot = sc[g] + __shfl_xor_sync(0xffffffffu, sc[g], 16);
+        const float sg = valid ? dot * kScale : -INFINITY;
+        float mx = sg;
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) {
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        }
+        const float m_new = fmaxf(m[g], mx);
+        const float m_safe = isfinite(m_new) ? m_new : 0.f;
+        const float alpha = isfinite(m[g]) ? expf(m[g] - m_safe) : 0.f;
+        p[g] = valid ? expf(sg - m_safe) : 0.f;
+        float sum = p[g];
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) {
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        }
+        l[g] = l[g] * alpha + sum;
+        m[g] = m_new;
+        acc[g][0] *= alpha;
+        acc[g][1] *= alpha;
+      }
+      // P V: lane owns columns 2 lane, 2 lane + 1; key i's weight comes
+      // from lane i.
+      const float* vcol = vs + w0 * kD + 2 * lane;
+#pragma unroll 4
+      for (int i = 0; i < nw; ++i) {
+        const float2 vv = *reinterpret_cast<const float2*>(vcol + i * kD);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float pg = __shfl_sync(0xffffffffu, p[g], i);
+          acc[g][0] = fmaf(pg, vv.x, acc[g][0]);
+          acc[g][1] = fmaf(pg, vv.y, acc[g][1]);
+        }
+      }
+    }
+    // The stage is free once every warp is done with it; thread 0 then
+    // refills it with tile j + stages.
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (tid == 0 && j + stages < n_tiles) {
+      mbar_wait(&empty[s], parity);
+      load_tile(smem, full, k + kv_base, v + kv_base, j + stages, n, tk,
+                stages);
+    }
+  }
+
+  // The warps' partials (over the K/V stages, once every warp is done
+  // with them), then the block's.
+  __syncthreads();
+  float* wp = wpart + warp * G * kPart;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (lane == 0) {
+      wp[g * kPart] = m[g];
+      wp[g * kPart + 1] = l[g];
+    }
+    *reinterpret_cast<float2*>(wp + g * kPart + 2 + 2 * lane) =
+        make_float2(acc[g][0], acc[g][1]);
+  }
+  __syncthreads();
+  // The block's partial goes straight into its slot of rank 0's shared
+  // memory.
+  cluster_wait();
+  float* rpart = cluster.map_shared_rank(bpart, 0) + split * G * kPart;
+  for (int i = tid; i < G * kD; i += kThreads) {
+    const int g = i / kD, d = i % kD;
+    float mw[kWarps];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      mw[w] = wpart[(w * G + g) * kPart];
+      mx = fmaxf(mx, mw[w]);
+    }
+    const float m_safe = isfinite(mx) ? mx : 0.f;
+    float ls = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float sw = isfinite(mw[w]) ? expf(mw[w] - m_safe) : 0.f;
+      ls = fmaf(sw, wpart[(w * G + g) * kPart + 1], ls);
+      a = fmaf(sw, wpart[(w * G + g) * kPart + 2 + d], a);
+    }
+    rpart[g * kPart + 2 + d] = a;
+    if (d == 0) {
+      rpart[g * kPart] = mx;
+      rpart[g * kPart + 1] = ls;
+    }
+  }
+
+  // Once the partials are published rank 0 merges them from its own
+  // shared memory; the peers exit without waiting for it.
+  cluster_arrive();
+  cluster_wait();
+  if (split == 0) {
+    for (int i = tid; i < G * kD; i += kThreads) {
+      const int g = i / kD, d = i % kD;
+      float mr[kMaxSplits], lr[kMaxSplits], ar[kMaxSplits];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < kMaxSplits; ++r) {
+        mr[r] = -INFINITY;
+        lr[r] = ar[r] = 0.f;
+        if (r < splits) {
+          const float* pr = bpart + (r * G + g) * kPart;
+          mr[r] = pr[0];
+          lr[r] = pr[1];
+          ar[r] = pr[2 + d];
+        }
+        mx = fmaxf(mx, mr[r]);
+      }
+      const float m_safe = isfinite(mx) ? mx : 0.f;
+      float den = 0.f, num = 0.f;
+#pragma unroll
+      for (int r = 0; r < kMaxSplits; ++r) {
+        const float sr = isfinite(mr[r]) ? expf(mr[r] - m_safe) : 0.f;
+        den = fmaf(sr, lr[r], den);
+        num = fmaf(sr, ar[r], num);
+      }
+      out[(static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G + g) *
+              kD + d] = num / fmaxf(den, 1e-30f);
     }
   }
 }
@@ -145,19 +397,53 @@ decode_attention_kernel(const float* __restrict__ q,
 }  // namespace
 
 int decode_attention_head_dim() { return kD; }
-int decode_attention_max_group_dims() { return kMaxAcc * kThreads; }
+int decode_attention_max_group() { return kMaxG; }
+int decode_attention_max_splits() { return kMaxSplits; }
 
-void launch_decode_attention(const float* q, const float* k, const float* v,
-                             const int* kv_len, float* out, int B, int H,
-                             int Hkv, int T, cudaStream_t stream) {
+cudaError_t launch_decode_attention(const float* q, const float* k,
+                                    const float* v, const int* kv_len,
+                                    float* out, int B, int H, int Hkv, int T,
+                                    int splits, int chunk,
+                                    cudaStream_t stream) {
+  using Kernel = void (*)(const float*, const float*, const float*,
+                          const int*, float*, int, int, int, int, int, int);
+  constexpr Kernel kKernels[kMaxG] = {
+      decode_attention_kernel<1>, decode_attention_kernel<2>,
+      decode_attention_kernel<3>, decode_attention_kernel<4>,
+      decode_attention_kernel<5>, decode_attention_kernel<6>,
+      decode_attention_kernel<7>, decode_attention_kernel<8>};
   const int G = H / Hkv;
-  const size_t smem =
-      sizeof(float) * (G * kD + kTK * (kD + 1) + kTK * kD + G * kTK + 3 * G);
-  auto kernel = decode_attention_kernel<kD, kTK>;
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+  if (G < 1 || G > kMaxG) return cudaErrorInvalidValue;
+  const Kernel kernel = kKernels[G - 1];
+  // The dynamic shared memory above 48 KB is granted once per device and
+  // group size.
+  constexpr int kMaxDevices = 64;
+  static bool granted[kMaxDevices][kMaxG] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices || !granted[device][G - 1]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Layout{kTK, kStages, G, kMaxSplits}.bytes()));
+    if (err != cudaSuccess) return err;
+    if (device < kMaxDevices) granted[device][G - 1] = true;
   }
-  kernel<<<dim3(Hkv, B), kThreads, smem, stream>>>(q, k, v, kv_len, out, H,
-                                                   Hkv, T);
+  // A range of one tile or less is one stage, sized to the range.
+  const int tk = chunk < kTK ? chunk : kTK;
+  const int stages = chunk > tk ? kStages : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, Hkv, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Layout{tk, stages, G, splits}.bytes();
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, q, k, v, kv_len, out, H, Hkv, T,
+                            chunk, tk, stages);
 }

@@ -9,7 +9,26 @@ import torch
 from repro_torch.kernels.gls_race.ref import (gls_binned_race_plain,
                                               gls_race_plain,
                                               gls_row_race_plain)
-from repro_torch.kernels.mode import launch_counts, use_kernel
+from repro_torch.kernels.mode import (H100_SMS, MAX_CLUSTER, launch_counts,
+                                      sm_count, use_kernel)
+
+
+def row_race_split_plan(rows: int, n: int,
+                        sms: int = H100_SMS) -> tuple[int, int]:
+    """(splits, chunk): each row runs as a cluster of ``splits`` blocks,
+    block i streaming elements [i chunk, min((i + 1) chunk, n)) (empty
+    where it starts at or past n), chunk a multiple of 4 so every block
+    keeps the float4 path.  The least power of two of splits that gives
+    ~2 blocks per SM (the reprefill verifier's 40 rows x 8 = 320 blocks,
+    the kv_fused verifier's 160 x 2), at most 8 and at most one per 2,048
+    elements."""
+    want = -(-2 * sms // max(rows, 1))
+    cap = min(MAX_CLUSTER, max(1, -(-n // 2048)))
+    splits = 1
+    while splits < min(want, cap):
+        splits *= 2
+    splits = min(splits, cap)
+    return splits, 4 * -(-max(1, -(-n // splits)) // 4)
 
 
 def gls_row_race(log_s: torch.Tensor, log_q: torch.Tensor):
@@ -19,7 +38,10 @@ def gls_row_race(log_s: torch.Tensor, log_q: torch.Tensor):
         return gls_row_race_plain(log_s, log_q)
     from repro_torch.kernels.build import load_kernels
     ext = load_kernels()
-    rmin, rarg = ext.gls_row_race(log_s.contiguous(), log_q.contiguous())
+    b, k, n = log_s.shape
+    splits, chunk = row_race_split_plan(b * k, n, sm_count(log_s.device))
+    rmin, rarg = ext.gls_row_race(log_s.contiguous(), log_q.contiguous(),
+                                  splits, chunk)
     launch_counts["gls_row_race"] += 1
     return rmin, rarg
 

@@ -17,10 +17,18 @@ counts before driving the server and reads them after).
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
 
 launch_counts: collections.Counter = collections.Counter()
+
+# Thread-block clusters of up to this many blocks are portable across
+# Hopper parts (cluster-split kernels: decode_attention, gls_row_race).
+MAX_CLUSTER = 8
+# Streaming multiprocessors of the H100 SXM, the port's card: the split
+# plans' default when no device is named (the CPU tests).
+H100_SMS = 132
 
 
 def reset_launch_counts() -> None:
@@ -43,3 +51,10 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     copied."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached per device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+

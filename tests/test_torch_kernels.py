@@ -17,16 +17,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      decode_split_plan)
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 from repro_torch.kernels.gls_race.ops import (gls_binned_race, gls_race,
-                                              gls_row_race)
+                                              gls_row_race,
+                                              row_race_split_plan)
 from repro_torch.kernels.gls_race.ref import (gls_binned_race_plain,
                                               gls_race_plain,
                                               gls_row_race_plain)
-from repro_torch.kernels.mode import launch_counts, use_kernel
+from repro_torch.kernels.mode import MAX_CLUSTER, launch_counts, use_kernel
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -308,6 +310,69 @@ def test_wrappers_take_plain_route_on_cpu():
         use_kernel(torch.empty(1, device="meta"))
 
 
+def _ranges(splits, chunk, n):
+    """Block i's [start, end) of n items under a split plan."""
+    return [(min(i * chunk, n), min((i + 1) * chunk, n))
+            for i in range(splits)]
+
+
+def _assert_partition(splits, chunk, n):
+    """Every item lands in exactly one block's range, in order; at most a
+    portable cluster of blocks; ranges may be empty."""
+    assert 1 <= splits <= MAX_CLUSTER and chunk >= 1
+    covered = []
+    for start, end in _ranges(splits, chunk, n):
+        covered.extend(range(start, end))
+    assert covered == list(range(n))
+
+
+@pytest.mark.parametrize("b,hkv,t", [
+    (32, 5, 370), (32, 5, 1), (32, 5, 63), (32, 5, 64), (32, 5, 65),
+    (64, 5, 370), (2, 2, 0), (1, 1, 4096), (8, 1, 129), (27, 5, 300),
+    (33, 4, 17)])
+def test_decode_split_plan_partitions_keys(b, hkv, t):
+    """The decode kernel's plan (``ops.decode_split_plan``, passed to the
+    binding): the (row, KV head) clusters' key ranges partition [0, T);
+    at the serve shape it gives 2 splits (320 blocks, one wave), and a
+    grid too large for one wave takes no split."""
+    splits, chunk = decode_split_plan(b, hkv, t)
+    _assert_partition(splits, chunk, t)
+    assert chunk == max(1, -(-t // splits))
+    if (b, hkv, t) == (32, 5, 370):
+        assert (splits, chunk) == (2, 185)
+    if (b, hkv, t) == (64, 5, 370):
+        assert splits == 1
+    if t <= 16:
+        assert splits == 1
+
+
+@pytest.mark.parametrize("rows,n", [
+    (40, 50280), (160, 49152), (3, 301), (1, 1), (12, 4), (40, 50281),
+    (1, 2 ** 20), (200, 777), (7, 16387)])
+def test_row_race_split_plan_partitions_elements(rows, n):
+    """The row race's plan: element ranges partition [0, N), every
+    boundary a multiple of 4 (the float4 path holds in each block), and
+    40 rows of the reprefill verifier get 8 splits (320 blocks)."""
+    splits, chunk = row_race_split_plan(rows, n)
+    _assert_partition(splits, chunk, n)
+    assert chunk % 4 == 0
+    assert all(start % 4 == 0 for start, _ in _ranges(splits, chunk, n))
+    if (rows, n) == (40, 50280):
+        assert splits == 8
+    if (rows, n) == (160, 49152):
+        assert splits * rows >= 2 * 132
+
+
+def test_split_plan_allows_empty_ranges():
+    """Ranges past the end are empty: a block there loads nothing and
+    leaves the neutral partial."""
+    splits, chunk = 8, 2
+    assert _ranges(splits, chunk, 10)[5:] == [(10, 10)] * 3
+    _assert_partition(splits, chunk, 10)
+    s, c = row_race_split_plan(1, 20000)
+    assert s == 8 and (s - 1) * c < 20000
+
+
 # ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -323,6 +388,49 @@ def test_row_race_kernel_bit_exact_on_card(cuda):
         assert torch.equal(ka, pa) and torch.equal(km, pm)
 
 
+def _plant_split_edges(log_s, log_q, chunk):
+    """At the plan's first boundary: an exact tie across two splits (row
+    (0, 1): the lower index must win), and a unique minimum on a split's
+    first element (row (0, 2))."""
+    n = log_s.shape[-1]
+    if chunk < n:
+        log_s[0, 1, [chunk - 1, chunk]] = -50.0
+        log_q[0, 1, [chunk - 1, chunk]] = 0.0
+        log_s[0, 2, chunk] = -50.0
+        log_q[0, 2, chunk] = 0.0
+
+
+# (b, k, n): the two serve shapes and N around the plan's edges; an odd
+# N takes the scalar path.
+ROW_RACE_SPLIT_CASES = [(5, 8, 50280), (20, 8, 49152), (5, 8, 50281),
+                        (5, 8, 16388), (5, 3, 2049), (1, 3, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,n", ROW_RACE_SPLIT_CASES)
+def test_row_race_kernel_bit_exact_at_split_edges_on_card(cuda, b, k, n):
+    """Bitwise equal to plain at the cluster split's edges, including a
+    tie across two splits and a misaligned view (an odd offset: the
+    scalar path)."""
+    log_s, log_q = (torch.from_numpy(x).to(cuda)
+                    for x in _race_inputs(b, k, n, seed=n))
+    _, chunk = row_race_split_plan(b * k, n)
+    _plant_split_edges(log_s, log_q, chunk)
+    km, ka = gls_row_race(log_s, log_q)
+    pm, pa = gls_row_race_plain(log_s, log_q)
+    assert torch.equal(ka, pa)
+    assert torch.equal(km.view(torch.int32), pm.view(torch.int32))
+    if chunk < n:
+        assert int(ka[0, 1]) == chunk - 1 and int(ka[0, 2]) == chunk
+    flat_s = torch.cat([torch.zeros(1, device=cuda), log_s.flatten()])
+    flat_q = torch.cat([torch.zeros(1, device=cuda), log_q.flatten()])
+    mis_s, mis_q = flat_s[1:].view(b, k, n), flat_q[1:].view(b, k, n)
+    assert mis_s.data_ptr() % 16 != 0
+    mm, ma = gls_row_race(mis_s, mis_q)
+    assert torch.equal(ma, pa)
+    assert torch.equal(mm.view(torch.int32), pm.view(torch.int32))
+
+
 @pytest.mark.cuda
 def test_decode_kernel_matches_plain_on_card(cuda):
     rng = np.random.RandomState(1)
@@ -332,6 +440,32 @@ def test_decode_kernel_matches_plain_on_card(cuda):
     out = decode_attention(q[:, :, 0], k, v, kvl)
     ref = decode_attention_plain(q[:, :, 0], k, v, kvl)
     assert float((out - ref).abs().max()) <= 1e-4
+
+
+# (b, hkv): B x Hkv below and above the card's 132 SMs.
+DECODE_ROWS = [(16, 2), (40, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 370])
+@pytest.mark.parametrize("b,hkv", DECODE_ROWS)
+def test_decode_kernel_at_split_edges_on_card(cuda, g, t, b, hkv):
+    """Within 1e-4 of plain with kv_len on the plan's split and tile edges
+    (0, 1, a split boundary and one key either side, 64 and 65, T - 1,
+    T); a kv_len == 0 row is exactly zero."""
+    rng = np.random.RandomState(t + g)
+    q, k, v = (torch.from_numpy(x).to(cuda)
+               for x in _attn_inputs(rng, b, g * hkv, hkv, 1, t, 64))
+    splits, chunk = decode_split_plan(b, hkv, t)
+    edges = [0, 1, chunk, chunk - 1, chunk + 1, (splits - 1) * chunk, 64,
+             65, t - 1, t]
+    kvl = np.array([min(max(e, 0), t) for e in edges] * b, np.int32)[:b]
+    kvl = torch.from_numpy(kvl).to(cuda)
+    out = decode_attention(q[:, :, 0], k, v, kvl)
+    ref = decode_attention_plain(q[:, :, 0], k, v, kvl)
+    assert float((out - ref).abs().max()) <= 1e-4
+    assert bool((out[kvl == 0] == 0).all())
 
 
 # Edges of the kernel's tiles (64 query rows per warp group, 64-key KV

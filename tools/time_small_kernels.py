@@ -1,0 +1,97 @@
+"""Time ``decode_attention`` and ``gls_row_race`` of one or more source
+trees the way ``chip_smoke.py`` times them.
+
+  python3 tools/time_small_kernels.py [SRC ...]
+
+Needs one CUDA card.  Each ``SRC`` is a tree's ``src`` directory (default:
+this repository's ``src``; a parent commit unpacked with ``git archive``
+works the same), run in its own process in the order given, so ``A B B A``
+shows the drift between turns.  Each process builds that tree's kernels
+(its own ``build/``) and times them through the tree's own wrappers with
+``chip_smoke.py``'s functions: decode at the serve shape (q (32, 15, 64),
+four (32, 5, 370, 64) K/V sets cycled so each call finds its K/V cold in
+L2, the serve's kv_len), the row race at the kv_fused verifier's (20, 8,
+49152) and the reprefill verifier's (5, 8, 50280), cycling through three
+L2 caches of tables.  Per tree and kernel it prints the CUDA-event time
+(``ms``), the kernel's device time per launch from ``torch.profiler``
+(``device_ms``), the plain version's time and the library call's (SDPA
+for decode; ``torch.min`` on a precomputed score, a note, for the race),
+and the bound; then the card's name and power limit.  Nothing here is
+imported by the port.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+DECODE = (32, 15, 5, 64, 370)          # b, h, hkv, d, t
+RACES = ((20, 49152), (5, 50280))      # (rows of K drafts, vocab)
+
+
+def one_tree(src: str) -> dict:
+    sys.path.insert(0, os.path.abspath(src))
+    sys.path.insert(1, os.fspath(ROOT))
+    import torch
+
+    import chip_smoke as C
+    from repro_torch.kernels import build
+    build.load_kernels()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+    b, h, hkv, d, t = DECODE
+    q, kv_sets, kv_len = C.decode_inputs(torch, dev, b, h, hkv, d, t)
+    keys = float(kv_len.sum())
+    res = {"decode_attention": {
+        **C.time_decode(torch, q, kv_sets, kv_len),
+        "bound_ms": C.bound(4 * (2 * b * h * d + 2 * hkv * keys * d + b),
+                            h * keys * (4 * d + 4))[0]}}
+    del q, kv_sets
+    for rows, vocab in RACES:
+        nbytes = 2 * rows * C.K_DRAFTS * vocab * 4
+        sets = C.race_inputs(torch, dev, rows, vocab, C.cold_sets(nbytes),
+                             C.SEED)
+        res[f"gls_row_race ({rows}, {C.K_DRAFTS}, {vocab})"] = {
+            **C.time_race(torch, sets),
+            "bound_ms": C.bound(nbytes + rows * C.K_DRAFTS * 8,
+                                3 * rows * C.K_DRAFTS * vocab)[0]}
+        del sets
+    return res
+
+
+def main(argv) -> int:
+    if len(argv) == 2 and argv[0] == "--one":
+        print(json.dumps(one_tree(argv[1])))
+        return 0
+    trees = argv or [os.fspath(ROOT / "src")]
+    rows = []
+    for src in trees:
+        r = subprocess.run([sys.executable, __file__, "--one", src],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            print(f"{src}: failed\n{r.stdout}{r.stderr}", file=sys.stderr)
+            return 1
+        rows.append((src, json.loads(r.stdout.strip().splitlines()[-1])))
+    for src, res in rows:
+        for name, m in res.items():
+            lib = m.get("library_ms", m.get("note_ms"))
+            print(f"{src}: {name}: ms {m['ms']:.4f}, device_ms "
+                  f"{m['device_ms']:.4f}, plain "
+                  f"{m['plain_ms']:.4f}, library/note {lib:.4f}, bound "
+                  f"{m['bound_ms']:.4f}", flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=False).stdout.strip().splitlines()
+    print(smi[0] if smi else "nvidia-smi: no output")
+    print(json.dumps(rows))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
