@@ -28,7 +28,14 @@ when the port's sources are not beside this file.  Phases:
      function (none for the row and joint races: ``torch.min`` on a
      precomputed score is timed as a note only), and
      the bound (bytes over 3.35 TB/s or float32 operations over
-     67 TFLOP/s, whichever is larger);
+     67 TFLOP/s, whichever is larger).  The int8 instances of both
+     attention kernels (int8 K/V with per-vector float32 scales, the
+     arenas of ``SpecDecConfig(quant=True)``) are held the same way
+     against their plain versions at the serve shapes (decode also at
+     its own split plan's edges; the serve buffer T = 370 puts every
+     other (row, head) scale row on an 8-byte boundary), with SDPA over
+     the dequantized K/V (dequantized once, untimed) as the yardstick
+     and the int8 bytes read as the bound;
   2b. reference: the cached kernel path (flash prefill, kernel decode)
      against one dense causal forward at full width, logits within 1e-3;
   3. serve: smollm-360m at its published widths (32-layer target, 4-layer
@@ -39,9 +46,18 @@ when the port's sources are not beside this file.  Phases:
      completion, token range, the host's waits on the card (none while a
      round or an admission is queued, one per round in the packed fetch)
      and that every kernel's launch count grew during the run;
+  3q. quant serve: the phase 3 workload with ``SpecDecConfig(quant=True)``
+     (int8 KV arenas, quantize-on-write, W8A8 verify through
+     ``torch._int_mm``): the same completion, range and sync checks, the
+     int8 decode and flash instances' launch counts and the row race's;
+     tok/s, round wall, TTFT, peak device memory and the arena bytes of
+     both phases are logged side by side;
   4. self-draft: drafter = target; with p = q the GLS coupling accepts
      every draft up to float near-ties, so the mean acceptance per round
      must reach 0.9 * L -- the end-to-end correctness check at full width;
+  4q. quant self-draft: the same prompts and keys with quant on and off;
+     the int8 acceptance rate (accepted / (blocks * L)) lies within 0.2
+     of the float32 rate (the gate of ``tests/test_quant_fused.py``);
   5. compress: the Gaussian Wyner-Ziv experiment (``run_experiment``,
      backend "kernel") at the full compression shape -- 2048 trials in
      chunks of B = 512, N = 2^16 atoms, K = 4 decoders, l_max = 64 --
@@ -79,7 +95,7 @@ when the port's sources are not beside this file.  Phases:
      self-draft check (drafter = the 48-layer target, acceptance >=
      0.9 L).
 
-Each of the paths of phases 3, 5, 6 and 7 is driven with the launch counts
+Each of the paths of phases 3, 3q, 5, 6 and 7 is driven with the launch counts
 set to 0 just before it and read just after; the ``kernels`` line
 reports each kernel's launches from its own path (``gls_row_race``: the
 sum over the kv_fused and the reprefill serve paths).  The line before the
@@ -126,6 +142,8 @@ GRID_ATOMS, GRID_TRIALS = 4096, 2000
 # tests/test_ssd_kernel.py: the kernel against its reference, and
 # tests/test_decode_consistency.py: decode against forward.
 SSD_TOL, SSD_TOL_TOTAL, SSM_LOGIT_TOL = 5e-4, 1e-5, 2e-3
+# tests/test_quant_fused.py: the int8 acceptance rate against float32's.
+QUANT_RATE_TOL = 0.2
 # tests/test_compression.py::test_gaussian_match_rate_meets_prop4_bound
 # holds the match rate to its Prop.-4 bound less this allowance.
 BOUND_ALLOWANCE = 0.05
@@ -607,6 +625,136 @@ def kernel_flash(torch, dev, cfg, s: int, t: int):
     }
 
 
+def int8_kv_sets(torch, dev, b: int, hkv: int, t: int, d: int, n: int,
+                 seed: int):
+    """``n`` int8 (k, v, k_scale, v_scale) sets, quantized per vector as
+    the arenas are, and the dequantized (k, v) of the first set."""
+    from repro_torch.serving.quant import dequantize_kv, quantize_kv
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    sets = []
+    for _ in range(n):
+        (k8, ks), (v8, vs) = (quantize_kv(torch.randn(
+            (b, hkv, t, d), generator=g, device=dev)) for _ in range(2))
+        sets.append((k8, v8, ks, vs))
+    k8, v8, ks, vs = sets[0]
+    return sets, (dequantize_kv(k8, ks), dequantize_kv(v8, vs))
+
+
+def kernel_decode_int8(torch, dev, cfg, t: int):
+    """The int8 instance of ``decode_attention`` against its plain version
+    at the serve shape: the serve's kv_len and the edges of its own split
+    plan; timed on cold K/V (int8 sets worth three L2 caches)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import (KEY_BYTES_INT8,
+                                                          decode_attention,
+                                                          decode_split_plan)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_plain)
+    b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
+        cfg.resolved_head_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 11)
+    q = torch.randn((b, h, d), generator=g, device=dev)
+    n_sets = cold_sets(2 * b * hkv * t * (d + 4))
+    sets, (kf, vf) = int8_kv_sets(torch, dev, b, hkv, t, d, n_sets, SEED + 12)
+    kv_len = serve_kv_len(torch, dev, b, t, SEED + 11)
+    splits, chunk = decode_split_plan(b, hkv, t, key_bytes=KEY_BYTES_INT8)
+    edges = torch.tensor([0, 1, t, chunk, 2 * chunk, chunk + 1, chunk - 1,
+                          t - 1, (splits - 1) * chunk, 17, 64, 65],
+                         dtype=torch.int32, device=dev).repeat(-(-b // 12))[:b]
+    # T = 370: the scale row of (b, head) starts at (b Hkv + head) * 1480
+    # bytes, 8-byte aligned only for every odd row.
+    assert (t * 4) % 16 != 0 and hkv * b > 1
+    err = 0.0
+    for lens in (kv_len, edges):
+        out_k = decode_attention(q, *sets[0][:2], lens, *sets[0][2:])
+        out_p = decode_attention_plain(q, *sets[0][:2], lens, *sets[0][2:])
+        torch.cuda.synchronize()
+        err = max(err, float((out_k - out_p).abs().max()))
+        assert err <= 1e-4, f"decode_attention_int8 max abs err {err}"
+        assert bool((out_k[lens == 0] == 0).all()), \
+            "kv_len == 0 row is not zero"
+    mask = (torch.arange(t, device=dev)[None, :]
+            < kv_len.clamp_min(1)[:, None].long())[:, None, None, :]
+    calls = [lambda s_=s_: decode_attention(q, s_[0], s_[1], kv_len, s_[2],
+                                            s_[3]) for s_ in sets]
+    keys = float(kv_len.sum())
+    nbytes = 4 * (2 * b * h * d + b) + 2 * hkv * keys * (d + 4)
+    t_bound, by = bound(nbytes, h * keys * (4 * d + 6))
+    return {
+        "name": "decode_attention_int8", "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/"
+                  "decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:83",
+        "shape": f"q ({b}, {h}, {d}) f32, k/v ({b}, {hkv}, {t}, {d}) int8 "
+                 f"+ scales ({b}, {hkv}, {t}, 1) f32, {splits} splits of "
+                 f"{chunk} keys, {n_sets} K/V sets (cold L2), {int(keys)} "
+                 f"live keys",
+        "max_abs_err": err,
+        "ms": time_cycled(calls),
+        "device_ms": device_ms(torch, calls, "decode_attention_kernel"),
+        "plain_ms": time_cycled([
+            lambda s_=s_: decode_attention_plain(q, s_[0], s_[1], kv_len,
+                                                 s_[2], s_[3])
+            for s_ in sets]),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kf, vf, attn_mask=mask, enable_gqa=True)),
+        "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa) "
+                   "on K/V dequantized once beforehand (untimed), one warm "
+                   "set",
+        "bound_ms": t_bound, "bound_by": by,
+    }
+
+
+def kernel_flash_int8(torch, dev, cfg, s: int, t: int):
+    """The int8 instance of ``flash_attention`` against its plain version
+    at the admission shape (as ``kernel_flash``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
+        cfg.resolved_head_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 13)
+    q = torch.randn((b, h, s, d), generator=g, device=dev)
+    sets, (kf, vf) = int8_kv_sets(torch, dev, b, hkv, t, d, 1, SEED + 14)
+    k8, v8, ks, vs = sets[0]
+    q_off = torch.zeros(b, dtype=torch.int32, device=dev)
+    q_off[b // 2:] = s
+    kv_len = q_off + s
+    args = (q, k8, v8, q_off, kv_len, ks, vs)
+    out_k = flash_attention(*args)
+    out_p = flash_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    assert err <= 1e-4, f"flash_attention_int8 max abs err {err}"
+    k_pos = torch.arange(t, device=dev)
+    q_pos = q_off[:, None].long() + torch.arange(s, device=dev)
+    mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
+            & (k_pos[None, None, :] < kv_len[:, None, None].long()))
+    pairs = float(mask.sum()) * h
+    keys = float(torch.clamp(kv_len.long(), max=t).sum())
+    nbytes = 4 * (2 * b * h * s * d + 2 * b) + 2 * hkv * keys * (d + 4)
+    t_bound, by = bound(nbytes, pairs * (4 * d + 4) + 2 * hkv * keys * d)
+    return {
+        "name": "flash_attention_int8", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:106",
+        "shape": f"q ({b}, {h}, {s}, {d}) f32, k/v ({b}, {hkv}, {t}, {d}) "
+                 f"int8 + scales ({b}, {hkv}, {t}, 1) f32",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: flash_attention(*args)),
+        "plain_ms": time_ms(lambda: flash_attention_plain(*args)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, kf, vf, attn_mask=mask[:, None], enable_gqa=True)),
+        "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa) "
+                   "on K/V dequantized once beforehand (untimed)",
+        "bound_ms": t_bound, "bound_by": by,
+    }
+
+
 def phase_reference(torch, dev, target):
     """The cached kernel path against a plain forward at full width: two
     99-token prompts prefilled through ``prefill_slots`` (flash kernel)
@@ -645,24 +793,28 @@ def phase_reference(torch, dev, target):
 # ---------------------------------------------------------------------------
 
 
-def make_server(torch, dev, target, drafter, max_batch):
+def make_server(torch, dev, target, drafter, max_batch, quant=False):
     from repro_torch.specdec import CachedSpecDecEngine, SpecDecConfig
     from repro_torch.specdec import SpecDecServer
     cfg = SpecDecConfig(num_drafts=K_DRAFTS, draft_len=L_DRAFT,
                         strategy="gls", top_k=50, max_new_tokens=MAX_NEW,
                         verifier_backend="kernel", decode_kernel=True,
-                        prefill_kernel=True)
+                        prefill_kernel=True, quant=quant)
     engine = CachedSpecDecEngine(target, drafter, cfg, pool_slots=S_SLOTS,
                                  device=dev)
     return engine, SpecDecServer(engine, max_batch=max_batch)
 
 
-def phase_serve(torch, dev, target, drafter):
+def phase_serve(torch, dev, target, drafter, quant=False):
+    """Phase 3 (float32 arenas) or 3q (``quant``: int8 arenas, W8A8
+    verify; the attention kernels' int8 instances count under their own
+    names)."""
     from repro_torch import random as R
     from repro_torch.kernels.mode import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import draw_prompts
     vocab = target[1].vocab_size
-    engine, server = make_server(torch, dev, target, drafter, S_SLOTS)
+    engine, server = make_server(torch, dev, target, drafter, S_SLOTS,
+                                 quant=quant)
     prompts = draw_prompts(N_REQUESTS, vocab, PROMPT_MIN, PROMPT_MAX, SEED)
     # One prompt longer than the largest admission bucket (256 at this
     # buffer length), so admission chunks.
@@ -671,12 +823,17 @@ def phase_serve(torch, dev, target, drafter):
     for p in prompts:
         server.submit(p, max_new=MAX_NEW)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
     done = server.run(R.PRNGKey(SEED))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    arena_mib = sum(leaf.numel() * leaf.element_size()
+                    for arena in engine.pool.caches.values()
+                    for leaf in arena.values()) / 2 ** 20
     m = server.metrics
     assert len(done) == N_REQUESTS, f"{len(done)}/{N_REQUESTS} finished"
     for r in done:
@@ -689,25 +846,36 @@ def phase_serve(torch, dev, target, drafter):
     assert m.host_syncs == m.rounds, (m.host_syncs, m.rounds)
     layers = target[1].num_layers + drafter[1].num_layers
     dispatches = engine.num_prefill_dispatches
+    decode, flash = (("decode_attention_int8", "flash_attention_int8")
+                     if quant else ("decode_attention", "flash_attention"))
+    other = ({"decode_attention", "flash_attention"} if quant else
+             {"decode_attention_int8", "flash_attention_int8"})
     assert counts.get("gls_row_race", 0) >= m.rounds, counts
-    assert counts.get("decode_attention", 0) >= \
+    assert counts.get(decode, 0) >= \
         (L_DRAFT + 1) * drafter[1].num_layers * m.rounds, counts
-    assert counts.get("flash_attention", 0) == layers * dispatches // 2, \
+    assert counts.get(flash, 0) == layers * dispatches // 2, \
         (counts, dispatches)
+    assert not other & set(counts), counts
     be = m.mean_block_efficiency
-    log(f"serve: {len(done)} requests, {m.total_tokens} tokens in {wall:.3f}s "
-        f"-> {m.total_tokens / wall:.1f} tok/s; rounds={m.rounds} "
+    ttft = float(np.mean([r.ttft_ms for r in done]))
+    name = "serve quant" if quant else "serve"
+    log(f"{name}: {len(done)} requests, {m.total_tokens} tokens in "
+        f"{wall:.3f}s -> {m.total_tokens / wall:.1f} tok/s; rounds="
+        f"{m.rounds} round wall {wall / m.rounds * 1e3:.1f} ms "
         f"block_efficiency={be:.3f} host_syncs={m.host_syncs} "
         f"draft_syncs={m.draft_syncs} prefill_dispatches={dispatches} "
-        f"mean_ttft_ms={np.mean([r.ttft_ms for r in done]):.1f} "
-        f"launches={counts}")
+        f"mean_ttft_ms={ttft:.1f} peak device memory {peak:.2f} GiB, "
+        f"KV arenas {arena_mib:.1f} MiB launches={counts}")
     return counts, {"wall_s": wall, "tokens": m.total_tokens,
-                    "rounds": m.rounds, "block_efficiency": be}
+                    "rounds": m.rounds, "block_efficiency": be,
+                    "tok_s": m.total_tokens / wall,
+                    "round_ms": wall / m.rounds * 1e3, "ttft_ms": ttft,
+                    "peak_gib": peak, "arena_mib": arena_mib}
 
 
-def phase_self_draft(torch, dev, target):
+def phase_self_draft(torch, dev, target, quant=False):
     from repro_torch import random as R
-    engine, server = make_server(torch, dev, target, target, 2)
+    engine, server = make_server(torch, dev, target, target, 2, quant=quant)
     vocab = target[1].vocab_size
     for p in np.random.default_rng(SEED + 3).integers(
             0, vocab, (2, 64)).astype(np.int32):
@@ -715,11 +883,26 @@ def phase_self_draft(torch, dev, target):
     done = server.run(R.PRNGKey(SEED + 1))
     m = server.metrics
     acc = sum(r.accepted for r in done) / max(sum(r.blocks for r in done), 1)
-    log(f"self-draft: rounds={m.rounds} mean accepted per round="
-        f"{acc:.3f} (L={L_DRAFT}, need >= {0.9 * L_DRAFT:.1f})")
+    log(f"self-draft{' quant' if quant else ''}: rounds={m.rounds} mean "
+        f"accepted per round={acc:.3f} (L={L_DRAFT}"
+        + ("" if quant else f", need >= {0.9 * L_DRAFT:.1f}") + ")")
     assert m.rounds >= 8, f"self-draft ran {m.rounds} rounds"
-    assert acc >= 0.9 * L_DRAFT, f"self-draft acceptance {acc:.3f}"
+    if not quant:
+        assert acc >= 0.9 * L_DRAFT, f"self-draft acceptance {acc:.3f}"
     return acc
+
+
+def phase_quant_self_draft(torch, dev, target, acc_f32: float):
+    """Phase 4q: the self-draft workload with quant on, against phase 4's
+    float32 run on the same prompts and keys: acceptance rates within
+    ``QUANT_RATE_TOL``."""
+    acc_q = phase_self_draft(torch, dev, target, quant=True)
+    rate_f, rate_q = acc_f32 / L_DRAFT, acc_q / L_DRAFT
+    log(f"quant self-draft: acceptance rate int8 {rate_q:.4f} vs float32 "
+        f"{rate_f:.4f} (|diff| {abs(rate_q - rate_f):.4f}, tolerance "
+        f"{QUANT_RATE_TOL})")
+    assert abs(rate_q - rate_f) <= QUANT_RATE_TOL, (rate_q, rate_f)
+    return rate_q
 
 
 # ---------------------------------------------------------------------------
@@ -1088,6 +1271,8 @@ def main() -> int:
                            cfg.vocab_size),
                kernel_decode(torch, dev, cfg, buf_len),
                kernel_flash(torch, dev, cfg, 256, buf_len),
+               kernel_decode_int8(torch, dev, cfg, buf_len),
+               kernel_flash_int8(torch, dev, cfg, 256, buf_len),
                kernel_binned(torch, dev, WZ_LMAX),
                kernel_joint(torch, dev, cfg.vocab_size)]
     binned_l2 = kernel_binned(torch, dev, 2)
@@ -1103,9 +1288,21 @@ def main() -> int:
     counts, serve_stats = phase_serve(torch, dev, target, drafter)
     log(f"phase serve: {time.perf_counter() - t0:.1f}s")
 
-    # Phase 4: self-draft acceptance check.
+    # Phase 3q: the same serve with int8 arenas and W8A8 verify.
     t0 = time.perf_counter()
-    phase_self_draft(torch, dev, target)
+    q_counts, q_stats = phase_serve(torch, dev, target, drafter, quant=True)
+    for name in ("decode_attention_int8", "flash_attention_int8"):
+        counts[name] = q_counts.get(name, 0)
+    log(f"quant vs float32 serve [{smi}]: "
+        + ", ".join(f"{k} {q_stats[k]:.4g} vs {serve_stats[k]:.4g}"
+                    for k in ("tok_s", "round_ms", "ttft_ms", "peak_gib",
+                              "arena_mib")))
+    log(f"phase serve quant: {time.perf_counter() - t0:.1f}s")
+
+    # Phase 4: self-draft acceptance check; 4q: quant against it.
+    t0 = time.perf_counter()
+    acc_f32 = phase_self_draft(torch, dev, target)
+    phase_quant_self_draft(torch, dev, target, acc_f32)
     log(f"phase self-draft: {time.perf_counter() - t0:.1f}s")
 
     # Phase 5: Wyner-Ziv compression through the binned race kernel.

@@ -29,6 +29,13 @@ cudaError_t launch_decode_attention(const float* q, const float* k,
                                     float* out, int B, int H, int Hkv, int T,
                                     int splits, int chunk,
                                     cudaStream_t stream);
+cudaError_t launch_decode_attention_int8(const float* q, const int8_t* k,
+                                         const int8_t* v,
+                                         const float* k_scale,
+                                         const float* v_scale,
+                                         const int* kv_len, float* out, int B,
+                                         int H, int Hkv, int T, int splits,
+                                         int chunk, cudaStream_t stream);
 int decode_attention_head_dim();
 int decode_attention_max_group();
 int decode_attention_max_splits();
@@ -37,6 +44,13 @@ cudaError_t launch_flash_attention(const float* q, const float* k,
                                    const int* kv_len, float* out, int B, int H,
                                    int Hkv, int S, int T, int window,
                                    cudaStream_t stream);
+cudaError_t launch_flash_attention_int8(const float* q, const int8_t* k,
+                                        const int8_t* v, const float* k_scale,
+                                        const float* v_scale,
+                                        const int* q_offset, const int* kv_len,
+                                        float* out, int B, int H, int Hkv,
+                                        int S, int T, int window,
+                                        cudaStream_t stream);
 int flash_attention_head_dim();
 void launch_gls_binned_race(const float* log_s, const float* log_q,
                             const int* bins, float* bmin, int* barg,
@@ -104,6 +118,32 @@ void check_head_dim(const char* kernel, int64_t d, int compiled) {
   TORCH_CHECK(d == compiled, std::string(kernel) + ": head dim " +
               std::to_string(d) + " not compiled (only " +
               std::to_string(compiled) + ")");
+}
+
+// The int8 K/V of an attention kernel: int8 k/v (B, Hkv, T, D), 16-byte
+// aligned (copied in 16-byte pieces), and float32 scales (B, Hkv, T, 1).
+void check_int8_kv(const char* kernel, const torch::Tensor& q,
+                   const torch::Tensor& k, const torch::Tensor& v,
+                   const torch::Tensor& k_scale,
+                   const torch::Tensor& v_scale) {
+  check_tensor(k, "k", torch::kInt8, 4);
+  check_tensor(v, "v", torch::kInt8, 4);
+  check_tensor(k_scale, "k_scale", torch::kFloat32, 4);
+  check_tensor(v_scale, "v_scale", torch::kFloat32, 4);
+  check_same_device(q, k);
+  check_same_device(q, v);
+  check_same_device(q, k_scale);
+  check_same_device(q, v_scale);
+  TORCH_CHECK(k.sizes() == v.sizes(), std::string(kernel) +
+              ": k/v shape mismatch");
+  TORCH_CHECK(k_scale.sizes() == v_scale.sizes() &&
+              k_scale.size(0) == k.size(0) && k_scale.size(1) == k.size(1) &&
+              k_scale.size(2) == k.size(2) && k_scale.size(3) == 1,
+              std::string(kernel) + ": k_scale/v_scale must be (B, Hkv, T, 1)"
+              " of k (B, Hkv, T, D)");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(k.data_ptr()) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(v.data_ptr()) % 16 == 0,
+              std::string(kernel) + ": k and v must be 16-byte aligned");
 }
 
 }  // namespace
@@ -239,6 +279,44 @@ torch::Tensor decode_attention(torch::Tensor q, torch::Tensor k,
   return out;
 }
 
+torch::Tensor decode_attention_int8(torch::Tensor q, torch::Tensor k,
+                                    torch::Tensor v, torch::Tensor k_scale,
+                                    torch::Tensor v_scale,
+                                    torch::Tensor kv_len, int64_t splits,
+                                    int64_t chunk) {
+  check_tensor(q, "q", torch::kFloat32, 3);
+  check_tensor(kv_len, "kv_len", torch::kInt32, 1);
+  check_int8_kv("decode_attention_int8", q, k, v, k_scale, v_scale);
+  check_same_device(q, kv_len);
+  const int64_t B = q.size(0), H = q.size(1), D = q.size(2);
+  const int64_t Hkv = k.size(1), T = k.size(2);
+  TORCH_CHECK(k.size(0) == B && k.size(3) == D, "q/k shape mismatch");
+  TORCH_CHECK(kv_len.size(0) == B, "kv_len must be (B,)");
+  TORCH_CHECK(Hkv > 0 && H % Hkv == 0, "H must be a multiple of Hkv");
+  check_head_dim("decode_attention_int8", D, decode_attention_head_dim());
+  TORCH_CHECK(H / Hkv <= decode_attention_max_group(),
+              "decode_attention_int8: more than " +
+              std::to_string(decode_attention_max_group()) +
+              " query heads per KV head");
+  TORCH_CHECK(B < 65536 && Hkv < 65536 && T < (1 << 24),
+              "decode_attention_int8: unsupported shape");
+  check_split_plan("decode_attention_int8", splits, chunk, T,
+                   decode_attention_max_splits(), 1);
+  check_aligned16("decode_attention_int8: q", q);
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto out = torch::empty_like(q);
+  if (B == 0 || H == 0) return out;
+  check_launch("decode_attention_int8", launch_decode_attention_int8(
+      q.data_ptr<float>(), k.data_ptr<int8_t>(), v.data_ptr<int8_t>(),
+      k_scale.data_ptr<float>(), v_scale.data_ptr<float>(),
+      kv_len.data_ptr<int>(), out.data_ptr<float>(), static_cast<int>(B),
+      static_cast<int>(H), static_cast<int>(Hkv), static_cast<int>(T),
+      static_cast<int>(splits), static_cast<int>(chunk),
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
 torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
                               torch::Tensor v, torch::Tensor q_offset,
                               torch::Tensor kv_len, int64_t window) {
@@ -277,6 +355,44 @@ torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
   TORCH_CHECK(err == cudaSuccess,
               std::string("flash_attention: setting its shared memory size "
                           "failed: ") + cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+torch::Tensor flash_attention_int8(torch::Tensor q, torch::Tensor k,
+                                   torch::Tensor v, torch::Tensor k_scale,
+                                   torch::Tensor v_scale,
+                                   torch::Tensor q_offset,
+                                   torch::Tensor kv_len, int64_t window) {
+  check_tensor(q, "q", torch::kFloat32, 4);
+  check_tensor(q_offset, "q_offset", torch::kInt32, 1);
+  check_tensor(kv_len, "kv_len", torch::kInt32, 1);
+  check_int8_kv("flash_attention_int8", q, k, v, k_scale, v_scale);
+  check_same_device(q, q_offset);
+  check_same_device(q, kv_len);
+  const int64_t B = q.size(0), H = q.size(1), S = q.size(2), D = q.size(3);
+  const int64_t Hkv = k.size(1), T = k.size(2);
+  TORCH_CHECK(k.size(0) == B && k.size(3) == D, "q/k shape mismatch");
+  TORCH_CHECK(q_offset.size(0) == B && kv_len.size(0) == B,
+              "q_offset/kv_len must be (B,)");
+  TORCH_CHECK(Hkv > 0 && H % Hkv == 0, "H must be a multiple of Hkv");
+  TORCH_CHECK(B < 65536 && H < 65536, "flash_attention_int8: grid too large");
+  check_head_dim("flash_attention_int8", D, flash_attention_head_dim());
+  TORCH_CHECK(window >= 0, "window must be >= 0");
+  check_aligned16("flash_attention_int8: q", q);
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto out = torch::empty_like(q);
+  if (B == 0 || H == 0 || S == 0) return out;
+  const cudaError_t err = launch_flash_attention_int8(
+      q.data_ptr<float>(), k.data_ptr<int8_t>(), v.data_ptr<int8_t>(),
+      k_scale.data_ptr<float>(), v_scale.data_ptr<float>(),
+      q_offset.data_ptr<int>(), kv_len.data_ptr<int>(), out.data_ptr<float>(),
+      static_cast<int>(B), static_cast<int>(H), static_cast<int>(Hkv),
+      static_cast<int>(S), static_cast<int>(T), static_cast<int>(window),
+      c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(err == cudaSuccess,
+              std::string("flash_attention_int8: setting its shared memory "
+                          "size failed: ") + cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
@@ -345,7 +461,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("decode_attention", &decode_attention,
         "one-query GQA decode attention over a KV cache, each row's keys "
         "split over a cluster of `splits` blocks of `chunk` keys");
+  m.def("decode_attention_int8", &decode_attention_int8,
+        "decode_attention over int8 K/V with per-KV-vector float32 scales");
   m.def("flash_attention", &flash_attention,
         "causal (optionally windowed) prefill attention with per-row "
         "offsets");
+  m.def("flash_attention_int8", &flash_attention_int8,
+        "flash_attention over int8 K/V with per-KV-vector float32 scales");
 }

@@ -3,12 +3,25 @@
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/decode_attention/kernel.py:83 (`decode_attention` ->
-// `pl.pallas_call` at :128, body `_kernel`), float32 path.  (The
-// int8-scale branch of that kernel is off this serving path.)
+// `pl.pallas_call` at :128, body `_kernel`), both of its branches: float32
+// K/V, and int8 K/V with per-KV-vector float32 scales (kernel.py:53-55,
+// the scale BlockSpecs at :122-127), one instance each of the template
+// below (KV = float, int8_t).
 //
 //   q (B, H, D), k/v (B, Hkv, T, D), kv_len (B,) -> out (B, H, D)
 //   out[b, h] = softmax_t(q[b,h] . k[b, h/G, t] / sqrt(D), t < kv_len[b])
 //               @ v[b, h/G]
+// where the int8 instance reads k[b, j, t] = k_int8[b, j, t] *
+// k_scale[b, j, t] (and v likewise), scales (B, Hkv, T, 1): the scale is
+// folded in after the dot product, s = (q . k_int8) * k_scale / sqrt(D),
+// and into the weight, p * v_scale, before P V, so the result differs from
+// dequantizing first only by float32 rounding.  HBM streams the int8
+// leaves (TMA bulk copies of 64-byte key rows, as the float32 instance's
+// 256-byte rows) plus one float per key and leaf, never a dequantized
+// copy.  The scales come as plain 4-byte loads, one per lane and tile: a
+// (b, head) row of scales starts at ((b Hkv + h) T + t) * 4 bytes, which at
+// the serve buffer (T = 370) is only 8-byte aligned for every other row,
+// and a bulk copy needs 16.
 // with the Pallas kernel's masked-row contract: `m_safe` pinned to 0 while
 // the max is -inf and the denominator floored at 1e-30, so a row with
 // kv_len == 0 comes out as zeros; keys past kv_len are never read.
@@ -19,7 +32,8 @@
 // per key against the 2 D * 4 bytes of K and V that its G heads share,
 // under two flops per byte, so the time is the K/V stream:
 // 2 * Hkv * sum(min(kv_len, T)) * D * 4 bytes (15-20 MB at the serve shape,
-// 4.6-6 us at 3.35 TB/s).  A stream that short needs the whole card
+// 4.6-6 us at 3.35 TB/s; the int8 instance 2 * Hkv * keys * (D + 4)
+// bytes, about a quarter).  A stream that short needs the whole card
 // pulling at once, so the design puts every SM's bytes in flight early:
 //   * grid (splits, Hkv, B), launched as clusters of `splits` blocks
 //     (cudaLaunchKernelEx with a cluster dimension).  Block i of a
@@ -60,6 +74,7 @@
 #include <cuda_runtime.h>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -79,13 +94,15 @@ constexpr float kScale = 0.125f;             // 1 / sqrt(kD)
 static_assert(kD == 64, "lanes own 2 columns, half-warps 32 columns");
 
 // The dynamic shared memory, in floats: `stages` K/V tiles of `tk` keys
-// each (the warps' partials reuse them once every warp is done), q of the
-// group, one partial per block of the cluster (written by the peers into
-// rank 0's), then a full and an empty mbarrier per stage.
+// each, of `kv_bytes` bytes an element (the warps' partials reuse them
+// once every warp is done), q of the group, one partial per block of the
+// cluster (written by the peers into rank 0's), then a full and an empty
+// mbarrier per stage.
 struct Layout {
-  int tk, stages, G, splits;
+  int tk, stages, G, splits, kv_bytes;
   __host__ __device__ int q_off() const {
-    const int kv = stages * 2 * tk * kD, parts = kWarps * G * kPart;
+    const int kv = stages * 2 * tk * kD * kv_bytes / 4,
+              parts = kWarps * G * kPart;
     return kv > parts ? kv : parts;
   }
   __host__ __device__ int block_off() const { return q_off() + G * kD; }
@@ -159,12 +176,13 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 }
 
 // Tile j of the block's `n` keys (K at `k`, V at `v`) into its stage.
+template <typename KV>
 __device__ __forceinline__ void load_tile(float* smem, uint64_t* full,
-                                          const float* k, const float* v,
+                                          const KV* k, const KV* v,
                                           int j, int n, int tk, int stages) {
   const int s = j % stages;
-  const uint32_t bytes = sizeof(float) * kD * min(tk, n - j * tk);
-  float* ks = smem + s * 2 * tk * kD;
+  const uint32_t bytes = sizeof(KV) * kD * min(tk, n - j * tk);
+  KV* ks = reinterpret_cast<KV*>(smem) + s * 2 * tk * kD;
   const size_t off = static_cast<size_t>(j) * tk * kD;
   mbar_expect_tx(&full[s], 2 * bytes);
   bulk_load(ks, k + off, bytes, &full[s]);
@@ -174,15 +192,20 @@ __device__ __forceinline__ void load_tile(float* smem, uint64_t* full,
 // G, the query heads of a KV head, is a template parameter so that the
 // per-head softmax state stays in registers sized to it: up to four heads
 // fit seven blocks per SM (72 registers; a cap of 64 for eight spilled at
-// G = 3), as many as a 47-key single stage's shared memory allows.
-template <int G>
+// G = 3), as many as a 47-key single stage's shared memory allows.  KV is
+// the K/V element type: float, or int8_t with `k_scale`/`v_scale` (one
+// float per key; unused by the float instance).
+template <int G, typename KV>
 __global__ void __launch_bounds__(kThreads, G <= 4 ? 7 : 4)
 decode_attention_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
+                        const KV* __restrict__ k,
+                        const KV* __restrict__ v,
+                        const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale,
                         const int* __restrict__ kv_len,
                         float* __restrict__ out, int H, int Hkv, int T,
                         int chunk, int tk, int stages) {
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   cg::cluster_group cluster = cg::this_cluster();
   // The first barrier phase only says that every block of the cluster
   // has started (rank 0's shared memory exists): arrive now, wait once
@@ -193,7 +216,7 @@ decode_attention_kernel(const float* __restrict__ q,
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   extern __shared__ __align__(16) float smem[];
-  const Layout lay{tk, stages, G, splits};
+  const Layout lay{tk, stages, G, splits, static_cast<int>(sizeof(KV))};
   float* q_s = smem + lay.q_off();
   float* wpart = smem;
   float* bpart = smem + lay.block_off();
@@ -206,8 +229,8 @@ decode_attention_kernel(const float* __restrict__ q,
   const int k0 = first < len ? static_cast<int>(first) : len;
   const int n = min(chunk, len - k0);
   const int n_tiles = (n + tk - 1) / tk;
-  const size_t kv_base =
-      ((static_cast<size_t>(b) * Hkv + kvh) * T + k0) * kD;
+  const size_t s_base = (static_cast<size_t>(b) * Hkv + kvh) * T + k0;
+  const size_t kv_base = s_base * kD;
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
@@ -236,16 +259,28 @@ decode_attention_kernel(const float* __restrict__ q,
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % stages;
     const uint32_t parity = (j / stages) & 1;
-    mbar_wait(&full[s], parity);
-    const float* ks = smem + s * 2 * tk * kD;
-    const float* vs = ks + tk * kD;
     const int w0 = warp * kWarpKeys;
     const int nw = min(kWarpKeys, min(tk, n - j * tk) - w0);
+    const bool valid = t < nw;
+    // The int8 instance's scales of key w0 + t, loaded while the tile is
+    // in flight (score multiplier with 1 / sqrt(D) folded in, and the
+    // weight's multiplier for P V).
+    float kmul = kScale;
+    [[maybe_unused]] float vmul = 1.f;
+    if constexpr (kQuant) {
+      if (valid) {
+        const size_t si = s_base + static_cast<size_t>(j) * tk + w0 + t;
+        kmul = __ldg(k_scale + si) * kScale;
+        vmul = __ldg(v_scale + si);
+      }
+    }
+    mbar_wait(&full[s], parity);
+    const KV* ks = reinterpret_cast<const KV*>(smem) + s * 2 * tk * kD;
+    const KV* vs = ks + tk * kD;
     if (nw > 0) {
       // Scores: lane (t, half) takes key w0 + t over columns
-      // [32 half, 32 half + 32), float4 by float4 in swizzled order.
-      const bool valid = t < nw;
-      const float* krow = ks + (w0 + (valid ? t : 0)) * kD + 32 * half;
+      // [32 half, 32 half + 32), 4 by 4 in swizzled order.
+      const KV* krow = ks + (w0 + (valid ? t : 0)) * kD + 32 * half;
       const float* qh = q_s + 32 * half;
       float sc[G];
 #pragma unroll
@@ -253,7 +288,13 @@ decode_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int c4 = 0; c4 < 8; ++c4) {
         const int c = 4 * (c4 ^ (t & 7));
-        const float4 kk = *reinterpret_cast<const float4*>(krow + c);
+        float4 kk;
+        if constexpr (kQuant) {
+          const char4 k8 = *reinterpret_cast<const char4*>(krow + c);
+          kk = make_float4(k8.x, k8.y, k8.z, k8.w);
+        } else {
+          kk = *reinterpret_cast<const float4*>(krow + c);
+        }
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float4 qq = *reinterpret_cast<const float4*>(qh + g * kD + c);
@@ -272,7 +313,7 @@ decode_attention_kernel(const float* __restrict__ q,
         // is undefined), then the lanes past the warp's keys drop out as
         // -inf.
         const float dot = sc[g] + __shfl_xor_sync(0xffffffffu, sc[g], 16);
-        const float sg = valid ? dot * kScale : -INFINITY;
+        const float sg = valid ? dot * kmul : -INFINITY;
         float mx = sg;
 #pragma unroll
         for (int off = 8; off > 0; off >>= 1) {
@@ -291,13 +332,20 @@ decode_attention_kernel(const float* __restrict__ q,
         m[g] = m_new;
         acc[g][0] *= alpha;
         acc[g][1] *= alpha;
+        if constexpr (kQuant) p[g] *= vmul;
       }
       // P V: lane owns columns 2 lane, 2 lane + 1; key i's weight comes
       // from lane i.
-      const float* vcol = vs + w0 * kD + 2 * lane;
+      const KV* vcol = vs + w0 * kD + 2 * lane;
 #pragma unroll 4
       for (int i = 0; i < nw; ++i) {
-        const float2 vv = *reinterpret_cast<const float2*>(vcol + i * kD);
+        float2 vv;
+        if constexpr (kQuant) {
+          const char2 v8 = *reinterpret_cast<const char2*>(vcol + i * kD);
+          vv = make_float2(v8.x, v8.y);
+        } else {
+          vv = *reinterpret_cast<const float2*>(vcol + i * kD);
+        }
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float pg = __shfl_sync(0xffffffffu, p[g], i);
@@ -400,23 +448,27 @@ int decode_attention_head_dim() { return kD; }
 int decode_attention_max_group() { return kMaxG; }
 int decode_attention_max_splits() { return kMaxSplits; }
 
-cudaError_t launch_decode_attention(const float* q, const float* k,
-                                    const float* v, const int* kv_len,
-                                    float* out, int B, int H, int Hkv, int T,
-                                    int splits, int chunk,
-                                    cudaStream_t stream) {
-  using Kernel = void (*)(const float*, const float*, const float*,
-                          const int*, float*, int, int, int, int, int, int);
+namespace {
+
+template <typename KV>
+cudaError_t launch(const float* q, const KV* k, const KV* v,
+                   const float* k_scale, const float* v_scale,
+                   const int* kv_len, float* out, int B, int H, int Hkv,
+                   int T, int splits, int chunk, cudaStream_t stream) {
+  using Kernel = void (*)(const float*, const KV*, const KV*, const float*,
+                          const float*, const int*, float*, int, int, int,
+                          int, int, int);
   constexpr Kernel kKernels[kMaxG] = {
-      decode_attention_kernel<1>, decode_attention_kernel<2>,
-      decode_attention_kernel<3>, decode_attention_kernel<4>,
-      decode_attention_kernel<5>, decode_attention_kernel<6>,
-      decode_attention_kernel<7>, decode_attention_kernel<8>};
+      decode_attention_kernel<1, KV>, decode_attention_kernel<2, KV>,
+      decode_attention_kernel<3, KV>, decode_attention_kernel<4, KV>,
+      decode_attention_kernel<5, KV>, decode_attention_kernel<6, KV>,
+      decode_attention_kernel<7, KV>, decode_attention_kernel<8, KV>};
+  constexpr int kvb = static_cast<int>(sizeof(KV));
   const int G = H / Hkv;
   if (G < 1 || G > kMaxG) return cudaErrorInvalidValue;
   const Kernel kernel = kKernels[G - 1];
-  // The dynamic shared memory above 48 KB is granted once per device and
-  // group size.
+  // The dynamic shared memory above 48 KB is granted once per device,
+  // element type and group size.
   constexpr int kMaxDevices = 64;
   static bool granted[kMaxDevices][kMaxG] = {};
   int device = 0;
@@ -425,7 +477,7 @@ cudaError_t launch_decode_attention(const float* q, const float* k,
   if (device >= kMaxDevices || !granted[device][G - 1]) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(Layout{kTK, kStages, G, kMaxSplits}.bytes()));
+        static_cast<int>(Layout{kTK, kStages, G, kMaxSplits, kvb}.bytes()));
     if (err != cudaSuccess) return err;
     if (device < kMaxDevices) granted[device][G - 1] = true;
   }
@@ -435,7 +487,7 @@ cudaError_t launch_decode_attention(const float* q, const float* k,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, Hkv, B);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = Layout{tk, stages, G, splits}.bytes();
+  cfg.dynamicSmemBytes = Layout{tk, stages, G, splits, kvb}.bytes();
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -444,6 +496,28 @@ cudaError_t launch_decode_attention(const float* q, const float* k,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, q, k, v, kv_len, out, H, Hkv, T,
-                            chunk, tk, stages);
+  return cudaLaunchKernelEx(&cfg, kernel, q, k, v, k_scale, v_scale, kv_len,
+                            out, H, Hkv, T, chunk, tk, stages);
+}
+
+}  // namespace
+
+cudaError_t launch_decode_attention(const float* q, const float* k,
+                                    const float* v, const int* kv_len,
+                                    float* out, int B, int H, int Hkv, int T,
+                                    int splits, int chunk,
+                                    cudaStream_t stream) {
+  return launch<float>(q, k, v, nullptr, nullptr, kv_len, out, B, H, Hkv, T,
+                       splits, chunk, stream);
+}
+
+cudaError_t launch_decode_attention_int8(const float* q, const int8_t* k,
+                                         const int8_t* v,
+                                         const float* k_scale,
+                                         const float* v_scale,
+                                         const int* kv_len, float* out, int B,
+                                         int H, int Hkv, int T, int splits,
+                                         int chunk, cudaStream_t stream) {
+  return launch<int8_t>(q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv, T,
+                        splits, chunk, stream);
 }

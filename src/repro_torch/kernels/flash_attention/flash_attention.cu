@@ -2,8 +2,10 @@
 // arena offsets, for Hopper.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
-// (`flash_attention` -> `pl.pallas_call` with body `_kernel`), float32
-// path.  (The int8-scale branch of that kernel is off this serving path.)
+// (`flash_attention` -> `pl.pallas_call` with body `_kernel`), both of its
+// branches: float32 K/V, and int8 K/V with per-KV-vector float32 scales
+// (kernel.py:60-62, the scale BlockSpecs at :165-172), one instance each
+// of the template below (KV = float, int8_t).
 //
 //   q (B, H, S, D), k/v (B, Hkv, T, D), q_offset/kv_len (B,) -> (B, H, S, D)
 // Query row s of batch row b sits at position q_offset[b] + s and attends
@@ -41,6 +43,15 @@
 //   * one block serves up to three query heads of one KV head (GQA), one
 //     warp group each, so a K/V tile is staged once for all of them:
 //     168 KB of shared memory, 384 threads, one block per SM.
+// The int8 instance (scales k_scale/v_scale (B, Hkv, T, 1)) stages each
+// tile's int8 K and V rows (16-byte cp.async copies of the 64-byte rows)
+// and its scales (4-byte cp.async copies: a scale row starts only 4-byte
+// aligned) in two stages, zero-filled past T, and dequantizes the tile in
+// shared memory into ONE float32 K/V tile (k_int8 * k_scale, the plain
+// version's product exactly), behind a second block barrier; from there it
+// runs the float32 body unchanged.  HBM streams int8 plus one float per
+// key and leaf; the function stays bound by operations, so its time is
+// near the float32 instance's.
 // The KV loop is clipped to the tiles the block's masks can reach: it
 // ends at min(kv_len, last causal position of the block) and starts at
 // the window's lower edge; a tile inside every row's mask skips the
@@ -49,6 +60,8 @@
 // ones fill the tail.
 #include <cuda_runtime.h>
 #include <cmath>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -64,31 +77,57 @@ constexpr int kPP = kBQ + 4;            // padded row of P^T
 // 1 / sqrt(kD) times log2(e): scores live in the log2 domain.
 constexpr float kScaleLog2 = 0.125f * 1.4426950408889634f;
 
-// Shared memory, in floats: the two K/V stages, then Q and P^T per group.
+// Shared memory, in floats: the float32 K/V stages (two for the float32
+// instance, one for the int8 instance), the int8 instance's two raw stages
+// (K and V rows, then their scales), then Q and P^T per group.
 constexpr int kKStage = kBK * kDP;
 constexpr int kVStage = kBK * kD;
-constexpr int kOffV = 2 * kKStage;
-constexpr int kOffGroups = kOffV + 2 * kVStage;
 constexpr int kGroupFloats = kBQ * kDP + kBK * kPP;
+constexpr int kRawKV = kBK * kD / 4;           // one int8 K (or V) tile
+constexpr int kRawStage = 2 * kRawKV + 2 * kBK;  // K, V, k scales, v scales
 
-constexpr size_t smem_bytes(int heads) {
-  return (kOffGroups + heads * kGroupFloats) * sizeof(float);
-}
+template <typename KV>
+struct Smem {
+  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  static constexpr int kStagesF = kQuant ? 1 : 2;
+  static constexpr int kOffV = kStagesF * kKStage;
+  static constexpr int kOffRaw = kOffV + kStagesF * kVStage;
+  static constexpr int kOffGroups = kOffRaw + (kQuant ? 2 * kRawStage : 0);
+  static constexpr size_t bytes(int heads) {
+    return (kOffGroups + heads * kGroupFloats) * sizeof(float);
+  }
+};
+
+constexpr size_t smem_bytes(int heads) { return Smem<float>::bytes(heads); }
+constexpr int kOffV = Smem<float>::kOffV;
 
 static_assert(kD == 64, "kScaleLog2 and the thread tiles assume D = 64");
 static_assert(kBQ % 32 == 0 && kBK % 16 == 0 && kD == 4 * 16,
               "thread (tr, tc): 8 rows, kKN keys, 4 output columns");
 static_assert(smem_bytes(kMaxHeads) <= 232448, "one block fits on an SM");
-static_assert(kDP % 4 == 0 && kPP % 4 == 0 && kGroupFloats % 4 == 0,
+static_assert(Smem<int8_t>::bytes(kMaxHeads) <= 232448,
+              "one int8 block fits on an SM");
+static_assert(kDP % 4 == 0 && kPP % 4 == 0 && kGroupFloats % 4 == 0 &&
+              Smem<int8_t>::kOffRaw % 4 == 0 && kRawStage % 4 == 0,
               "float4 alignment");
 
-__device__ __forceinline__ void cp_async16_zfill(float* smem_dst,
-                                                 const float* gmem_src,
+__device__ __forceinline__ void cp_async16_zfill(void* smem_dst,
+                                                 const void* gmem_src,
                                                  bool valid) {
   const unsigned dst =
       static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
   const int src_bytes = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem_src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4_zfill(float* smem_dst,
+                                                const float* gmem_src,
+                                                bool valid) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  const int src_bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(gmem_src), "r"(src_bytes));
 }
 
@@ -125,14 +164,69 @@ __device__ __forceinline__ void load_kv(float* ks, float* vs,
   cp_async_commit();
 }
 
+// One int8 K/V tile (keys k0 .. k0 + kBK - 1) and its scales into a raw
+// stage, by every thread of the block; rows past T are zeros.
+__device__ __forceinline__ void load_kv(float* raw,
+                                        const int8_t* __restrict__ k,
+                                        const int8_t* __restrict__ v,
+                                        const float* __restrict__ k_scale,
+                                        const float* __restrict__ v_scale,
+                                        size_t kv_base, int k0, int T) {
+  int8_t* ks = reinterpret_cast<int8_t*>(raw);
+  int8_t* vs = reinterpret_cast<int8_t*>(raw + kRawKV);
+  for (int e = threadIdx.x; e < kBK * kD / 16; e += blockDim.x) {
+    const int r = e / (kD / 16), c = e % (kD / 16);
+    const int kk = k0 + r;
+    const bool ok = kk < T;
+    const size_t off =
+        kv_base + static_cast<size_t>(ok ? kk : 0) * kD + 16 * c;
+    cp_async16_zfill(ks + r * kD + 16 * c, k + off, ok);
+    cp_async16_zfill(vs + r * kD + 16 * c, v + off, ok);
+  }
+  const size_t s_base = kv_base / kD;
+  for (int r = threadIdx.x; r < kBK; r += blockDim.x) {
+    const int kk = k0 + r;
+    const bool ok = kk < T;
+    const size_t off = s_base + (ok ? kk : 0);
+    cp_async4_zfill(raw + 2 * kRawKV + r, k_scale + off, ok);
+    cp_async4_zfill(raw + 2 * kRawKV + kBK + r, v_scale + off, ok);
+  }
+  cp_async_commit();
+}
+
+// A raw int8 stage into the float32 K (padded rows) and V tiles:
+// k_int8 * k_scale, v_int8 * v_scale.
+__device__ __forceinline__ void dequantize_kv(float* ks, float* vs,
+                                              const float* raw) {
+  const char4* k8 = reinterpret_cast<const char4*>(raw);
+  const char4* v8 = reinterpret_cast<const char4*>(raw + kRawKV);
+  const float* sk = raw + 2 * kRawKV;
+  const float* sv = sk + kBK;
+  for (int e = threadIdx.x; e < kBK * kD / 4; e += blockDim.x) {
+    const int r = e / (kD / 4), d4 = e % (kD / 4);
+    const char4 a = k8[e], b = v8[e];
+    const float ka = sk[r], va = sv[r];
+    *reinterpret_cast<float4*>(ks + r * kDP + 4 * d4) =
+        make_float4(a.x * ka, a.y * ka, a.z * ka, a.w * ka);
+    *reinterpret_cast<float4*>(vs + r * kD + 4 * d4) =
+        make_float4(b.x * va, b.y * va, b.z * va, b.w * va);
+  }
+}
+
+// KV is the K/V element type: float, or int8_t with `k_scale`/`v_scale`
+// (one float per key; unused by the float instance).
+template <typename KV>
 __global__ void __launch_bounds__(kGroup * kMaxHeads, 1)
 flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
+                       const KV* __restrict__ k,
+                       const KV* __restrict__ v,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale,
                        const int* __restrict__ q_offset,
                        const int* __restrict__ kv_len,
                        float* __restrict__ out, int H, int Hkv, int S, int T,
                        int window, int heads) {
+  using L = Smem<KV>;
   extern __shared__ __align__(16) float smem[];
   const int g = threadIdx.x / kGroup, t = threadIdx.x % kGroup;
   const int tr = t / 16, tc = t % 16;
@@ -143,7 +237,7 @@ flash_attention_kernel(const float* __restrict__ q,
   const int row0 = iq * kBQ;
   const int qoff = q_offset[b];
   const int klen = min(kv_len[b], T);
-  float* Qs = smem + kOffGroups + g * kGroupFloats;
+  float* Qs = smem + L::kOffGroups + g * kGroupFloats;
   float* Pt = Qs + kBQ * kDP;
 
   const size_t q_base = (static_cast<size_t>(b) * H + h) * S * kD;
@@ -154,7 +248,13 @@ flash_attention_kernel(const float* __restrict__ q,
   if (window > 0) kbeg = max(0, qoff + row0 - window + 1);
   kbeg = (kbeg / kBK) * kBK;
   const int n_tiles = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
-  if (n_tiles > 0) load_kv(smem, smem + kOffV, k, v, kv_base, kbeg, T);
+  if (n_tiles > 0) {
+    if constexpr (L::kQuant) {
+      load_kv(smem + L::kOffRaw, k, v, k_scale, v_scale, kv_base, kbeg, T);
+    } else {
+      load_kv(smem, smem + kOffV, k, v, kv_base, kbeg, T);
+    }
+  }
 
   // This group's Q tile times kScaleLog2; rows past S are zeros (their
   // outputs are not stored).
@@ -191,12 +291,29 @@ flash_attention_kernel(const float* __restrict__ q,
     // tile it - 1, whose stage the next copy overwrites.
     __syncthreads();
     const int k0 = kbeg + it * kBK;
-    if (it + 1 < n_tiles) {
-      load_kv(smem + (stage ^ 1) * kKStage, smem + kOffV + (stage ^ 1) * kVStage,
-              k, v, kv_base, k0 + kBK, T);
+    const float* ks;
+    const float* vs;
+    if constexpr (L::kQuant) {
+      // The raw stage of tile it + 1 was last read while dequantizing
+      // tile it - 1, before that tile's second barrier.
+      if (it + 1 < n_tiles) {
+        load_kv(smem + L::kOffRaw + (stage ^ 1) * kRawStage, k, v, k_scale,
+                v_scale, kv_base, k0 + kBK, T);
+      }
+      dequantize_kv(smem, smem + L::kOffV,
+                    smem + L::kOffRaw + stage * kRawStage);
+      __syncthreads();
+      ks = smem;
+      vs = smem + L::kOffV;
+    } else {
+      if (it + 1 < n_tiles) {
+        load_kv(smem + (stage ^ 1) * kKStage,
+                smem + kOffV + (stage ^ 1) * kVStage, k, v, kv_base,
+                k0 + kBK, T);
+      }
+      ks = smem + stage * kKStage;
+      vs = smem + kOffV + stage * kVStage;
     }
-    const float* ks = smem + stage * kKStage;
-    const float* vs = smem + kOffV + stage * kVStage;
 
     // Scores: rows tr + kRowStep r, keys tc + 16 n.
     float sc[8][kKN] = {};
@@ -313,21 +430,25 @@ flash_attention_kernel(const float* __restrict__ q,
 
 int flash_attention_head_dim() { return kD; }
 
-cudaError_t launch_flash_attention(const float* q, const float* k,
-                                   const float* v, const int* q_offset,
-                                   const int* kv_len, float* out, int B, int H,
-                                   int Hkv, int S, int T, int window,
-                                   cudaStream_t stream) {
-  // The dynamic shared memory above 48 KB is granted once per device.
+namespace {
+
+template <typename KV>
+cudaError_t launch(const float* q, const KV* k, const KV* v,
+                   const float* k_scale, const float* v_scale,
+                   const int* q_offset, const int* kv_len, float* out, int B,
+                   int H, int Hkv, int S, int T, int window,
+                   cudaStream_t stream) {
+  // The dynamic shared memory above 48 KB is granted once per device and
+  // element type.
   constexpr int kMaxDevices = 64;
   static bool granted[kMaxDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= kMaxDevices || !granted[device]) {
-    err = cudaFuncSetAttribute(flash_attention_kernel,
+    err = cudaFuncSetAttribute(flash_attention_kernel<KV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_bytes(kMaxHeads)));
+                               static_cast<int>(Smem<KV>::bytes(kMaxHeads)));
     if (err != cudaSuccess) return err;
     if (device < kMaxDevices) granted[device] = true;
   }
@@ -336,7 +457,31 @@ cudaError_t launch_flash_attention(const float* q, const float* k,
   int heads = kMaxHeads;
   while (G % heads) --heads;
   const dim3 grid(H / heads, B, (S + kBQ - 1) / kBQ);
-  flash_attention_kernel<<<grid, kGroup * heads, smem_bytes(heads), stream>>>(
-      q, k, v, q_offset, kv_len, out, H, Hkv, S, T, window, heads);
+  flash_attention_kernel<KV>
+      <<<grid, kGroup * heads, Smem<KV>::bytes(heads), stream>>>(
+          q, k, v, k_scale, v_scale, q_offset, kv_len, out, H, Hkv, S, T,
+          window, heads);
   return cudaSuccess;
+}
+
+}  // namespace
+
+cudaError_t launch_flash_attention(const float* q, const float* k,
+                                   const float* v, const int* q_offset,
+                                   const int* kv_len, float* out, int B, int H,
+                                   int Hkv, int S, int T, int window,
+                                   cudaStream_t stream) {
+  return launch<float>(q, k, v, nullptr, nullptr, q_offset, kv_len, out, B, H,
+                       Hkv, S, T, window, stream);
+}
+
+cudaError_t launch_flash_attention_int8(const float* q, const int8_t* k,
+                                        const int8_t* v, const float* k_scale,
+                                        const float* v_scale,
+                                        const int* q_offset, const int* kv_len,
+                                        float* out, int B, int H, int Hkv,
+                                        int S, int T, int window,
+                                        cudaStream_t stream) {
+  return launch<int8_t>(q, k, v, k_scale, v_scale, q_offset, kv_len, out, B,
+                        H, Hkv, S, T, window, stream);
 }

@@ -13,15 +13,20 @@ from repro_torch.kernels.mode import aligned16, launch_counts, use_kernel
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: Optional[torch.Tensor] = None,
-                    kv_len: Optional[torch.Tensor] = None, *,
+                    kv_len: Optional[torch.Tensor] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None, *,
                     window: int = 0) -> torch.Tensor:
-    """Causal attention.  q: (B, H, S, D); k/v: (B, Hkv, T, D) f32;
-    optional (B,) i32 ``q_offset``/``kv_len`` (defaults: offset 0, full
-    T) -> (B, H, S, D).  The two routes agree to float32 summation
-    order."""
+    """Causal attention.  q: (B, H, S, D); k/v: (B, Hkv, T, D) f32, or
+    int8 with ``k_scale``/``v_scale`` (B, Hkv, T, 1) f32 (both or
+    neither); optional (B,) i32 ``q_offset``/``kv_len`` (defaults: offset
+    0, full T) -> (B, H, S, D).  The two routes agree to float32
+    summation order.  The int8 instance counts under
+    ``flash_attention_int8``."""
+    assert (k_scale is None) == (v_scale is None)
     if not use_kernel(q):
-        return flash_attention_plain(q, k, v, q_offset, kv_len,
-                                     window=window)
+        return flash_attention_plain(q, k, v, q_offset, kv_len, k_scale,
+                                     v_scale, window=window)
     from repro_torch.kernels.build import load_kernels
     ext = load_kernels()
     b, t = q.shape[0], k.shape[2]
@@ -30,10 +35,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_offset = torch.zeros(b, dtype=torch.int32, device=dev)
     if kv_len is None:
         kv_len = torch.full((b,), t, dtype=torch.int32, device=dev)
-    out = ext.flash_attention(
-        aligned16(q), aligned16(k), aligned16(v),
-        q_offset.to(torch.int32).reshape(-1).expand(b).contiguous(),
-        kv_len.to(torch.int32).reshape(-1).expand(b).contiguous(),
-        int(window))
-    launch_counts["flash_attention"] += 1
+    q_offset = q_offset.to(torch.int32).reshape(-1).expand(b).contiguous()
+    kv_len = kv_len.to(torch.int32).reshape(-1).expand(b).contiguous()
+    if k_scale is None:
+        out = ext.flash_attention(aligned16(q), aligned16(k), aligned16(v),
+                                  q_offset, kv_len, int(window))
+        launch_counts["flash_attention"] += 1
+        return out
+    out = ext.flash_attention_int8(aligned16(q), aligned16(k), aligned16(v),
+                                   k_scale.contiguous(),
+                                   v_scale.contiguous(), q_offset, kv_len,
+                                   int(window))
+    launch_counts["flash_attention_int8"] += 1
     return out

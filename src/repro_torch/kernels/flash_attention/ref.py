@@ -26,17 +26,26 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           q_offset: Optional[torch.Tensor] = None,
-                          kv_len: Optional[torch.Tensor] = None, *,
+                          kv_len: Optional[torch.Tensor] = None,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None, *,
                           window: int = 0) -> torch.Tensor:
     """Causal attention.  q: (B, H, S, D); k/v: (B, Hkv, T, D); optional
     (B,) per-row ``q_offset`` (position of row b's first query) and
-    ``kv_len`` (valid key prefix).  Returns (B, H, S, D)."""
+    ``kv_len`` (valid key prefix).  Returns (B, H, S, D).
+
+    ``k_scale``/``v_scale`` (B, Hkv, T, 1), both or neither: dequant
+    scales of int8 k/v, ``k.float() * k_scale`` before the math
+    (``repro/kernels/flash_attention/ref.py:76-112``)."""
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     g = h // hkv
     dev = q.device
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf, vf = kf * k_scale, vf * v_scale
     qr = q.reshape(b, hkv, g, s, d).float()
-    scores = torch.einsum("bhgsd,bhtd->bhgst", qr, k.float()) / math.sqrt(d)
+    scores = torch.einsum("bhgsd,bhtd->bhgst", qr, kf) / math.sqrt(d)
     q_off = (torch.zeros(b, dtype=torch.int64, device=dev) if q_offset is None
              else q_offset.to(torch.int64).reshape(-1).expand(b))
     kvl = (torch.full((b,), t, dtype=torch.int64, device=dev) if kv_len is None
@@ -48,5 +57,5 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window:
         mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
     w = masked_softmax(scores, mask[:, None, None])
-    out = torch.einsum("bhgst,bhtd->bhgsd", w, v.float())
+    out = torch.einsum("bhgst,bhtd->bhgsd", w, vf)
     return out.reshape(b, h, s, d).to(q.dtype)

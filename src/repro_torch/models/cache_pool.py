@@ -1,6 +1,6 @@
 """Slot-based KV arena for multi-request cached serving -- the port's
-counterpart of ``repro/models/cache_pool.py::CachePool`` (contiguous
-arena only; the paged and int8 arenas are later slices).
+counterpart of ``repro/models/cache_pool.py::CachePool``: the contiguous
+arena, float32 or int8 (the paged arena is a later slice).
 
 One pool holds, for every model of a serving step (target and drafter),
 a ``(layers, num_slots * rows_per_slot, kv_heads, buf_len, head_dim)``
@@ -14,6 +14,13 @@ arena.  A request owns one slot = ``rows_per_slot`` consecutive rows
   positions (``adopt_round_device``), refreshed on the host from the
   round's packed fetch (``refresh_pos_host``);
 * ``ensure_buf`` grows every arena's time axis (zero tail).
+
+int8 arenas (``quant=True``, ``cache_pool.py:107-117``) hold four
+leaves: int8 ``k``/``v`` and float32 per-KV-vector scales ``k_s``/``v_s``
+of shape ``(layers, rows, kv_heads, T, 1)``.  The trailing singleton
+axis lets every arena op (the rollback's row gather on axis 1, growth
+on axis 3) treat all four leaves alike; the slots calls quantize on
+write and the attention dequantizes as it reads.
 
 The arenas are updated IN PLACE by the model calls and the fused
 round's rollback (the port's stand-in for JAX's donated buffers), so
@@ -35,13 +42,15 @@ from repro_torch.models.transformer import init_cache
 class CachePool:
 
     def __init__(self, cfgs: Dict[str, ModelConfig], num_slots: int,
-                 rows_per_slot: int, buf_len: int, device):
+                 rows_per_slot: int, buf_len: int, device,
+                 quant: bool = False):
         assert num_slots >= 1 and rows_per_slot >= 1
         self.cfgs = dict(cfgs)
         self.num_slots = num_slots
         self.rows_per_slot = rows_per_slot
         self.buf_len = buf_len
         self.device = torch.device(device)
+        self.quant = quant
         self.caches = {name: self._init_arena(cfg, buf_len)
                        for name, cfg in self.cfgs.items()}
         self.pos = np.zeros(num_slots, np.int64)
@@ -49,8 +58,17 @@ class CachePool:
         self._free = list(range(num_slots))
 
     def _init_arena(self, cfg: ModelConfig, buf_len: int) -> dict:
-        return init_cache(cfg, self.num_slots * self.rows_per_slot, buf_len,
-                          self.device)
+        rows = self.num_slots * self.rows_per_slot
+        if not self.quant:
+            return init_cache(cfg, rows, buf_len, self.device)
+        shape = (cfg.num_layers, rows, cfg.kv_heads, buf_len,
+                 cfg.resolved_head_dim)
+        arena = {kk: torch.zeros(shape, dtype=torch.int8, device=self.device)
+                 for kk in ("k", "v")}
+        arena.update({kk: torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                      device=self.device)
+                      for kk in ("k_s", "v_s")})
+        return arena
 
     # -- slot lifecycle ----------------------------------------------------
     def alloc(self) -> int:
@@ -80,8 +98,8 @@ class CachePool:
 
     # -- buffer growth -----------------------------------------------------
     def ensure_buf(self, buf_len: int) -> None:
-        """Grow every arena's time axis to at least ``buf_len``; live KV is
-        preserved, the new tail is zero."""
+        """Grow every arena's time axis to at least ``buf_len``; live KV
+        (and an int8 arena's scales) is preserved, the new tail is zero."""
         if buf_len <= self.buf_len:
             return
         for name, cfg in self.cfgs.items():

@@ -35,7 +35,13 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype,
     return (w * 0.02).to(dtype)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def dense(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w``, or the W8A8 ``qdot`` for a ``{"q", "s"}`` weight
+    (``serving.quant.quantize_params``), so every layer serves both
+    float32 and int8 parameter trees (``repro/models/layers.py:30-38``)."""
+    if isinstance(w, dict):
+        from repro_torch.serving.quant import qdot
+        return qdot(x, w)
     return x @ w
 
 
@@ -88,6 +94,7 @@ def _per_row(val, b: int, device) -> torch.Tensor:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, q_offset=0, kv_len=None,
+              k_scale=None, v_scale=None,
               use_kernel: bool = False) -> torch.Tensor:
     """GQA attention: q (B, H, S, D), k/v (B, Hkv, T, D) -> (B, H, S, D).
 
@@ -108,16 +115,26 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Both are online-softmax streams, equal to the dense path up to
     float32 summation order.  Everything else takes the dense path.
+
+    int8 KV arenas pass ``k_scale``/``v_scale`` (B, Hkv, T, 1): the
+    kernel routes dequantize in the kernel, the dense path up front, and
+    the result lands in q's dtype (``layers.py:179-181,210-212``).
     """
     b, h, s, d = q.shape
     if use_kernel and s == 1 and not causal and kv_len is not None:
         from repro_torch.kernels.decode_attention.ops import decode_attention
-        out = decode_attention(q[:, :, 0], k, v, _per_row(kv_len, b, q.device))
+        out = decode_attention(q[:, :, 0], k, v, _per_row(kv_len, b, q.device),
+                               k_scale, v_scale)
         return out[:, :, None, :]
     if use_kernel and s > 1 and causal:
         from repro_torch.kernels.flash_attention.ops import flash_attention
         kvl = None if kv_len is None else _per_row(kv_len, b, q.device)
-        return flash_attention(q, k, v, _per_row(q_offset, b, q.device), kvl)
+        return flash_attention(q, k, v, _per_row(q_offset, b, q.device), kvl,
+                               k_scale, v_scale)
+    out_dtype = q.dtype
+    if k_scale is not None:
+        k = k.float() * k_scale
+        v = v.float() * v_scale
     hkv = k.shape[1]
     g = h // hkv
     qr = q.reshape(b, hkv, g, s, d)
@@ -142,7 +159,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # Fully masked rows give NaN; zero them, as the JAX dense path does.
     w = torch.nan_to_num(w, nan=0.0)
     out = torch.einsum("bhgst,bhtd->bhgsd", w.to(v.dtype), v)
-    return out.reshape(b, h, s, d)
+    return out.reshape(b, h, s, d).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,13 @@ them:
 * ``prefill_slots``' masked write drops rows outside the admission wave
   and chunk tails past T (``transformer.py:236-241``): those arena rows
   stay bit-untouched.
+
+An int8 arena (``CachePool(quant=True)``) adds f32 scale leaves
+``k_s``/``v_s`` of shape ``(layers, rows, kv_heads, T, 1)``: the slots
+calls quantize the fresh keys and values per KV vector on write
+(``_maybe_quantize_kv``, ``transformer.py:206-216``), write the scales
+through the same index plan as the int8 leaves, and pass them to the
+attention, which dequantizes as it reads.
 """
 
 from __future__ import annotations
@@ -78,6 +85,25 @@ def _rowwise_cache_write(cache_k, cache_v, k, v, starts) -> None:
     bi = torch.arange(b, device=k.device)[:, None].expand(b, m)
     cache_k.transpose(1, 2).index_put_((bi, ti), k.transpose(1, 2))
     cache_v.transpose(1, 2).index_put_((bi, ti), v.transpose(1, 2))
+
+
+def _maybe_quantize_kv(cache: dict, k: torch.Tensor, v: torch.Tensor):
+    """Quantize-on-write for int8 arenas: with scale leaves in ``cache``
+    the fresh k/v become int8 plus per-vector scales; otherwise they pass
+    through and the scales are None."""
+    if "k_s" not in cache:
+        return k, v, None, None
+    from repro_torch.serving.quant import quantize_kv
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    return kq, vq, ks, vs
+
+
+def _layer_scales(cache: dict, li: int):
+    """Layer ``li``'s scale leaves of an int8 arena, or (None, None)."""
+    if "k_s" not in cache:
+        return None, None
+    return cache["k_s"][li], cache["v_s"][li]
 
 
 def _masked_write_index(pos: np.ndarray, write: np.ndarray, m: int, t: int,
@@ -161,13 +187,16 @@ def prefill_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, tokens)
     for li, p in enumerate(params["layers"]):
         q, k, v = _qkv(p, cfg, x, positions)
+        k, v, ks, vs = _maybe_quantize_kv(cache, k, v)
         ck, cv = cache["k"][li], cache["v"][li]
-        ck.transpose(1, 2).index_put_((rows, times),
-                                      k.transpose(1, 2)[rows, cols])
-        cv.transpose(1, 2).index_put_((rows, times),
-                                      v.transpose(1, 2)[rows, cols])
+        cks, cvs = _layer_scales(cache, li)
+        for leaf, new in ((ck, k), (cv, v), (cks, ks), (cvs, vs)):
+            if leaf is not None:
+                leaf.transpose(1, 2).index_put_(
+                    (rows, times), new.transpose(1, 2)[rows, cols])
         out = L.attention(q, ck, cv, causal=True, q_offset=pos_d,
-                          kv_len=pos_d + m, use_kernel=use_kernel)
+                          kv_len=pos_d + m, k_scale=cks, v_scale=cvs,
+                          use_kernel=use_kernel)
         x = x + L.project_out(p["attn"], out)
         x = _mlp_residual(p, cfg, x)
     return cache
@@ -190,10 +219,14 @@ def decode_step_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, tokens)
     for li, p in enumerate(params["layers"]):
         q, k, v = _qkv(p, cfg, x, positions)
+        k, v, ks, vs = _maybe_quantize_kv(cache, k, v)
         ck, cv = cache["k"][li], cache["v"][li]
+        cks, cvs = _layer_scales(cache, li)
         _rowwise_cache_write(ck, cv, k, v, pos % t)
+        if ks is not None:
+            _rowwise_cache_write(cks, cvs, ks, vs, pos % t)
         out = L.attention(q, ck, cv, causal=False, kv_len=kv_len,
-                          use_kernel=use_kernel)
+                          k_scale=cks, v_scale=cvs, use_kernel=use_kernel)
         x = x + L.project_out(p["attn"], out)
         x = _mlp_residual(p, cfg, x)
     if not return_logits:
@@ -207,17 +240,22 @@ def verify_step_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     (B, m), pos (B,) -> logits (B, m, Vpad), row b's column j scoring
     the continuation after its cache prefix and ``tokens[b, :j+1]``.
     The attention is the dense path, as in the JAX package (which
-    passes no ``use_kernel`` here)."""
+    passes no ``use_kernel`` here).  A quantized parameter tree
+    (``serving.quant.quantize_params``) runs its matmuls W8A8."""
     m = tokens.shape[1]
     pos = pos.to(torch.int64)
     positions = pos[:, None, None] + torch.arange(m, device=pos.device)
     x = _embed(params, tokens)
     for li, p in enumerate(params["layers"]):
         q, k, v = _qkv(p, cfg, x, positions)
+        k, v, ks, vs = _maybe_quantize_kv(cache, k, v)
         ck, cv = cache["k"][li], cache["v"][li]
+        cks, cvs = _layer_scales(cache, li)
         _rowwise_cache_write(ck, cv, k, v, pos)
+        if ks is not None:
+            _rowwise_cache_write(cks, cvs, ks, vs, pos)
         out = L.attention(q, ck, cv, causal=True, q_offset=pos,
-                          kv_len=pos + m)
+                          kv_len=pos + m, k_scale=cks, v_scale=cvs)
         x = x + L.project_out(p["attn"], out)
         x = _mlp_residual(p, cfg, x)
     return _logits(params, cfg, x)

@@ -46,7 +46,7 @@ class SpecDecConfig:
     draft_len: int = 4            # L
     strategy: str = "gls"
     target_temp: float = 1.0
-    draft_temp: float = 1.0       # one temperature for all K drafts
+    draft_temps: Optional[tuple] = None   # per-drafter; default all 1.0
     top_k: int = 50
     max_new_tokens: int = 64
     # "torch" (the JAX "xla" twin) or "kernel" (the JAX "pallas" twin:
@@ -57,6 +57,11 @@ class SpecDecConfig:
     # On a CPU tensor each takes its kernel's plain version.
     decode_kernel: bool = False
     prefill_kernel: bool = False
+    # Quantized serving (the cached engine only): int8 KV arenas with
+    # per-vector scales, quantize-on-write, and W8A8 target matmuls in the
+    # fused round's verify chunk.  Logits move within quantization
+    # tolerance, so its gate is the acceptance rate, not the tokens.
+    quant: bool = False
 
     def __post_init__(self):
         if self.strategy in DEFERRED_STRATEGIES:
@@ -68,6 +73,14 @@ class SpecDecConfig:
         if self.verifier_backend not in BACKENDS:
             raise ValueError(
                 f"unknown verifier backend {self.verifier_backend!r}")
+
+    @property
+    def temps(self) -> tuple:
+        """The K drafters' temperatures (``engine.py:116-121``)."""
+        if self.draft_temps is not None:
+            assert len(self.draft_temps) == self.num_drafts
+            return tuple(self.draft_temps)
+        return (1.0,) * self.num_drafts
 
 
 @dataclasses.dataclass
@@ -143,7 +156,8 @@ class SpecDecEngine:
         if len(drafters) not in (1, cfg.num_drafts):
             raise ValueError(f"{len(drafters)} drafters for "
                              f"num_drafts={cfg.num_drafts}")
-        if any(d is not drafters[0] for d in drafters):
+        if (any(d is not drafters[0] for d in drafters)
+                or len(set(cfg.temps)) > 1):
             raise NotImplementedError(
                 "heterogeneous drafters (per-drafter models and "
                 "temperatures) are not ported (ROADMAP queue 1, item 20)")
@@ -184,7 +198,7 @@ class SpecDecEngine:
             self.num_draft_forwards += 1
             sel = logits[row_idx, to_device(np.repeat(pos, k_n),
                                             self.device)]
-            p_all = probs_from_logits(sel, cfg.draft_temp, cfg.top_k, n)
+            p_all = probs_from_logits(sel, cfg.temps[0], cfg.top_k, n)
             toks = V.draft_token_from_uniforms(
                 log_u_all[:, j].reshape(r_n * k_n, n), p_all)
             tk = toks.cpu().numpy().reshape(r_n, k_n)   # 1 transfer / step

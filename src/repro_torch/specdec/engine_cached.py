@@ -25,8 +25,14 @@ buckets and issues one stacked ``prefill_slots`` per (chunk round,
 bucket) per model; ``round_with_admission`` queues those prefills after
 the round and before its packed fetch, so they overlap the round.
 
+Quantized serving (``SpecDecConfig.quant``, ``engine_cached.py:384-392``):
+the pool holds int8 arenas (quantize-on-write, dequantize-in-kernel
+reads) and the round's verify chunk runs the target's W8A8 tree
+(``serving.quant.quantize_params``, quantized once here); admission
+prefill keeps the float32 target tree and the drafter stays float32.
+
 Only the ``kv_fused`` cache mode is ported; the host-driven ``kv`` path,
-paged and int8 arenas and tensor parallelism are later slices (ROADMAP).
+paged arenas and tensor parallelism are later slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -158,7 +164,7 @@ def build_round_core(cfg: SpecDecConfig, t_cfg, d_cfg, vocab: int,
                 logits = decode_step_slots(d_params, d_cfg, cur[:, None],
                                            d_kv, row_pos + j,
                                            use_kernel=cfg.decode_kernel)
-                p_all = probs_from_logits(logits, cfg.draft_temp,
+                p_all = probs_from_logits(logits, cfg.temps[0],
                                           cfg.top_k, N)
                 tok = V.draft_token_from_uniforms(
                     log_u[:, j].reshape(rows, N), p_all)
@@ -244,8 +250,18 @@ class CachedSpecDecEngine:
                 raise ValueError(
                     f"parameters live on {params['embed'].device}, the "
                     f"engine on {self.device}")
+        # One drafter and one draft temperature: the sweep scores every
+        # lane with cfg.temps[0] (``engine_cached.py:347-351``).
+        assert len(set(cfg.temps)) == 1, (
+            "CachedSpecDecEngine requires homogeneous draft temperatures; "
+            "use the reference SpecDecEngine for the diverse-drafts setup")
         self.cfg = cfg
         self.vocab = self.t_cfg.vocab_size
+        # The W8A8 target tree feeds only the fused round's verify chunk.
+        self._t_verify_params = self.t_params
+        if cfg.quant:
+            from repro_torch.serving.quant import quantize_params
+            self._t_verify_params = quantize_params(self.t_params)
         self.pool_slots = pool_slots
         self.pool: Optional[CachePool] = None
         self._sessions: dict = {}
@@ -264,7 +280,8 @@ class CachedSpecDecEngine:
                                    "drafter": self.d_cfg},
                                   num_slots=self.pool_slots,
                                   rows_per_slot=self.cfg.num_drafts,
-                                  buf_len=buf_len, device=self.device)
+                                  buf_len=buf_len, device=self.device,
+                                  quant=self.cfg.quant)
         else:
             self.pool.ensure_buf(buf_len)
         return self.pool
@@ -380,7 +397,7 @@ class CachedSpecDecEngine:
             self._round = build_round_core(cfg, self.t_cfg, self.d_cfg,
                                            self.vocab, S)
         pos_dev, packed = self._round(
-            self.t_params, self.d_params, pool.caches["target"],
+            self._t_verify_params, self.d_params, pool.caches["target"],
             pool.caches["drafter"], pool.pos_device(),
             to_device(pending, self.device), to_device(live, self.device),
             to_device(sub_rows, self.device))

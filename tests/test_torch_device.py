@@ -93,3 +93,40 @@ def test_analyse_attributes_runtime_and_driver_launches():
         0.025)
     assert res["device_busy_ms_per_round"] == pytest.approx(0.025)
     assert res["launches_per_round"] == 2
+
+
+def test_quantize_weight_layout_by_device():
+    """A CPU weight's int8 payload is row-major; the values of a CUDA
+    weight's (column-major, for torch._int_mm) are the same numbers."""
+    from repro_torch.serving.quant import quantize_weight
+    w = torch.from_numpy(np.random.RandomState(0).randn(24, 16).astype(
+        np.float32))
+    q = quantize_weight(w)["q"]
+    assert q.is_contiguous() and q.dtype == torch.int8
+    with pytest.raises(ValueError, match="multiples of 8"):
+        from repro_torch.serving.quant import _int_mm
+        _int_mm(torch.zeros((20, 12), dtype=torch.int8),
+                torch.zeros((12, 16), dtype=torch.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(5, 960, 320), (160, 960, 960),
+                                   (160, 2560, 960), (32, 960, 49152)])
+def test_qdot_exact_int_product_on_card(cuda, m, k, n):
+    """On the card ``qdot`` multiplies int8 by int8 into int32 exactly
+    (``torch._int_mm``; fewer than 17 rows are padded), at smollm-360m's
+    projection shapes including w_down's K = 2560 where the CPU's float32
+    emulation is not exact: bit-equal to the exact integer product of the
+    same quantized operands, rescaled by the same float32 operations on
+    the card."""
+    from repro_torch.serving.quant import qdot, quantize_weight
+    rng = np.random.RandomState(m + k)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.randn(k, n) / 30).astype(np.float32))
+    wq = quantize_weight(w.to(cuda))
+    assert wq["q"].stride() == (1, k)           # column-major
+    got = qdot(x, wq)
+    sx = torch.clamp(x.abs().amax(-1, keepdim=True) / 127.0, min=1e-8)
+    xq = torch.clamp(torch.round(x / sx), -127, 127)
+    acc = (xq.cpu().long() @ wq["q"].cpu().long()).float().to(cuda)
+    assert torch.equal(got, acc * sx * wq["s"])

@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.decode_attention.ops import (decode_attention,
+from repro_torch.kernels.decode_attention.ops import (KEY_BYTES_INT8,
+                                                      decode_attention,
                                                       decode_split_plan)
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -521,6 +522,107 @@ def test_attention_kernels_reject_uncompiled_head_dim(cuda):
         flash_attention(q, k, v, torch.zeros_like(kvl), kvl)
     with pytest.raises(RuntimeError, match="q has dtype Double"):
         flash_attention(q.double(), k, v, torch.zeros_like(kvl), kvl)
+
+
+def _int8_kv(rng, b, hkv, t, d, dev):
+    """int8 K/V with per-vector scales, quantized as the arenas are (no
+    JAX: the card tests run where there is none)."""
+    from repro_torch.serving.quant import quantize_kv
+    kv = [quantize_kv(torch.from_numpy(rng.randn(b, hkv, t, d).astype(
+        np.float32))) for _ in range(2)]
+    (k8, ks), (v8, vs) = kv
+    return tuple(x.to(dev) for x in (k8, v8, ks, vs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("t", [1, 63, 65, 370])
+@pytest.mark.parametrize("b,hkv", DECODE_ROWS)
+def test_decode_int8_kernel_at_split_edges_on_card(cuda, g, t, b, hkv):
+    """The int8 instance within 1e-4 of plain on its own split plan's
+    edges (T % 4 != 0 at 63, 65 and 370: scale rows that start 4- or
+    8-byte aligned only), at T = 370 the serve shape's rows; a kv_len == 0
+    row is exactly zero; only the int8 counter moves."""
+    rng = np.random.RandomState(t + g + 100)
+    q = torch.from_numpy(rng.randn(b, g * hkv, 64).astype(np.float32)).to(
+        cuda)
+    k8, v8, ks, vs = _int8_kv(rng, b, hkv, t, 64, cuda)
+    splits, chunk = decode_split_plan(b, hkv, t, key_bytes=KEY_BYTES_INT8)
+    edges = [0, 1, chunk, chunk - 1, chunk + 1, (splits - 1) * chunk, 64,
+             65, t - 1, t]
+    kvl = np.array([min(max(e, 0), t) for e in edges] * b, np.int32)[:b]
+    kvl = torch.from_numpy(kvl).to(cuda)
+    before = dict(launch_counts)
+    out = decode_attention(q, k8, v8, kvl, ks, vs)
+    ref = decode_attention_plain(q, k8, v8, kvl, ks, vs)
+    assert float((out - ref).abs().max()) <= 1e-4
+    assert bool((out[kvl == 0] == 0).all())
+    assert launch_counts["decode_attention_int8"] == \
+        before.get("decode_attention_int8", 0) + 1
+    assert launch_counts["decode_attention"] == \
+        before.get("decode_attention", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["arena", "keys_not_tile_multiple",
+                                  "kv_len_zero_row", "chunk_past_t",
+                                  "window", "two_heads_per_kv_head"])
+def test_flash_int8_kernel_matches_plain_on_card(cuda, case):
+    """The int8 instance within 1e-4 of plain on the float32 instance's
+    tile-edge cases, and at the serve shape's T = 370 (T % 4 != 0)."""
+    b, h, hkv, s, t, off, kvl, windows = FLASH_CARD_CASES[case]
+    rng = np.random.RandomState(5)
+    q = torch.from_numpy(rng.randn(b, h, s, 64).astype(np.float32)).to(cuda)
+    k8, v8, ks, vs = _int8_kv(rng, b, hkv, t, 64, cuda)
+    if off is None:
+        off = rng.randint(0, 150, b)
+        kvl = off + s
+        kvl[0] = 0
+    off, kvl = (torch.tensor(np.asarray(x, np.int32), device=cuda)
+                for x in (off, kvl))
+    for window in windows:
+        out = flash_attention(q, k8, v8, off, kvl, ks, vs, window=window)
+        ref = flash_attention_plain(q, k8, v8, off, kvl, ks, vs,
+                                    window=window)
+        assert float((out - ref).abs().max()) <= 1e-4, window
+        assert bool((out[kvl == 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_flash_int8_kernel_at_serve_shape_on_card(cuda):
+    rng = np.random.RandomState(6)
+    q = torch.from_numpy(rng.randn(8, 15, 256, 64).astype(np.float32)).to(
+        cuda)
+    k8, v8, ks, vs = _int8_kv(rng, 8, 5, 370, 64, cuda)
+    off = torch.tensor([0, 0, 0, 0, 256, 256, 100, 114], dtype=torch.int32,
+                       device=cuda)
+    kvl = off + 256
+    out = flash_attention(q, k8, v8, off, kvl, ks, vs)
+    ref = flash_attention_plain(q, k8, v8, off, kvl, ks, vs)
+    assert float((out - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_int8_attention_kernels_reject_bad_inputs(cuda):
+    """A float32 scale beside int8 K/V is required: a wrong scale dtype or
+    shape, or float32 K/V given scales, raises with one message."""
+    rng = np.random.RandomState(7)
+    q = torch.from_numpy(rng.randn(2, 6, 64).astype(np.float32)).to(cuda)
+    k8, v8, ks, vs = _int8_kv(rng, 2, 2, 9, 64, cuda)
+    kvl = torch.tensor([9, 3], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="k_scale has dtype Double"):
+        decode_attention(q, k8, v8, kvl, ks.double(), vs)
+    with pytest.raises(RuntimeError, match=r"\(B, Hkv, T, 1\)"):
+        decode_attention(q, k8, v8, kvl, ks[:, :, :8].contiguous(),
+                         vs[:, :, :8].contiguous())
+    with pytest.raises(RuntimeError, match="k has dtype Float"):
+        decode_attention(q, k8.float(), v8.float(), kvl, ks, vs)
+    q4 = q[:, :, None].expand(2, 6, 5, 64).contiguous()
+    off = torch.zeros_like(kvl)
+    with pytest.raises(RuntimeError, match="v_scale has dtype Double"):
+        flash_attention(q4, k8, v8, off, kvl, ks, vs.double())
+    with pytest.raises(RuntimeError, match="k has dtype Float"):
+        flash_attention(q4, k8.float(), v8, off, kvl, ks, vs)
 
 
 @pytest.mark.cuda

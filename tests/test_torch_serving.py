@@ -37,6 +37,7 @@ from repro_torch.models import ModelConfig, params_from_jax
 from repro_torch.specdec import (
     CachedSpecDecEngine,
     SpecDecConfig,
+    SpecDecEngine,
     SpecDecServer,
     block_verify_batched,
     probs_from_logits,
@@ -146,6 +147,29 @@ def test_config_rejects_unported_strategies():
     for s in ("specinfer", "spectr", "single"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SpecDecConfig(strategy=s)
+
+
+@pytest.mark.parametrize("temps", [None, (0.7, 0.7, 0.7, 0.7),
+                                   (1.0, 0.5, 1.0, 2.0)])
+def test_config_draft_temps_match_jax(pair, temps):
+    """The same keyword arguments build both configs (``draft_temps``,
+    the JAX field) and give equal ``.temps``; distinct temperatures are
+    refused by both engines (the reference engine names ROADMAP item
+    20, the cached engine asserts as JAX's does)."""
+    kw = dict(num_drafts=4, draft_len=3, strategy="gls", target_temp=1.0,
+              draft_temps=temps, top_k=50, max_new_tokens=8)
+    jc, tc = JConfig(**kw), SpecDecConfig(**kw)
+    assert tc.temps == jc.temps
+    assert len(tc.temps) == 4
+    (ttp, tt), (tdp, td) = pair["torch"]
+    if temps is None or len(set(temps)) == 1:
+        CachedSpecDecEngine((ttp, tt), (tdp, td), tc, device="cpu")
+        SpecDecEngine((ttp, tt), (tdp, td), tc, device="cpu")
+        return
+    with pytest.raises(AssertionError, match="homogeneous"):
+        CachedSpecDecEngine((ttp, tt), (tdp, td), tc, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 20"):
+        SpecDecEngine((ttp, tt), (tdp, td), tc, device="cpu")
 
 
 @pytest.mark.parametrize("strategy", RACE)

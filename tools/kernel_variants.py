@@ -2,7 +2,7 @@
 
   python3 tools/kernel_variants.py [--only KIND ...]
 
-KIND is one of ssd, flash, decode, race (default: all).
+KIND is one of ssd, flash, decode, decode_int8, race (default: all).
 
 Needs one CUDA card and ``nvcc``.  A variant is a kernel's shipped source
 (``src/repro_torch/kernels/<kernel>/<kernel>.cu``) with a few text
@@ -17,7 +17,9 @@ At the shapes ``chip_smoke.py`` times (``ssd_chunk``: x (32, 4, 64, 32,
 64), B/C (32, 4, 64, 128); ``flash_attention``: q (32, 15, 256, 64), k/v
 (32, 5, 370, 64) with half the rows at offset 256; ``decode_attention``:
 q (32, 15, 64), four (32, 5, 370, 64) K/V sets and the serve's kv_len;
-``gls_row_race``: (20, 8, 49152) and (5, 8, 50280)), every variant is
+its int8 instance ``decode_attention_int8``: the same q against int8 K/V
+sets with float32 scales, worth three L2 caches; ``gls_row_race``: (20,
+8, 49152) and (5, 8, 50280)), every variant is
 checked against the kernel's plain version (``ssd_chunk`` 5e-4 abs + rel
 on y and the states, 1e-5 on the total; attention 1e-4 abs; the race
 bitwise) and timed with CUDA events: the median of 25 samples of 10
@@ -132,20 +134,23 @@ FLASH_1_HEAD = [
 # between two barriers): 88 KB and 192 threads, two blocks per SM.
 FLASH_32_ROWS_1_STAGE = [
     ("constexpr int kBQ = 64;", "constexpr int kBQ = 32;"),
-    ("constexpr int kOffV = 2 * kKStage;", "constexpr int kOffV = kKStage;"),
-    ("constexpr int kOffGroups = kOffV + 2 * kVStage;",
-     "constexpr int kOffGroups = kOffV + kVStage;"),
-    ("const int stage = it & 1;", "const int stage = 0;"),
-    ("""    if (it + 1 < n_tiles) {
-      load_kv(smem + (stage ^ 1) * kKStage, smem + kOffV + (stage ^ 1) * kVStage,
-              k, v, kv_base, k0 + kBK, T);
-    }
-""", ""),
+    ("static constexpr int kStagesF = kQuant ? 1 : 2;",
+     "static constexpr int kStagesF = 1;"),
+    ("""      if (it + 1 < n_tiles) {
+        load_kv(smem + (stage ^ 1) * kKStage,
+                smem + kOffV + (stage ^ 1) * kVStage, k, v, kv_base,
+                k0 + kBK, T);
+      }
+      ks = smem + stage * kKStage;
+      vs = smem + kOffV + stage * kVStage;""", """      ks = smem;
+      vs = smem + kOffV;"""),
     ("""    __syncwarp();  // P^T is rewritten by the next tile
   }""", """    __syncwarp();  // P^T is rewritten by the next tile
-    if (it + 1 < n_tiles) {
-      __syncthreads();
-      load_kv(smem, smem + kOffV, k, v, kv_base, k0 + kBK, T);
+    if constexpr (!L::kQuant) {
+      if (it + 1 < n_tiles) {
+        __syncthreads();
+        load_kv(smem, smem + kOffV, k, v, kv_base, k0 + kBK, T);
+      }
     }
   }"""),
     ("__launch_bounds__(kGroup * kMaxHeads, 1)",
@@ -164,7 +169,8 @@ extern "C" int variant_launch(const float* q, const float* k, const float* v,
 extern "C" int variant_blocks_per_sm() {
   int n = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, flash_attention_kernel, kGroup * kMaxHeads, smem_bytes(kMaxHeads));
+      &n, flash_attention_kernel<float>, kGroup * kMaxHeads,
+      smem_bytes(kMaxHeads));
   return n;
 }
 """
@@ -268,10 +274,35 @@ extern "C" int variant_launch(const float* q, const float* k, const float* v,
 extern "C" int variant_blocks_per_sm() {
   int n = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, decode_attention_kernel<3>, kThreads, Layout{64, 2, 3, 2}.bytes());
+      &n, decode_attention_kernel<3, float>, kThreads,
+      Layout{64, 2, 3, 2, 4}.bytes());
   return n;
 }
 """
+# The int8 instance: int8 K/V and their float32 scales.
+DECODE_INT8_ENTRY = """
+extern "C" int variant_launch(const float* q, const int8_t* k,
+                              const int8_t* v, const float* k_scale,
+                              const float* v_scale, const int* kv_len,
+                              float* out, int B, int H, int Hkv, int T,
+                              int splits, int chunk, void* stream) {
+  const cudaError_t err = launch_decode_attention_int8(
+      q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv, T, splits, chunk,
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaPeekAtLastError());
+}
+extern "C" int variant_blocks_per_sm() {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, decode_attention_kernel<3, int8_t>, kThreads,
+      Layout{62, 1, 3, 6, 1}.bytes());
+  return n;
+}
+"""
+# The int8 instance under a register cap for six blocks per SM (no
+# spill at G = 3) in place of seven (8 bytes spilled).
+DECODE_INT8_6_BLOCKS = [("__launch_bounds__(kThreads, G <= 4 ? 7 : 4)",
+                         "__launch_bounds__(kThreads, G <= 4 ? 6 : 4)")]
 DECODE_TWO_PASS_ENTRY = DECODE_ENTRY.replace(
     "  return static_cast<int>(err != cudaSuccess ? err : "
     "cudaPeekAtLastError());\n}",
@@ -437,6 +468,11 @@ VARIANTS = {
     "decode_attention/2_warps_4_splits": ("decode", DECODE_2_WARPS,
                                           {"splits": 4}),
     "decode_attention/3_stages": ("decode", DECODE_3_STAGES),
+    "decode_attention_int8": ("decode_int8", []),
+    "decode_attention_int8/6_blocks_per_sm": ("decode_int8",
+                                              DECODE_INT8_6_BLOCKS),
+    "decode_attention_int8/2_splits": ("decode_int8", [], {"splits": 2}),
+    "decode_attention_int8/8_splits": ("decode_int8", [], {"splits": 8}),
     # The wrapper's plan: 2 splits at (20, 8, 49152), 8 at (5, 8, 50280).
     "gls_row_race": ("race", []),
     "gls_row_race/1_split": ("race", [], {"splits": 1}),
@@ -466,20 +502,24 @@ VARIANTS = {
 SOURCES = {"ssd": (SSD, SSD_ENTRY), "flash": (FLASH, FLASH_ENTRY),
            "decode": (DECODE, DECODE_ENTRY),
            "decode_two_pass": (DECODE, DECODE_TWO_PASS_ENTRY),
+           "decode_int8": (DECODE, DECODE_INT8_ENTRY),
            "race": (RACE, RACE_ENTRY),
            "decode_parent": (None, PARENT_DECODE_ENTRY),
            "race_parent": (None, PARENT_RACE_ENTRY)}
 # The (mangled) name of the kernel whose ptxas registers and spills each
 # kind reports: decode at the served group size G = 3.
-PTXAS_KERNEL = {"ssd": "ssd_chunk_kernel", "flash": "flash_attention_kernel",
-                "decode": "decode_attention_kernelILi3E",
-                "decode_two_pass": "decode_attention_kernelILi3E",
+PTXAS_KERNEL = {"ssd": "ssd_chunk_kernel",
+                "flash": "flash_attention_kernelIfE",
+                "decode": "decode_attention_kernelILi3EfE",
+                "decode_two_pass": "decode_attention_kernelILi3EfE",
+                "decode_int8": "decode_attention_kernelILi3EaE",
                 "race": "gls_row_race_kernel",
                 "decode_parent": "decode_attention_kernel",
                 "race_parent": "gls_row_race_kernel"}
 # The input case each source kind runs.
 CASE_OF = {"ssd": "ssd", "flash": "flash", "decode": "decode",
-           "decode_two_pass": "decode", "race": "race",
+           "decode_two_pass": "decode", "decode_int8": "decode_int8",
+           "race": "race",
            "decode_parent": "decode", "race_parent": "race"}
 PARENT_VARIANTS = {"decode_attention (parent)": ("decode_parent", []),
                    "gls_row_race (parent)": ("race_parent", [])}
@@ -649,6 +689,51 @@ def decode_case(torch, dev):
     return calls, check, "decode_"
 
 
+def decode_int8_case(torch, dev):
+    """The launcher and check of each variant of the int8 instance,
+    cycling through int8 K/V sets worth three L2 caches with the serve's
+    kv_len (as chip_smoke.py's ``kernel_decode_int8``)."""
+    import chip_smoke as C
+    from repro_torch.kernels.decode_attention.ops import (KEY_BYTES_INT8,
+                                                          decode_split_plan)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_plain)
+    b, h, hkv, d, t = 32, 15, 5, 64, 370
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 11)
+    q = torch.randn((b, h, d), generator=g, device=dev)
+    sets, _ = C.int8_kv_sets(torch, dev, b, hkv, t, d,
+                             C.cold_sets(2 * b * hkv * t * (d + 4)),
+                             SEED + 12)
+    kv_len = C.serve_kv_len(torch, dev, b, t, SEED + 11)
+    want = decode_attention_plain(q, *sets[0][:2], kv_len, *sets[0][2:])
+    out = torch.empty_like(q)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def calls(lib, opts):
+        splits = opts.get("splits", decode_split_plan(
+            b, hkv, t, key_bytes=KEY_BYTES_INT8)[0])
+        chunk = -(-t // splits)
+
+        def one(k, v, ks, vs):
+            rc = lib.variant_launch(ptr(q), ptr(k), ptr(v), ptr(ks), ptr(vs),
+                                    ptr(kv_len), ptr(out), b, h, hkv, t,
+                                    splits, chunk, stream)
+            if rc:
+                raise RuntimeError(f"launch failed: cuda error {rc}")
+        return [lambda s_=s_: one(*s_) for s_ in sets]
+
+    def check(lib, opts):
+        calls(lib, opts)[0]()
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        if err > 1e-4:
+            raise AssertionError(f"max abs err {err}")
+        return err
+
+    return calls, check, "decode_"
+
+
 def race_case(torch, dev):
     """The launcher and check of each gls_row_race variant at the two
     serve shapes, each cycling through three L2 caches of tables; one
@@ -718,7 +803,7 @@ def main(argv) -> int:
     names = [n for n, v in VARIANTS.items() if CASE_OF[v[0]] in args.only]
     built = build_all(names, args.parent)
     makers = {"ssd": ssd_case, "flash": flash_case, "decode": decode_case,
-              "race": race_case}
+              "decode_int8": decode_int8_case, "race": race_case}
     cases = {c: makers[c](torch, dev) for c in args.only}
 
     def opts(name):
@@ -731,7 +816,7 @@ def main(argv) -> int:
             run = cases[case][0]
             return [[lambda: run(lib)]]
         calls = cases[case][0](lib, opts(name))
-        return [calls] if case == "decode" else calls
+        return [calls] if case in ("decode", "decode_int8") else calls
 
     libs, errs, failed = {}, {}, []
     for name, (lib_path, _) in built.items():
@@ -756,7 +841,7 @@ def main(argv) -> int:
         for name in names + names[::-1]:
             times[name].append([C.time_cycled(c) for c in shape_calls(
                 case, libs[name], name)])
-        if case in ("decode", "race"):
+        if case in ("decode", "decode_int8", "race"):
             for name in names:
                 device[name] = [C.device_ms(torch, c, cases[case][2])
                                 for c in shape_calls(case, libs[name], name)]
