@@ -58,6 +58,22 @@ when the port's sources are not beside this file.  Phases:
   4q. quant self-draft: the same prompts and keys with quant on and off;
      the int8 acceptance rate (accepted / (blocks * L)) lies within 0.2
      of the float32 rate (the gate of ``tests/test_quant_fused.py``);
+  rs. the rejection-sampling baselines (SpecInfer, SpecTr, single-draft):
+     ``block_verify_batched`` on the card against the CPU on the same
+     tensors at (S, K, L, N) = (4, 8, 4, vocab), K = 1 for single (top-50
+     p and q from random logits, drafts raced from the round's uniforms):
+     equal tokens, accepted counts, active masks and bonus flags; the
+     legacy host loop against the fused verifier for one block of each
+     of the six strategies; then the phase 3 server with 4 requests of
+     32 new tokens for gls, specinfer, spectr and single (K = 1):
+     completion, token range, ``draft_syncs == 0``, ``host_syncs ==
+     rounds``, decode and flash launches grew, ``gls_row_race`` launched
+     once per round for gls and never for the others; tok/s, round wall,
+     accepted per block, and from a traced window of 3 rounds of a second
+     run the CUDA launches per round and ``round/block_verify``'s host and
+     device ms; then the self-draft (drafter = target) per strategy:
+     specinfer and single reach 0.9 L, spectr its bound for JAX's
+     row-0 semantics (``phase_rs_self_draft``);
   5. compress: the Gaussian Wyner-Ziv experiment (``run_experiment``,
      backend "kernel") at the full compression shape -- 2048 trials in
      chunks of B = 512, N = 2^16 atoms, K = 4 decoders, l_max = 64 --
@@ -95,13 +111,15 @@ when the port's sources are not beside this file.  Phases:
      self-draft check (drafter = the 48-layer target, acceptance >=
      0.9 L).
 
-Each of the paths of phases 3, 3q, 5, 6 and 7 is driven with the launch counts
-set to 0 just before it and read just after; the ``kernels`` line
-reports each kernel's launches from its own path (``gls_row_race``: the
-sum over the kv_fused and the reprefill serve paths).  The line before the
-last is a JSON object ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Every phase failure is an
-exception, so the script exits non-zero after any failure.
+Each of the paths of phases 3, 3q, rs, 5, 6 and 7 is driven with the launch
+counts set to 0 just before it and read just after; the ``kernels`` line
+reports each kernel's launches from its own paths (``gls_row_race``: the
+sum over the kv_fused and the reprefill serve paths; ``decode_attention``
+and ``flash_attention``: phase 3 plus the three rejection-sampling
+serves).  The line before the last is a JSON object ``{"kernels":
+[...]}``; the last line is ``{"ok": true, "device": {...}}``.  Every
+phase failure is an exception, so the script exits non-zero after any
+failure.
 """
 
 from __future__ import annotations
@@ -129,6 +147,10 @@ L2_BYTES = 50 * 2 ** 20
 
 S_SLOTS, K_DRAFTS, L_DRAFT = 4, 8, 4
 N_REQUESTS, MAX_NEW = 8, 64
+# Phase rs: the serve of phase 3 cut to 4 requests of 32 new tokens per
+# strategy; the self-draft runs 4 requests at once.
+RS_REQUESTS, RS_MAX_NEW, RS_SELF_REQUESTS = 4, 32, 4
+RS_STRATEGIES = ("specinfer", "spectr", "single")
 PROMPT_MIN, PROMPT_MAX = 16, 300
 SEED = 0
 
@@ -793,11 +815,13 @@ def phase_reference(torch, dev, target):
 # ---------------------------------------------------------------------------
 
 
-def make_server(torch, dev, target, drafter, max_batch, quant=False):
+def make_server(torch, dev, target, drafter, max_batch, quant=False,
+                strategy="gls"):
     from repro_torch.specdec import CachedSpecDecEngine, SpecDecConfig
     from repro_torch.specdec import SpecDecServer
-    cfg = SpecDecConfig(num_drafts=K_DRAFTS, draft_len=L_DRAFT,
-                        strategy="gls", top_k=50, max_new_tokens=MAX_NEW,
+    k = 1 if strategy in ("single", "daliri") else K_DRAFTS
+    cfg = SpecDecConfig(num_drafts=k, draft_len=L_DRAFT,
+                        strategy=strategy, top_k=50, max_new_tokens=MAX_NEW,
                         verifier_backend="kernel", decode_kernel=True,
                         prefill_kernel=True, quant=quant)
     engine = CachedSpecDecEngine(target, drafter, cfg, pool_slots=S_SLOTS,
@@ -903,6 +927,222 @@ def phase_quant_self_draft(torch, dev, target, acc_f32: float):
         f"{QUANT_RATE_TOL})")
     assert abs(rate_q - rate_f) <= QUANT_RATE_TOL, (rate_q, rate_f)
     return rate_q
+
+
+# ---------------------------------------------------------------------------
+# Phase rs: the rejection-sampling baselines on the kv_fused path
+# ---------------------------------------------------------------------------
+
+
+def rs_block_inputs(torch, dev, vocab: int, seed: int):
+    """One fused round's verifier inputs at the serve shape (S, K, L, N):
+    p from top-50 probabilities of random logits (one per slot and step,
+    shared by the K drafts, as one drafter gives them), q from the same
+    logits plus a little noise (so blocks accept several drafts before a
+    rejection),
+    the drafts raced from the round's shared uniforms, and the strategy
+    keys of ``block_randomness``."""
+    from repro_torch import random as R
+    from repro_torch.specdec import block_randomness, probs_from_logits
+    from repro_torch.specdec import verify as V
+    s, k, el = S_SLOTS, K_DRAFTS, L_DRAFT
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    logits = 3.0 * torch.randn(s, 1, el + 1, vocab, generator=gen,
+                               device=dev)
+    p = probs_from_logits(logits[:, :, :el].expand(s, k, el, vocab), 1.0,
+                          50, vocab).contiguous()
+    q = probs_from_logits(logits + 0.2 * torch.randn(
+        s, k, el + 1, vocab, generator=gen, device=dev), 1.0, 50, vocab)
+    subs = R.split(R.PRNGKey(seed), s).to(dev)
+    log_u, strat_keys = block_randomness(subs, el, k, vocab)
+    d = V.draft_token_from_uniforms(log_u[:, :el].transpose(1, 2), p)
+    return log_u, d, p, q, strat_keys
+
+
+def phase_rs_verify(torch, dev, vocab: int):
+    """The batched rejection-sampling verifier on the card against the
+    CPU on the same tensors at (S, K, L, N) = (4, 8, 4, vocab) (single at
+    K = 1): equal tokens, accepted counts, active masks and bonus flags;
+    then the legacy host loop against the fused verifier for one block
+    of each of the six strategies, on the card."""
+    from repro_torch.specdec import STRATEGIES, block_verify_batched
+    from repro_torch.specdec.block_verify import run_block_verify
+    log_u, d, p, q, keys = rs_block_inputs(torch, dev, vocab, SEED + 11)
+    for strategy in ("specinfer", "spectr", "single"):
+        k = 1 if strategy == "single" else K_DRAFTS
+        args = (log_u[:, :, :k], d[:, :k], p[:, :k], q[:, :k], keys)
+        t0 = time.perf_counter()
+        card = block_verify_batched(*args, strategy=strategy,
+                                    backend="kernel")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cpu = block_verify_batched(*(a.cpu() for a in args),
+                                   strategy=strategy, backend="torch")
+        for name, a, b in zip(card._fields, card, cpu):
+            assert torch.equal(a.cpu(), b), (strategy, name, a, b)
+        log(f"rs verify {strategy} at (S, K, L, N) = ({S_SLOTS}, {k}, "
+            f"{L_DRAFT}, {vocab}): card == CPU (tokens, num_accepted, "
+            f"active, bonus); accepted per slot "
+            f"{card.num_accepted.tolist()}, first call {ms:.1f} ms")
+    for strategy in STRATEGIES:
+        k = 1 if strategy in ("single", "daliri") else K_DRAFTS
+        args = (log_u[0, :, :k], d[0, :k].cpu().numpy(), p[0, :k], q[0, :k],
+                keys[0])
+        legacy = run_block_verify(*args, strategy=strategy,
+                                  backend="legacy")
+        fused = run_block_verify(*args, strategy=strategy, backend="kernel")
+        assert legacy.new_tokens == fused.new_tokens, (strategy, legacy,
+                                                      fused)
+        assert legacy.num_accepted == fused.num_accepted, strategy
+        assert (legacy.active == fused.active).all(), strategy
+        log(f"rs legacy == fused, {strategy}: tokens {fused.new_tokens} "
+            f"(legacy host syncs {legacy.host_syncs}, fused 1)")
+
+
+def launches_per_round(torch, server, key, warmup: int = 3,
+                       rounds: int = 3) -> dict:
+    """Step ``warmup`` rounds, then trace ``rounds`` more under
+    ``torch.profiler``: CUDA launches per round and the per-phase host
+    and device ms of ``launch.profile_round.analyse``."""
+    from repro_torch.launch.profile_round import analyse
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(warmup):
+        server.step(key)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(rounds):
+            with torch.profiler.record_function("serve/step"):
+                server.step(key)
+        torch.cuda.synchronize()
+    path = os.path.join(HERE, "build", "chip_smoke_rs_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        res = analyse(json.load(f), rounds)
+    os.remove(path)
+    return res
+
+
+def phase_rs_serve(torch, dev, target, drafter, strategy: str, smi: str):
+    """The phase 3 server (both attention kernels, the kernel verifier)
+    for ``strategy``, ``RS_REQUESTS`` requests of ``RS_MAX_NEW`` new
+    tokens: completion, token range, the sync gates, the launch counts
+    of this path's run (decode and flash grew; the row race launched
+    only for the race family), then launches per round from a traced
+    window of a second run of the same requests."""
+    from repro_torch import random as R
+    from repro_torch.kernels.mode import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import draw_prompts
+    vocab = target[1].vocab_size
+    prompts = draw_prompts(RS_REQUESTS, vocab, PROMPT_MIN, PROMPT_MAX, SEED)
+    engine, server = make_server(torch, dev, target, drafter, S_SLOTS,
+                                 strategy=strategy)
+    for pr in prompts:
+        server.submit(pr, max_new=RS_MAX_NEW)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    done = server.run(R.PRNGKey(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    m = server.metrics
+    assert len(done) == RS_REQUESTS, (strategy, len(done))
+    for r in done:
+        out = np.asarray(r.output)
+        assert len(out) == RS_MAX_NEW, (strategy, r.uid, len(out))
+        assert out.min() >= 0 and out.max() < vocab, (strategy, r.uid)
+    assert m.draft_syncs == 0, (strategy, m.draft_syncs)
+    assert m.host_syncs == m.rounds, (strategy, m.host_syncs, m.rounds)
+    assert counts.get("decode_attention", 0) > 0, (strategy, counts)
+    assert counts.get("flash_attention", 0) > 0, (strategy, counts)
+    races = counts.get("gls_row_race", 0)
+    if strategy == "gls":
+        assert races == m.rounds, (strategy, counts)
+    else:
+        assert races == 0, (strategy, counts)
+    acc = sum(r.accepted for r in done) / sum(r.blocks for r in done)
+    del engine, server
+    engine, server = make_server(torch, dev, target, drafter, S_SLOTS,
+                                 strategy=strategy)
+    for pr in prompts:
+        server.submit(pr, max_new=RS_MAX_NEW)
+    prof = launches_per_round(torch, server, R.PRNGKey(SEED))
+    bv = prof["phases"].get("round/block_verify", {})
+    stats = {"tok_s": m.total_tokens / wall, "round_ms": wall / m.rounds * 1e3,
+             "accepted_per_block": acc, "rounds": m.rounds,
+             "launches_per_round": prof["launches_per_round"],
+             "block_verify_device_ms": bv.get("device_ms", 0.0),
+             "block_verify_host_ms": bv.get("host_ms", 0.0)}
+    log(f"rs serve {strategy} [{smi}]: {len(done)} requests, "
+        f"{m.total_tokens} tokens in {wall:.3f}s -> {stats['tok_s']:.1f} "
+        f"tok/s; rounds={m.rounds} round wall {stats['round_ms']:.1f} ms "
+        f"accepted per block={acc:.3f} host_syncs={m.host_syncs} "
+        f"draft_syncs={m.draft_syncs} launches={counts}; traced window: "
+        f"{prof['launches_per_round']:.0f} CUDA launches per round, "
+        f"round/block_verify device {stats['block_verify_device_ms']:.3f} "
+        f"ms host {stats['block_verify_host_ms']:.3f} ms")
+    return counts, stats
+
+
+def phase_rs_self_draft(torch, dev, target, strategy: str) -> float:
+    """Drafter = target, ``RS_SELF_REQUESTS`` requests of 48 tokens.
+    specinfer tries draft 0 first and single has only draft 0; with
+    q = p draft 0 is accepted (up to near-ties of q/p at 1) and stays on
+    the path, so both reach 0.9 L.  spectr accepts each active draft
+    with b = min(1, q / (J p)) = 1/J, but reads row 0 of p and q (JAX's
+    ``verify.py:162-163``), the distributions along draft 0's path: a
+    step where draft 0 is active accepts with probability
+    1 - (1 - 1/J)^J >= a_K = 1 - (1 - 1/K)^K, and draft 0 stays active
+    with probability >= 1/J >= 1/K (it is tried first); once draft 0 has
+    left the path a step may reject whatever J.  So the mean accepted
+    per block is at least sum_{i=1..L} a_K K^-(i-1), and the blocks that
+    accept their first step a share of at least a_K; each is held to
+    its bound less 3 standard errors of the measured mean."""
+    from repro_torch import random as R
+    engine, server = make_server(torch, dev, target, target,
+                                 RS_SELF_REQUESTS, strategy=strategy)
+    per_block = []
+    round_with_admission = engine.round_with_admission
+
+    def recorded(*args, **kw):
+        outs = round_with_admission(*args, **kw)
+        per_block.extend(o.accepted for o in outs)
+        return outs
+
+    engine.round_with_admission = recorded
+    vocab = target[1].vocab_size
+    for pr in np.random.default_rng(SEED + 3).integers(
+            0, vocab, (RS_SELF_REQUESTS, 64)).astype(np.int32):
+        server.submit(pr, max_new=48)
+    server.run(R.PRNGKey(SEED + 1))
+    acc = np.asarray(per_block, np.float64)
+    mean = float(acc.mean())
+    se = float(acc.std(ddof=1) / np.sqrt(len(acc)))
+    assert len(acc) >= 8, (strategy, len(acc))
+    if strategy != "spectr":
+        log(f"rs self-draft {strategy}: blocks={len(acc)} mean accepted "
+            f"per block={mean:.3f} (L={L_DRAFT}, need >= "
+            f"{0.9 * L_DRAFT:.1f})")
+        assert mean >= 0.9 * L_DRAFT, (strategy, mean)
+        return mean
+    a_k = 1.0 - (1.0 - 1.0 / K_DRAFTS) ** K_DRAFTS
+    need = sum(a_k * K_DRAFTS ** -i for i in range(L_DRAFT))
+    first = acc > 0
+    first_se = float(first.std(ddof=1) / np.sqrt(len(acc)))
+    log(f"rs self-draft spectr: blocks={len(acc)} mean accepted per block="
+        f"{mean:.3f} (SE {se:.3f}; need >= {need:.3f} - 3 SE = "
+        f"{need - 3 * se:.3f}; with every step on its active rows it would "
+        f"be >= sum a_K^i = "
+        f"{sum(a_k ** i for i in range(1, L_DRAFT + 1)):.3f}); first step "
+        f"accepted in {first.mean():.3f} of blocks (SE {first_se:.3f}; need "
+        f">= a_K = {a_k:.3f} - 3 SE); accepted per block histogram "
+        f"{np.bincount(acc.astype(int), minlength=L_DRAFT + 1).tolist()}")
+    assert mean >= need - 3 * se, (mean, need, se)
+    assert first.mean() >= a_k - 3 * first_se, (first.mean(), a_k)
+    return mean
 
 
 # ---------------------------------------------------------------------------
@@ -1304,6 +1544,32 @@ def main() -> int:
     acc_f32 = phase_self_draft(torch, dev, target)
     phase_quant_self_draft(torch, dev, target, acc_f32)
     log(f"phase self-draft: {time.perf_counter() - t0:.1f}s")
+
+    # Phase rs: SpecInfer, SpecTr and single-draft rejection sampling.
+    t0 = time.perf_counter()
+    phase_rs_verify(torch, dev, cfg.vocab_size)
+    rs_stats = {}
+    attn = ("decode_attention", "flash_attention")
+    serve_attn = [counts[name] for name in attn]
+    for strategy in ("gls",) + RS_STRATEGIES:
+        rs_counts, rs_stats[strategy] = phase_rs_serve(
+            torch, dev, target, drafter, strategy, smi)
+        if strategy != "gls":
+            for name in attn:
+                counts[name] += rs_counts[name]
+    log("launches (serve, rejection-sampling serves): " + ", ".join(
+        f"{name} {n}, {counts[name] - n}" for name, n in zip(attn,
+                                                             serve_attn)))
+    log(f"rs serves against gls at the same workload [{smi}]: "
+        + "; ".join(f"{st} " + ", ".join(f"{k} {v:.4g}" for k, v in
+                                         sorted(rs_stats[st].items()))
+                    for st in rs_stats)
+        + f"; phase 3 gls (8 requests x 64 tokens): tok_s "
+        f"{serve_stats['tok_s']:.4g}, round_ms {serve_stats['round_ms']:.4g}, "
+        f"block_efficiency {serve_stats['block_efficiency']:.4g}")
+    for strategy in RS_STRATEGIES:
+        phase_rs_self_draft(torch, dev, target, strategy)
+    log(f"phase rs: {time.perf_counter() - t0:.1f}s")
 
     # Phase 5: Wyner-Ziv compression through the binned race kernel.
     t0 = time.perf_counter()

@@ -1,13 +1,15 @@
 """Where a fused serving round spends its time on the card.
 
   python -m repro_torch.launch.profile_round [--rounds 6] [--quant] \
-      [--trace build/profile_round_trace.json]
+      [--strategy gls] [--trace build/profile_round_trace.json]
 
 Serves smollm-360m at its published widths with the serving geometry of
 ``chip_smoke.py`` (32-layer target, 4-layer drafter, 4 slots x 8 drafts
-x 4 draft tokens, GLS, the kernel verifier and both attention kernels,
-float32; ``--quant``: int8 KV arenas and the W8A8 verify chunk of
-``SpecDecConfig(quant=True)``), fills all four slots, warms up, then
+x 4 draft tokens, the kernel verifier and both attention kernels,
+float32; ``--strategy``: the verification strategy, GLS by default, one
+draft for single and daliri; ``--quant``: int8 KV arenas and the W8A8
+verify chunk of ``SpecDecConfig(quant=True)``), fills all four slots,
+warms up, then
 steps ``--rounds`` rounds
 with no admission inside the window under ``torch.profiler`` (CPU and
 CUDA activities).  From the exported Chrome trace it prints, per round:
@@ -43,8 +45,8 @@ import torch
 
 from repro_torch import random as R
 from repro_torch.launch.serve import build_pair
-from repro_torch.specdec import CachedSpecDecEngine, SpecDecConfig
-from repro_torch.specdec import SpecDecServer
+from repro_torch.specdec import STRATEGIES, CachedSpecDecEngine
+from repro_torch.specdec import SpecDecConfig, SpecDecServer
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -122,6 +124,7 @@ def main(argv=None):
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--strategy", default="gls", choices=STRATEGIES)
     ap.add_argument("--quant", action="store_true",
                     help="int8 KV arenas and W8A8 verify")
     ap.add_argument("--trace", default=os.path.join(
@@ -134,7 +137,8 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     target, drafter = build_pair("smollm-360m", 4, args.seed, dev)
-    cfg = SpecDecConfig(num_drafts=8, draft_len=4, strategy="gls",
+    k = 1 if args.strategy in ("single", "daliri") else 8
+    cfg = SpecDecConfig(num_drafts=k, draft_len=4, strategy=args.strategy,
                         top_k=50, verifier_backend="kernel",
                         decode_kernel=True, prefill_kernel=True,
                         quant=args.quant)
@@ -168,9 +172,10 @@ def main(argv=None):
     wall = float(np.mean(walls))
     res.update(wall_ms_per_round=wall, wall_ms_rounds=walls,
                device_idle_share=1.0 - res["device_busy_ms_per_round"] / wall,
-               quant=args.quant,
+               quant=args.quant, strategy=args.strategy,
                device=torch.cuda.get_device_name(0))
-    print(f"quant={args.quant} rounds={args.rounds} wall={wall:.2f} ms/round "
+    print(f"strategy={args.strategy} quant={args.quant} "
+          f"rounds={args.rounds} wall={wall:.2f} ms/round "
           f"device_busy={res['device_busy_ms_per_round']:.2f} ms/round "
           f"idle_share={res['device_idle_share']:.3f} "
           f"launches={res['launches_per_round']:.0f}/round "

@@ -1,4 +1,4 @@
-"""Serving launcher of the port: GLS multi-draft speculative decoding over
+"""Serving launcher of the port: multi-draft speculative decoding over
 a target/drafter pair at a registered architecture's published widths,
 driven by the FIFO scheduler, with fused rounds over KV caches
 (``--cache-mode kv_fused``, dense models) or through the reference
@@ -14,10 +14,12 @@ Both models are initialised from ``--seed`` with the port's own
 generator (no checkpoint is read).  The drafter has the target's widths
 and ``--draft-layers`` layers; ``--target-layers`` cuts the target's
 depth (widths stay).  Prompts of 16..128 tokens are drawn from the
-seed.  GLS-family verification at top-k 50; under kv_fused the decode
-and prefill attention kernels are on, under reprefill an SSM model's
-forwards run the ``ssd_chunk`` kernel.  Runs on the card unless
-``--device cpu``.  Prints the JAX launcher's summary fields.
+seed.  Any of the six verification strategies at top-k 50 (single and
+daliri with one draft); under kv_fused the decode and prefill attention
+kernels are on, under reprefill an SSM model's forwards run the
+``ssd_chunk`` kernel.  ``--backend legacy`` (the per-token host loop)
+runs under reprefill only.  Runs on the card unless ``--device cpu``.
+Prints the JAX launcher's summary fields.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
 from repro_torch.specdec import (
+    BACKENDS,
+    STRATEGIES,
     CachedSpecDecEngine,
     SpecDecConfig,
     SpecDecEngine,
@@ -104,16 +108,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--draft-layers", type=int, default=4)
     ap.add_argument("--target-layers", type=int, default=None,
                     help="cut the target's depth (default: published)")
-    ap.add_argument("--strategy", default="gls",
-                    choices=("gls", "gls_strong", "daliri"))
+    ap.add_argument("--strategy", default="gls", choices=STRATEGIES)
     ap.add_argument("--drafts", type=int, default=8)
     ap.add_argument("--draft-len", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=64)
     ap.add_argument("--max-batch", type=int, default=4)
-    ap.add_argument("--backend", default="kernel", choices=("torch", "kernel"),
+    ap.add_argument("--backend", default="kernel", choices=BACKENDS,
                     help="block-verification backend (kernel: the "
-                         "gls_row_race CUDA kernel)")
+                         "gls_row_race CUDA kernel for the race family; "
+                         "legacy: the per-token host loop, reprefill only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' runs the plain path")
@@ -126,7 +130,7 @@ def serve(args):
     device = resolve_device(args.device)
     target, drafter = build_pair(args.arch, args.draft_layers, args.seed,
                                  device, args.target_layers)
-    k = 1 if args.strategy == "daliri" else args.drafts
+    k = 1 if args.strategy in ("single", "daliri") else args.drafts
     fused = args.cache_mode == "kv_fused"
     cfg = SpecDecConfig(num_drafts=k, draft_len=args.draft_len,
                         strategy=args.strategy, top_k=50,
@@ -150,7 +154,11 @@ def serve(args):
 
 
 def main(argv=None):
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.cache_mode == "kv_fused" and args.backend == "legacy":
+        ap.error("--cache-mode kv_fused needs a device verifier backend "
+                 "(torch or kernel)")
     server, done, engine = serve(args)
     print(summary(args, server, done, engine))
 

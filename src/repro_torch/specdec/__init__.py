@@ -1,10 +1,11 @@
-"""Speculative-decoding serving of the port: the race-family verifiers,
-fused block verification, the KV-cached engine's fused rounds, the
-reference engine and the FIFO scheduler (``cache_mode="kv_fused"`` and
-``"reprefill"``)."""
+"""Speculative-decoding serving of the port: the six step verifiers,
+fused block verification and the legacy host loop, the KV-cached
+engine's fused rounds, the reference engine and the FIFO scheduler
+(``cache_mode="kv_fused"`` and ``"reprefill"``)."""
 
 from repro_torch.specdec.block_verify import (
     BACKENDS,
+    RS_STRATEGIES,
     block_verify_batched,
 )
 from repro_torch.specdec.engine import (
@@ -19,9 +20,15 @@ from repro_torch.specdec.engine import (
 )
 from repro_torch.specdec.engine_cached import CachedSpecDecEngine
 from repro_torch.specdec.scheduler import Request, ServerMetrics, SpecDecServer
+from repro_torch.specdec.verify import (
+    single_draft_verify,
+    specinfer_verify,
+    spectr_verify,
+)
 
 __all__ = [
     "BACKENDS",
+    "RS_STRATEGIES",
     "STRATEGIES",
     "BlockOutcome",
     "CachedSpecDecEngine",
@@ -35,4 +42,7 @@ __all__ = [
     "block_randomness",
     "block_verify_batched",
     "probs_from_logits",
+    "single_draft_verify",
+    "specinfer_verify",
+    "spectr_verify",
 ]

@@ -12,8 +12,11 @@ so it is the port's serving path for Mamba-2 (the scheduler's
 ``cache_mode="reprefill"``): each forward of an SSM model launches the
 ``ssd_chunk`` kernel once per layer on the card.  Verification is the
 fused block verifier (``block_verify.run_block_verify``), one host fetch
-per request per block; each draft step fetches its K tokens per request
-(``num_draft_syncs``), as in JAX.
+per request per block, or with ``verifier_backend="legacy"`` the
+per-token host loop; each draft step fetches its K tokens per request
+(``num_draft_syncs``), as in JAX.  All six strategies of JAX's engine
+run; the rejection-sampling ones also keep the drafter's step
+distributions for the verifier.
 """
 
 from __future__ import annotations
@@ -31,13 +34,11 @@ from repro_torch.models import forward
 from repro_torch.specdec import verify as V
 from repro_torch.specdec.block_verify import (
     BACKENDS,
-    RACE_STRATEGIES,
+    RS_STRATEGIES,
     run_block_verify,
 )
 
-STRATEGIES = RACE_STRATEGIES
-# Strategies of the JAX package that this port does not run yet.
-DEFERRED_STRATEGIES = ("specinfer", "spectr", "single")
+STRATEGIES = ("gls", "gls_strong", "specinfer", "spectr", "single", "daliri")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +50,9 @@ class SpecDecConfig:
     draft_temps: Optional[tuple] = None   # per-drafter; default all 1.0
     top_k: int = 50
     max_new_tokens: int = 64
-    # "torch" (the JAX "xla" twin) or "kernel" (the JAX "pallas" twin:
-    # the gls_row_race CUDA kernel on the card).
+    # "torch" (the JAX "xla" twin), "kernel" (the JAX "pallas" twin: the
+    # gls_row_race CUDA kernel on the card) or "legacy" (the per-token
+    # host loop; the reference engine only).
     verifier_backend: str = "torch"
     # Route the drafter's decode attention through the decode_attention
     # kernel / admission prefill through the flash_attention kernel.
@@ -64,10 +66,6 @@ class SpecDecConfig:
     quant: bool = False
 
     def __post_init__(self):
-        if self.strategy in DEFERRED_STRATEGIES:
-            raise NotImplementedError(
-                f"strategy {self.strategy!r} is not ported yet: the "
-                "rejection-sampling verifiers are ROADMAP queue 1, item 9")
         if self.strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {self.strategy!r}")
         if self.verifier_backend not in BACKENDS:
@@ -178,16 +176,20 @@ class SpecDecEngine:
 
     # -- shared drafting / scoring core (R requests stacked) ---------------
     def _draft_block(self, log_u_all: torch.Tensor, bufs: np.ndarray,
-                     p0s: np.ndarray) -> np.ndarray:
+                     p0s: np.ndarray):
         """Autoregressive draft loop over R stacked requests
-        (``engine.py:283``).  log_u_all: (R, L+1, K, N) device; bufs:
+        (``engine.py:258-309``).  log_u_all: (R, L+1, K, N) device; bufs:
         (R, K, T) host buffers (mutated in place); p0s: (R,) prefix
         lengths.  One drafter forward per step covers all R*K rows.
-        Returns draft_tokens (R, K, L) on the host."""
+        Returns (draft_tokens (R, K, L) on the host, the drafter's step
+        distributions (R, K, L, N) on the device for the
+        rejection-sampling strategies, else None)."""
         cfg = self.cfg
         r_n, k_n, t_n = bufs.shape
         l_n, n = cfg.draft_len, self.vocab
+        need_probs = cfg.strategy in RS_STRATEGIES
         d_tokens = np.zeros((r_n, k_n, l_n), np.int32)
+        prob_steps = []
         rows = np.arange(k_n)
         params, mcfg = self.drafter
         row_idx = torch.arange(r_n * k_n, device=self.device)
@@ -206,7 +208,13 @@ class SpecDecEngine:
             d_tokens[:, :, j] = tk
             for r in range(r_n):
                 bufs[r, rows, p0s[r] + j] = tk[r]
-        return d_tokens
+            if need_probs:
+                prob_steps.append(p_all)
+        d_probs = None
+        if need_probs:
+            d_probs = torch.stack(prob_steps, dim=1).reshape(r_n, k_n, l_n,
+                                                             n)
+        return d_tokens, d_probs
 
     def _score_block(self, bufs: np.ndarray, p0s: np.ndarray
                      ) -> torch.Tensor:
@@ -245,16 +253,17 @@ class SpecDecEngine:
         for r, pre in enumerate(prefixes):
             bufs[r, :, :len(pre)] = pre
         with record_function("block/draft_sweep"):
-            d_tokens = self._draft_block(log_u_all, bufs, p0s)
+            d_tokens, d_probs = self._draft_block(log_u_all, bufs, p0s)
         with record_function("block/target_forward"):
             q = self._score_block(bufs, p0s)
         outs = []
         # Verification per request (R fetches per round), as in JAX.
         with record_function("block/verify"):
             for r in range(r_n):
-                hb = run_block_verify(log_u_all[r], d_tokens[r], q[r],
-                                      strat[r], strategy=cfg.strategy,
-                                      backend=cfg.verifier_backend)
+                hb = run_block_verify(
+                    log_u_all[r], d_tokens[r],
+                    None if d_probs is None else d_probs[r], q[r], strat[r],
+                    strategy=cfg.strategy, backend=cfg.verifier_backend)
                 outs.append(BlockOutcome(new_tokens=hb.new_tokens,
                                          accepted=hb.num_accepted,
                                          verify_syncs=hb.host_syncs,

@@ -7,7 +7,9 @@ One round advances every live request of the slot arena (DESIGN.md §8):
   2. the L-step drafter sweep over the whole arena (``decode_step_slots``,
      drafted tokens stay on the device);
   3. ONE stacked target verify chunk (``verify_step_slots``);
-  4. Algorithm 2, batched over slots (``block_verify_batched``);
+  4. block verification, batched over slots (``block_verify_batched``:
+     Algorithm 2 for the race family; the rejection-sampling strategies
+     also read the sweep's drafter distributions);
   5. rollback: every row of a slot becomes its surviving row;
   6. the unconditional drafter catch-up step;
   7. ONE packed device-to-host fetch of {tokens, accepted, active, pos}.
@@ -49,7 +51,10 @@ from repro_torch.device import SyncCounter, resolve_device, to_device
 from repro_torch.models import CachePool, decode_step_slots, prefill_slots
 from repro_torch.models import verify_step_slots
 from repro_torch.specdec import verify as V
-from repro_torch.specdec.block_verify import block_verify_batched
+from repro_torch.specdec.block_verify import (
+    RS_STRATEGIES,
+    block_verify_batched,
+)
 from repro_torch.specdec.engine import (
     BlockOutcome,
     GenerationStats,
@@ -137,6 +142,9 @@ def build_round_core(cfg: SpecDecConfig, t_cfg, d_cfg, vocab: int,
     K, L, N = cfg.num_drafts, cfg.draft_len, vocab
     S = num_slots
     rows = S * K
+    # The rejection-sampling verifiers read the drafter's distributions:
+    # (S, K, L, N) floats, kept only for them.
+    need_probs = cfg.strategy in RS_STRATEGIES
 
     def round_core(t_params, d_params, t_kv, d_kv, pos, pending, live,
                    subs):
@@ -159,7 +167,7 @@ def build_round_core(cfg: SpecDecConfig, t_cfg, d_cfg, vocab: int,
                               pending.to(torch.int64).repeat_interleave(K),
                               zero)
             cur0 = cur
-            toks = []
+            toks, p_steps = [], []
             for j in range(L):
                 logits = decode_step_slots(d_params, d_cfg, cur[:, None],
                                            d_kv, row_pos + j,
@@ -170,8 +178,12 @@ def build_round_core(cfg: SpecDecConfig, t_cfg, d_cfg, vocab: int,
                     log_u[:, j].reshape(rows, N), p_all)
                 cur = torch.where(live_row, tok, zero)
                 toks.append(cur)
+                if need_probs:
+                    p_steps.append(p_all)
             toks = torch.stack(toks, dim=1)              # (rows, L)
             d_tokens = toks.reshape(S, K, L)
+            d_probs = (torch.stack(p_steps, dim=1).reshape(S, K, L, N)
+                       if need_probs else None)
 
         with record_function("round/verify_chunk"):
             # ONE stacked target verify chunk over the arena.
@@ -183,8 +195,8 @@ def build_round_core(cfg: SpecDecConfig, t_cfg, d_cfg, vocab: int,
 
         with record_function("round/block_verify"):
             # Algorithm 2, batched over slots.
-            res = block_verify_batched(log_u, d_tokens, q, strat_keys,
-                                       strategy=cfg.strategy,
+            res = block_verify_batched(log_u, d_tokens, d_probs, q,
+                                       strat_keys, strategy=cfg.strategy,
                                        backend=cfg.verifier_backend)
             a = torch.where(live, res.num_accepted, zero)
             k_star = torch.where(
@@ -250,6 +262,10 @@ class CachedSpecDecEngine:
                 raise ValueError(
                     f"parameters live on {params['embed'].device}, the "
                     f"engine on {self.device}")
+        if cfg.verifier_backend == "legacy":
+            raise ValueError(
+                "fused rounds need a device verifier backend ('torch' or "
+                "'kernel'); the 'legacy' host loop cannot run in-program")
         # One drafter and one draft temperature: the sweep scores every
         # lane with cfg.temps[0] (``engine_cached.py:347-351``).
         assert len(set(cfg.temps)) == 1, (

@@ -73,9 +73,22 @@ def _pipeline_inputs(b, k, n, l_max, seed, poison=False):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_race_tables_and_bins_match(jx, seed):
+    """log S equal to JAX's to 2.4e-7.  Both sides are first held to a
+    float64 anchor, log(-log1p(-u)) on the same uniform bits (exact on
+    both sides), so a failure names the side that drifted."""
     jkey = jx.jax.random.PRNGKey(seed)
     j = np.asarray(jx.wz._race_tables(jkey, 4, 3000))
     t = TW._race_tables(R.PRNGKey(seed), 4, 3000).numpy()
+    u = np.asarray(jx.jax.random.uniform(jkey, (4, 3000)))
+    np.testing.assert_array_equal(
+        R.uniform(R.PRNGKey(seed), (4, 3000)).numpy().view(np.uint32),
+        u.view(np.uint32))
+    anchor = np.log(np.maximum(-np.log1p(-u.astype(np.float64)),
+                               np.finfo(np.float32).tiny))
+    np.testing.assert_allclose(j, anchor, rtol=2.4e-7, atol=2.4e-7,
+                               err_msg="JAX's log S against float64")
+    np.testing.assert_allclose(t, anchor, rtol=2.4e-7, atol=2.4e-7,
+                               err_msg="the port's log S against float64")
     np.testing.assert_allclose(t, j, rtol=2.4e-7, atol=2.4e-7)
     assert np.isfinite(t).all()
     np.testing.assert_array_equal(

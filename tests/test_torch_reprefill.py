@@ -1,10 +1,12 @@
 """The port's reprefill serving path against the JAX package on the CPU.
 
-* ``SpecDecEngine.generate`` emits JAX's tokens for gls, gls_strong and
-  daliri, under both port backends ("torch" against JAX's "xla",
-  "kernel" -- the plain row race on the CPU -- against "pallas"), for an
-  SSM target with the dense drafter of ``tests/test_specdec_families.py``
-  and for an SSM target with an SSM drafter;
+* ``SpecDecEngine.generate`` emits JAX's tokens for all six strategies,
+  under the three port backends ("torch" against JAX's "xla", "kernel"
+  -- the plain row race on the CPU -- against "pallas", "legacy", the
+  per-token host loop, against "legacy", with its host-sync count), for
+  an SSM target with the dense drafter of
+  ``tests/test_specdec_families.py`` and for an SSM target with an SSM
+  drafter;
 * ``serve`` equals JAX's, and ``gen_blocks`` over R = 2 requests equals
   two ``gen_block`` calls;
 * ``SpecDecServer(cache_mode="reprefill")``, batched and sequential,
@@ -24,6 +26,7 @@ from repro.models import ModelConfig as JCfg
 from repro.models import init_params as j_init
 from repro.specdec import SpecDecConfig as JConfig
 from repro.specdec import SpecDecEngine as JEngine
+from repro.specdec import STRATEGIES
 from repro.specdec import SpecDecServer as JServer
 from repro.specdec.engine import autoregressive_reference as j_ar
 from repro_torch import random as R
@@ -43,8 +46,7 @@ TARGET = dict(name="ts", family="ssm", num_layers=2, d_model=64,
               num_heads=1, d_ff=0, vocab_size=64, ssm_state=16,
               ssm_head_dim=32, ssm_chunk=8, dtype="float32")
 SSM_DRAFTER = dict(TARGET, name="ds", num_layers=1)
-RACE = ("gls", "gls_strong", "daliri")
-J_BACKEND = {"torch": "xla", "kernel": "pallas"}
+J_BACKEND = {"torch": "xla", "kernel": "pallas", "legacy": "legacy"}
 
 
 def _convert(p):
@@ -63,7 +65,7 @@ def models():
 
 
 def _engines(models, drafter, strategy, backend, max_new=10):
-    k = 1 if strategy == "daliri" else 2
+    k = 1 if strategy in ("single", "daliri") else 2
     (jt, tt), (jd, td) = models["target"], models[drafter]
     je = JEngine(jt, [jd], JConfig(num_drafts=k, draft_len=2,
                                    strategy=strategy, top_k=0,
@@ -77,8 +79,8 @@ def _engines(models, drafter, strategy, backend, max_new=10):
     return je, te
 
 
-@pytest.mark.parametrize("backend", ["torch", "kernel"])
-@pytest.mark.parametrize("strategy", RACE)
+@pytest.mark.parametrize("backend", ["torch", "kernel", "legacy"])
+@pytest.mark.parametrize("strategy", STRATEGIES)
 @pytest.mark.parametrize("drafter", ["dense", "ssm"])
 def test_generate_matches_jax(models, drafter, strategy, backend):
     je, te = _engines(models, drafter, strategy, backend)

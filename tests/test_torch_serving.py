@@ -3,14 +3,16 @@
 * ``block_verify_batched`` is bit-identical to JAX's on the same numpy
   log-uniforms, draft tokens and target distributions, for gls,
   gls_strong and daliri, under both port backends ("torch" and
-  "kernel", the plain row race on the CPU);
+  "kernel", the plain row race on the CPU; the rejection-sampling
+  strategies are held in ``tests/test_torch_rs_verify.py``);
+* the port's strategies and backends mirror JAX's;
 * ``CachedSpecDecEngine`` fused rounds emit the same tokens as JAX's
   (``fused=True``, ``verifier_backend="pallas"``) from the same
-  converted parameters and keys;
+  converted parameters and keys, for all six strategies;
 * ``SpecDecServer`` emits, per request, the same tokens as JAX's
   ``SpecDecServer(cache_mode="kv_fused")`` over prompts that straddle
   admission buckets, with ``draft_syncs == 0`` and
-  ``host_syncs == rounds``.
+  ``host_syncs == rounds``, for all six strategies.
 
 Token streams are compared exactly: the uniform bits are exact and the
 model math agrees to ~1e-6, so a flip would mean a float near-tie in a
@@ -27,6 +29,9 @@ from repro.models import init_params as j_init
 from repro.specdec import CachedSpecDecEngine as JEngine
 from repro.specdec import SpecDecConfig as JConfig
 from repro.specdec import SpecDecServer as JServer
+from repro.specdec import BACKENDS as J_BACKENDS
+from repro.specdec import RS_STRATEGIES as J_RS_STRATEGIES
+from repro.specdec import STRATEGIES as J_STRATEGIES
 from repro.specdec import verify as JV
 from repro.specdec.block_verify import block_verify_batched as j_bvb
 from repro.specdec.engine import probs_from_logits as j_probs
@@ -35,6 +40,9 @@ from repro.specdec.engine_cached import _max_bucket as j_max_bucket
 from repro_torch import random as R
 from repro_torch.models import ModelConfig, params_from_jax
 from repro_torch.specdec import (
+    BACKENDS,
+    RS_STRATEGIES,
+    STRATEGIES,
     CachedSpecDecEngine,
     SpecDecConfig,
     SpecDecEngine,
@@ -49,6 +57,8 @@ KW = dict(name="t", family="dense", num_layers=2, d_model=64, num_heads=6,
           num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=300,
           dtype="float32")
 RACE = ("gls", "gls_strong", "daliri")
+# Single-draft strategies run with K = 1, as the launchers run them.
+SINGLE = ("single", "daliri")
 
 
 @pytest.fixture(scope="module")
@@ -95,7 +105,7 @@ def test_block_verify_batched_bit_identical(strategy, backend):
                   jnp.asarray(keys), strategy=strategy,
                   backend="pallas" if backend == "kernel" else "xla")
         t = block_verify_batched(torch.from_numpy(log_u), torch.from_numpy(d),
-                                 torch.from_numpy(q),
+                                 None, torch.from_numpy(q),
                                  torch.from_numpy(keys.astype(np.int64)),
                                  strategy=strategy, backend=backend)
         np.testing.assert_array_equal(np.asarray(j.tokens), t.tokens.numpy())
@@ -143,10 +153,26 @@ def test_probs_and_bucket_plan_match():
                 j_bucket_plan(n, j_max_bucket(buf))
 
 
-def test_config_rejects_unported_strategies():
-    for s in ("specinfer", "spectr", "single"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SpecDecConfig(strategy=s)
+def test_strategies_and_backends_mirror_jax(pair):
+    """The port's strategy tuples are JAX's, its backends are JAX's with
+    "torch"/"kernel" for "xla"/"pallas", every JAX strategy builds a
+    config, and the cached engine refuses the legacy host loop as JAX's
+    fused round does."""
+    assert STRATEGIES == J_STRATEGIES
+    assert RS_STRATEGIES == J_RS_STRATEGIES
+    twin = {"legacy": "legacy", "xla": "torch", "pallas": "kernel"}
+    assert BACKENDS == tuple(twin[b] for b in J_BACKENDS)
+    for s in J_STRATEGIES:
+        for b in BACKENDS:
+            assert SpecDecConfig(strategy=s, verifier_backend=b).strategy == s
+    with pytest.raises(ValueError, match="unknown strategy"):
+        SpecDecConfig(strategy="medusa")
+    (ttp, tt), (tdp, td) = pair["torch"]
+    with pytest.raises(ValueError, match="legacy"):
+        CachedSpecDecEngine((ttp, tt), (tdp, td),
+                            SpecDecConfig(strategy="specinfer",
+                                          verifier_backend="legacy"),
+                            device="cpu")
 
 
 @pytest.mark.parametrize("temps", [None, (0.7, 0.7, 0.7, 0.7),
@@ -172,12 +198,12 @@ def test_config_draft_temps_match_jax(pair, temps):
         SpecDecEngine((ttp, tt), (tdp, td), tc, device="cpu")
 
 
-@pytest.mark.parametrize("strategy", RACE)
+@pytest.mark.parametrize("strategy", J_STRATEGIES)
 def test_engine_generate_matches_jax(pair, strategy):
     """Fused-round generation (the engine alone, one request): the same
     tokens as JAX's ``generate(fused=True)`` with the pallas verifier
     (its bit-identical reference on the CPU)."""
-    k = 1 if strategy == "daliri" else 4
+    k = 1 if strategy in SINGLE else 4
     (jtp, jt), (jdp, jd) = pair["jax"]
     (ttp, tt), (tdp, td) = pair["torch"]
     prompt = np.array([1, 2, 3, 4, 5, 6, 7], np.int32)
@@ -198,7 +224,7 @@ def test_engine_generate_matches_jax(pair, strategy):
 
 
 def _serve_both(pair, kernels: bool, strategy: str = "gls"):
-    k = 1 if strategy == "daliri" else 4
+    k = 1 if strategy in SINGLE else 4
     prompts = [np.random.RandomState(3 + i).randint(0, 300, n).astype(
         np.int32) for i, n in enumerate((5, 17, 40, 70))]
     (jtp, jt), (jdp, jd) = pair["jax"]
@@ -224,7 +250,7 @@ def _serve_both(pair, kernels: bool, strategy: str = "gls"):
     return js, ts, te, jdone, tdone
 
 
-@pytest.mark.parametrize("strategy", RACE)
+@pytest.mark.parametrize("strategy", J_STRATEGIES)
 def test_server_matches_jax_kv_fused(pair, strategy):
     """Four requests, prompt lengths 5/17/40/70 (buckets 16, 32, 64 and a
     70-token prompt chunked past the 64 bucket), two slots: per-request
