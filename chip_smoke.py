@@ -74,6 +74,22 @@ when the port's sources are not beside this file.  Phases:
      device ms; then the self-draft (drafter = target) per strategy:
      specinfer and single reach 0.9 L, spectr its bound for JAX's
      row-0 semantics (``phase_rs_self_draft``);
+  granite: granite-8b at its published widths (36 layers, d_model 4096,
+     32 heads over 8 KV heads of head dim 128, d_ff 14,336; a 4-layer
+     drafter of the same widths; weights from seeds 0 and 1; float32):
+     the head-dim-128 instances of both attention kernels, float32 and
+     int8 (``decode_attention_d128``, ``flash_attention_d128``,
+     ``decode_attention_int8_d128``, ``flash_attention_int8_d128``),
+     held to their plain versions within 1e-4 at granite's serve shapes
+     as in phase 2 (decode q (32, 32, 128), k/v (32, 8, 370, 128), cold
+     K/V sets, the split plan's edges and the 32/33/64/65-key tile
+     edges; flash 256 queries), timed beside the plain version, SDPA and
+     the bound; phase 2b's reference check at 36 layers; the phase 3
+     server and its quant twin with 4 requests of 32 new tokens
+     (completion, token range, the sync gates, the D = 128 instances'
+     and the row race's launches); phase 4's self-draft (>= 0.9 L) and
+     phase 4q's quant self-draft rate within 0.2 of float32's.  The pair
+     is freed before phase 5;
   5. compress: the Gaussian Wyner-Ziv experiment (``run_experiment``,
      backend "kernel") at the full compression shape -- 2048 trials in
      chunks of B = 512, N = 2^16 atoms, K = 4 decoders, l_max = 64 --
@@ -111,12 +127,13 @@ when the port's sources are not beside this file.  Phases:
      self-draft check (drafter = the 48-layer target, acceptance >=
      0.9 L).
 
-Each of the paths of phases 3, 3q, rs, 5, 6 and 7 is driven with the launch
-counts set to 0 just before it and read just after; the ``kernels`` line
-reports each kernel's launches from its own paths (``gls_row_race``: the
-sum over the kv_fused and the reprefill serve paths; ``decode_attention``
-and ``flash_attention``: phase 3 plus the three rejection-sampling
-serves).  The line before the last is a JSON object ``{"kernels":
+Each of the paths of phases 3, 3q, rs, granite, 5, 6 and 7 is driven
+with the launch counts set to 0 just before it and read just after; the
+``kernels`` line reports each kernel's launches from its own paths
+(``gls_row_race``: the sum over the float32 kv_fused serves of smollm-360m
+and granite-8b and the reprefill serve; ``decode_attention`` and
+``flash_attention``: phase 3 plus the three rejection-sampling serves;
+the D = 128 instances: granite's float32 and quant serves).  The line before the last is a JSON object ``{"kernels":
 [...]}``; the last line is ``{"ok": true, "device": {...}}``.  Every
 phase failure is an exception, so the script exits non-zero after any
 failure.
@@ -557,22 +574,37 @@ def time_decode(torch, q, kv_sets, kv_len) -> dict:
                 for k, v in kv_sets])}
 
 
+def decode_edges(torch, dev, b: int, t: int, d: int, splits: int,
+                 chunk: int):
+    """kv_len on the edges of the decode kernel's split plan (a range
+    ending exactly on a split boundary, one key past it and one short,
+    kv_len 0, 1 and T) and of its tiles (64/65 keys; at head dim 128,
+    whose tiles hold 32 keys, also 32/33), repeated over the b rows."""
+    edges = [0, 1, t, chunk, 2 * chunk, chunk + 1, chunk - 1, t - 1,
+             (splits - 1) * chunk, 17, 64, 65] + ([32, 33] if d == 128
+                                                  else [])
+    return torch.tensor(edges, dtype=torch.int32, device=dev).repeat(
+        -(-b // len(edges)))[:b]
+
+
 def kernel_decode(torch, dev, cfg, t: int):
     """``decode_attention`` against its plain version at the serve shape,
-    on the serve's kv_len and on the edges of the kernel's split plan (a
-    range ending exactly on a split boundary, one key past it and one
-    short, kv_len 1 and T); timed on cold K/V."""
-    from repro_torch.kernels.decode_attention.ops import (decode_attention,
+    on the serve's kv_len and on the edges of the kernel's split plan and
+    tiles (``decode_edges``); timed on cold K/V.  The instance is the
+    config's head dim's (``decode_attention`` at 64,
+    ``decode_attention_d128`` at 128)."""
+    from repro_torch.kernels.decode_attention.ops import (bytes_per_key,
+                                                          decode_attention,
                                                           decode_split_plan)
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_plain)
+    from repro_torch.kernels.mode import launch_name
     b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
     q, kv_sets, kv_len = decode_inputs(torch, dev, b, h, hkv, d, t)
-    splits, chunk = decode_split_plan(b, hkv, t)
-    edges = torch.tensor([0, 1, t, chunk, 2 * chunk, chunk + 1, chunk - 1,
-                          t - 1, (splits - 1) * chunk, 17, 64, 65],
-                         dtype=torch.int32, device=dev).repeat(-(-b // 12))[:b]
+    splits, chunk = decode_split_plan(b, hkv, t, key_bytes=bytes_per_key(d),
+                                      head_dim=d)
+    edges = decode_edges(torch, dev, b, t, d, splits, chunk)
     err = 0.0
     k, v = kv_sets[0]
     for lens in (kv_len, edges):
@@ -587,7 +619,7 @@ def kernel_decode(torch, dev, cfg, t: int):
     nbytes = 4 * (2 * b * h * d + 2 * hkv * keys * d + b)
     t_bound, by = bound(nbytes, h * keys * (4 * d + 4))
     return {
-        "name": "decode_attention", "route": "cuda",
+        "name": launch_name("decode_attention", d), "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attention/"
                   "decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:83",
@@ -602,9 +634,12 @@ def kernel_decode(torch, dev, cfg, t: int):
 
 
 def kernel_flash(torch, dev, cfg, s: int, t: int):
+    """``flash_attention`` against its plain version at the admission
+    shape (the config's head dim's instance)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.mode import launch_name
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 2)
     b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
@@ -631,7 +666,7 @@ def kernel_flash(torch, dev, cfg, s: int, t: int):
     nbytes = 4 * (2 * b * h * s * d + 2 * hkv * keys * d + 2 * b)
     t_bound, by = bound(nbytes, pairs * (4 * d + 4))
     return {
-        "name": "flash_attention", "route": "cuda",
+        "name": launch_name("flash_attention", d), "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:106",
@@ -668,11 +703,12 @@ def kernel_decode_int8(torch, dev, cfg, t: int):
     at the serve shape: the serve's kv_len and the edges of its own split
     plan; timed on cold K/V (int8 sets worth three L2 caches)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention.ops import (KEY_BYTES_INT8,
+    from repro_torch.kernels.decode_attention.ops import (bytes_per_key,
                                                           decode_attention,
                                                           decode_split_plan)
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_plain)
+    from repro_torch.kernels.mode import launch_name
     b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
     g = torch.Generator(device=dev)
@@ -681,10 +717,9 @@ def kernel_decode_int8(torch, dev, cfg, t: int):
     n_sets = cold_sets(2 * b * hkv * t * (d + 4))
     sets, (kf, vf) = int8_kv_sets(torch, dev, b, hkv, t, d, n_sets, SEED + 12)
     kv_len = serve_kv_len(torch, dev, b, t, SEED + 11)
-    splits, chunk = decode_split_plan(b, hkv, t, key_bytes=KEY_BYTES_INT8)
-    edges = torch.tensor([0, 1, t, chunk, 2 * chunk, chunk + 1, chunk - 1,
-                          t - 1, (splits - 1) * chunk, 17, 64, 65],
-                         dtype=torch.int32, device=dev).repeat(-(-b // 12))[:b]
+    splits, chunk = decode_split_plan(
+        b, hkv, t, key_bytes=bytes_per_key(d, int8=True), head_dim=d)
+    edges = decode_edges(torch, dev, b, t, d, splits, chunk)
     # T = 370: the scale row of (b, head) starts at (b Hkv + head) * 1480
     # bytes, 8-byte aligned only for every odd row.
     assert (t * 4) % 16 != 0 and hkv * b > 1
@@ -705,7 +740,8 @@ def kernel_decode_int8(torch, dev, cfg, t: int):
     nbytes = 4 * (2 * b * h * d + b) + 2 * hkv * keys * (d + 4)
     t_bound, by = bound(nbytes, h * keys * (4 * d + 6))
     return {
-        "name": "decode_attention_int8", "route": "cuda",
+        "name": launch_name("decode_attention", d, int8=True),
+        "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attention/"
                   "decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:83",
@@ -735,6 +771,7 @@ def kernel_flash_int8(torch, dev, cfg, s: int, t: int):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.mode import launch_name
     b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
     g = torch.Generator(device=dev)
@@ -760,7 +797,8 @@ def kernel_flash_int8(torch, dev, cfg, s: int, t: int):
     nbytes = 4 * (2 * b * h * s * d + 2 * b) + 2 * hkv * keys * (d + 4)
     t_bound, by = bound(nbytes, pairs * (4 * d + 4) + 2 * hkv * keys * d)
     return {
-        "name": "flash_attention_int8", "route": "cuda",
+        "name": launch_name("flash_attention", d, int8=True),
+        "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:106",
@@ -829,23 +867,28 @@ def make_server(torch, dev, target, drafter, max_batch, quant=False,
     return engine, SpecDecServer(engine, max_batch=max_batch)
 
 
-def phase_serve(torch, dev, target, drafter, quant=False):
+def phase_serve(torch, dev, target, drafter, quant=False,
+                requests: int = N_REQUESTS, max_new: int = MAX_NEW,
+                label: str = "serve"):
     """Phase 3 (float32 arenas) or 3q (``quant``: int8 arenas, W8A8
     verify; the attention kernels' int8 instances count under their own
-    names)."""
+    names), ``requests`` requests of ``max_new`` new tokens; the attention
+    instances are those of the target's head dim (``launch_name``), and
+    no other attention instance may launch."""
     from repro_torch import random as R
-    from repro_torch.kernels.mode import launch_counts, reset_launch_counts
+    from repro_torch.kernels.mode import (launch_counts, launch_name,
+                                          reset_launch_counts)
     from repro_torch.launch.serve import draw_prompts
     vocab = target[1].vocab_size
     engine, server = make_server(torch, dev, target, drafter, S_SLOTS,
                                  quant=quant)
-    prompts = draw_prompts(N_REQUESTS, vocab, PROMPT_MIN, PROMPT_MAX, SEED)
+    prompts = draw_prompts(requests, vocab, PROMPT_MIN, PROMPT_MAX, SEED)
     # One prompt longer than the largest admission bucket (256 at this
     # buffer length), so admission chunks.
     prompts[0] = np.random.default_rng(SEED + 7).integers(
         0, vocab, PROMPT_MAX).astype(np.int32)
     for p in prompts:
-        server.submit(p, max_new=MAX_NEW)
+        server.submit(p, max_new=max_new)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -859,10 +902,10 @@ def phase_serve(torch, dev, target, drafter, quant=False):
                     for arena in engine.pool.caches.values()
                     for leaf in arena.values()) / 2 ** 20
     m = server.metrics
-    assert len(done) == N_REQUESTS, f"{len(done)}/{N_REQUESTS} finished"
+    assert len(done) == requests, f"{len(done)}/{requests} finished"
     for r in done:
         out = np.asarray(r.output)
-        assert len(out) == MAX_NEW, f"uid {r.uid}: {len(out)} tokens"
+        assert len(out) == max_new, f"uid {r.uid}: {len(out)} tokens"
         assert out.min() >= 0 and out.max() < vocab, f"uid {r.uid} range"
     # The host's waits on the card as the engine saw them (SyncCounter):
     # none while rounds and admissions are queued, one fetch per round.
@@ -870,10 +913,12 @@ def phase_serve(torch, dev, target, drafter, quant=False):
     assert m.host_syncs == m.rounds, (m.host_syncs, m.rounds)
     layers = target[1].num_layers + drafter[1].num_layers
     dispatches = engine.num_prefill_dispatches
-    decode, flash = (("decode_attention_int8", "flash_attention_int8")
-                     if quant else ("decode_attention", "flash_attention"))
-    other = ({"decode_attention", "flash_attention"} if quant else
-             {"decode_attention_int8", "flash_attention_int8"})
+    d = target[1].resolved_head_dim
+    decode, flash = (launch_name(kernel, d, quant)
+                     for kernel in ("decode_attention", "flash_attention"))
+    other = {launch_name(kernel, dd, qq)
+             for kernel in ("decode_attention", "flash_attention")
+             for dd in (64, 128) for qq in (False, True)} - {decode, flash}
     assert counts.get("gls_row_race", 0) >= m.rounds, counts
     assert counts.get(decode, 0) >= \
         (L_DRAFT + 1) * drafter[1].num_layers * m.rounds, counts
@@ -882,7 +927,7 @@ def phase_serve(torch, dev, target, drafter, quant=False):
     assert not other & set(counts), counts
     be = m.mean_block_efficiency
     ttft = float(np.mean([r.ttft_ms for r in done]))
-    name = "serve quant" if quant else "serve"
+    name = f"{label} quant" if quant else label
     log(f"{name}: {len(done)} requests, {m.total_tokens} tokens in "
         f"{wall:.3f}s -> {m.total_tokens / wall:.1f} tok/s; rounds="
         f"{m.rounds} round wall {wall / m.rounds * 1e3:.1f} ms "
@@ -897,7 +942,7 @@ def phase_serve(torch, dev, target, drafter, quant=False):
                     "peak_gib": peak, "arena_mib": arena_mib}
 
 
-def phase_self_draft(torch, dev, target, quant=False):
+def phase_self_draft(torch, dev, target, quant=False, label=""):
     from repro_torch import random as R
     engine, server = make_server(torch, dev, target, target, 2, quant=quant)
     vocab = target[1].vocab_size
@@ -907,8 +952,8 @@ def phase_self_draft(torch, dev, target, quant=False):
     done = server.run(R.PRNGKey(SEED + 1))
     m = server.metrics
     acc = sum(r.accepted for r in done) / max(sum(r.blocks for r in done), 1)
-    log(f"self-draft{' quant' if quant else ''}: rounds={m.rounds} mean "
-        f"accepted per round={acc:.3f} (L={L_DRAFT}"
+    log(f"{label}self-draft{' quant' if quant else ''}: rounds={m.rounds} "
+        f"mean accepted per round={acc:.3f} (L={L_DRAFT}"
         + ("" if quant else f", need >= {0.9 * L_DRAFT:.1f}") + ")")
     assert m.rounds >= 8, f"self-draft ran {m.rounds} rounds"
     if not quant:
@@ -916,13 +961,14 @@ def phase_self_draft(torch, dev, target, quant=False):
     return acc
 
 
-def phase_quant_self_draft(torch, dev, target, acc_f32: float):
+def phase_quant_self_draft(torch, dev, target, acc_f32: float,
+                           label: str = ""):
     """Phase 4q: the self-draft workload with quant on, against phase 4's
     float32 run on the same prompts and keys: acceptance rates within
     ``QUANT_RATE_TOL``."""
-    acc_q = phase_self_draft(torch, dev, target, quant=True)
+    acc_q = phase_self_draft(torch, dev, target, quant=True, label=label)
     rate_f, rate_q = acc_f32 / L_DRAFT, acc_q / L_DRAFT
-    log(f"quant self-draft: acceptance rate int8 {rate_q:.4f} vs float32 "
+    log(f"{label}quant self-draft: acceptance rate int8 {rate_q:.4f} vs float32 "
         f"{rate_f:.4f} (|diff| {abs(rate_q - rate_f):.4f}, tolerance "
         f"{QUANT_RATE_TOL})")
     assert abs(rate_q - rate_f) <= QUANT_RATE_TOL, (rate_q, rate_f)
@@ -1143,6 +1189,75 @@ def phase_rs_self_draft(torch, dev, target, strategy: str) -> float:
     assert mean >= need - 3 * se, (mean, need, se)
     assert first.mean() >= a_k - 3 * first_se, (first.mean(), a_k)
     return mean
+
+
+# ---------------------------------------------------------------------------
+# Phase granite: a head-dim-128 model through the kv_fused path
+# ---------------------------------------------------------------------------
+
+
+def phase_granite(torch, dev, smi: str, buf_len: int):
+    """granite-8b at its published widths (36-layer target, 4-layer
+    drafter of the same widths, weights from seeds 0 and 1, float32):
+    the head-dim-128 instances of both attention kernels (float32 and
+    int8) against their plain versions at its serve shapes, the cached
+    kernel path against a dense forward, the phase 3 server and its
+    quant twin with ``RS_REQUESTS`` requests of ``RS_MAX_NEW`` tokens,
+    and the self-draft checks of phases 4 and 4q.  Frees the pair before
+    it returns (kernel records, the float32 and quant serves' launch
+    counts)."""
+    import gc
+    from repro_torch.launch.serve import build_pair
+    t0 = time.perf_counter()
+    target, drafter = build_pair("granite-8b", 4, SEED, dev)
+    torch.cuda.synchronize()
+    cfg = target[1]
+    n_params = [sum(x.numel() for x in _leaves(p)) for p, _ in
+                (target, drafter)]
+    log(f"granite: {cfg.num_layers}-layer target ({n_params[0] / 1e9:.3f}e9 "
+        f"parameters) and {drafter[1].num_layers}-layer drafter "
+        f"({n_params[1] / 1e9:.3f}e9), head dim {cfg.resolved_head_dim}, "
+        f"{cfg.num_heads // cfg.kv_heads} query heads per KV head, built "
+        f"in {time.perf_counter() - t0:.1f}s")
+    kernels = [kernel_decode(torch, dev, cfg, buf_len),
+               kernel_flash(torch, dev, cfg, 256, buf_len),
+               kernel_decode_int8(torch, dev, cfg, buf_len),
+               kernel_flash_int8(torch, dev, cfg, 256, buf_len)]
+    for kr in kernels:
+        log_kernel(kr, smi)
+    phase_reference(torch, dev, target)
+    counts, stats = phase_serve(torch, dev, target, drafter,
+                                requests=RS_REQUESTS, max_new=RS_MAX_NEW,
+                                label="granite serve")
+    gc.collect()
+    q_counts, q_stats = phase_serve(torch, dev, target, drafter, quant=True,
+                                    requests=RS_REQUESTS, max_new=RS_MAX_NEW,
+                                    label="granite serve")
+    gc.collect()
+    for kr in kernels[2:]:
+        counts[kr["name"]] = q_counts.get(kr["name"], 0)
+    log(f"granite quant vs float32 serve [{smi}]: "
+        + ", ".join(f"{k} {q_stats[k]:.4g} vs {stats[k]:.4g}"
+                    for k in ("tok_s", "round_ms", "ttft_ms", "peak_gib",
+                              "arena_mib")))
+    acc_f32 = phase_self_draft(torch, dev, target, label="granite ")
+    gc.collect()
+    phase_quant_self_draft(torch, dev, target, acc_f32, label="granite ")
+    del target, drafter
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernels, counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 # ---------------------------------------------------------------------------
@@ -1571,6 +1686,18 @@ def main() -> int:
         phase_rs_self_draft(torch, dev, target, strategy)
     log(f"phase rs: {time.perf_counter() - t0:.1f}s")
 
+    # Phase granite: granite-8b (head dim 128) through kv_fused.
+    t0 = time.perf_counter()
+    g_kernels, g_counts = phase_granite(torch, dev, smi, buf_len)
+    kernels[5:5] = g_kernels
+    for kr in g_kernels:
+        counts[kr["name"]] = g_counts.get(kr["name"], 0)
+    log(f"gls_row_race launches: smollm kv_fused serve "
+        f"{counts['gls_row_race']}, granite kv_fused serve "
+        f"{g_counts.get('gls_row_race', 0)}")
+    counts["gls_row_race"] += g_counts.get("gls_row_race", 0)
+    log(f"phase granite: {time.perf_counter() - t0:.1f}s")
+
     # Phase 5: Wyner-Ziv compression through the binned race kernel.
     t0 = time.perf_counter()
     wz_counts, _ = phase_compress(torch, dev)
@@ -1598,7 +1725,7 @@ def main() -> int:
     ssm_counts, _ = phase_ssm_serve(torch, dev, ssm_target, ssm_drafter, smi)
     counts["ssd_chunk"] = ssm_counts.get("ssd_chunk", 0)
     # The row race serves both paths: its launches are the sum.
-    log(f"gls_row_race launches: kv_fused serve {counts['gls_row_race']}, "
+    log(f"gls_row_race launches: kv_fused serves {counts['gls_row_race']}, "
         f"reprefill serve {ssm_counts.get('gls_row_race', 0)}")
     counts["gls_row_race"] += ssm_counts.get("gls_row_race", 0)
     phase_ssm_self_draft(torch, dev, ssm_target)

@@ -11,6 +11,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "smollm-360m": "smollm_360m",
+    "granite-8b": "granite_8b",
     "mamba2-370m": "mamba2_370m",
 }
 

@@ -27,31 +27,32 @@ int gls_row_race_max_splits();
 cudaError_t launch_decode_attention(const float* q, const float* k,
                                     const float* v, const int* kv_len,
                                     float* out, int B, int H, int Hkv, int T,
-                                    int splits, int chunk,
+                                    int D, int splits, int chunk,
                                     cudaStream_t stream);
 cudaError_t launch_decode_attention_int8(const float* q, const int8_t* k,
                                          const int8_t* v,
                                          const float* k_scale,
                                          const float* v_scale,
                                          const int* kv_len, float* out, int B,
-                                         int H, int Hkv, int T, int splits,
-                                         int chunk, cudaStream_t stream);
-int decode_attention_head_dim();
+                                         int H, int Hkv, int T, int D,
+                                         int splits, int chunk,
+                                         cudaStream_t stream);
+bool decode_attention_has_head_dim(int d);
 int decode_attention_max_group();
 int decode_attention_max_splits();
 cudaError_t launch_flash_attention(const float* q, const float* k,
                                    const float* v, const int* q_offset,
                                    const int* kv_len, float* out, int B, int H,
-                                   int Hkv, int S, int T, int window,
+                                   int Hkv, int S, int T, int D, int window,
                                    cudaStream_t stream);
 cudaError_t launch_flash_attention_int8(const float* q, const int8_t* k,
                                         const int8_t* v, const float* k_scale,
                                         const float* v_scale,
                                         const int* q_offset, const int* kv_len,
                                         float* out, int B, int H, int Hkv,
-                                        int S, int T, int window,
+                                        int S, int T, int D, int window,
                                         cudaStream_t stream);
-int flash_attention_head_dim();
+bool flash_attention_has_head_dim(int d);
 void launch_gls_binned_race(const float* log_s, const float* log_q,
                             const int* bins, float* bmin, int* barg,
                             int batch, int rows_per_batch, int n, int l_max,
@@ -114,10 +115,10 @@ void check_launch(const char* kernel, cudaError_t err) {
               ": cluster launch failed: " + cudaGetErrorString(err));
 }
 
-void check_head_dim(const char* kernel, int64_t d, int compiled) {
-  TORCH_CHECK(d == compiled, std::string(kernel) + ": head dim " +
-              std::to_string(d) + " not compiled (only " +
-              std::to_string(compiled) + ")");
+// The attention kernels are compiled for head dims 64 and 128.
+void check_head_dim(const char* kernel, int64_t d, bool compiled) {
+  TORCH_CHECK(compiled, std::string(kernel) + ": head dim " +
+              std::to_string(d) + " not compiled (only 64 and 128)");
 }
 
 // The int8 K/V of an attention kernel: int8 k/v (B, Hkv, T, D), 16-byte
@@ -254,7 +255,8 @@ torch::Tensor decode_attention(torch::Tensor q, torch::Tensor k,
   TORCH_CHECK(k.size(0) == B && k.size(3) == D, "q/k shape mismatch");
   TORCH_CHECK(kv_len.size(0) == B, "kv_len must be (B,)");
   TORCH_CHECK(Hkv > 0 && H % Hkv == 0, "H must be a multiple of Hkv");
-  check_head_dim("decode_attention", D, decode_attention_head_dim());
+  check_head_dim("decode_attention", D,
+                 decode_attention_has_head_dim(static_cast<int>(D)));
   TORCH_CHECK(H / Hkv <= decode_attention_max_group(),
               "decode_attention: more than " +
               std::to_string(decode_attention_max_group()) +
@@ -273,7 +275,7 @@ torch::Tensor decode_attention(torch::Tensor q, torch::Tensor k,
       q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
       kv_len.data_ptr<int>(), out.data_ptr<float>(), static_cast<int>(B),
       static_cast<int>(H), static_cast<int>(Hkv), static_cast<int>(T),
-      static_cast<int>(splits), static_cast<int>(chunk),
+      static_cast<int>(D), static_cast<int>(splits), static_cast<int>(chunk),
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
@@ -293,7 +295,8 @@ torch::Tensor decode_attention_int8(torch::Tensor q, torch::Tensor k,
   TORCH_CHECK(k.size(0) == B && k.size(3) == D, "q/k shape mismatch");
   TORCH_CHECK(kv_len.size(0) == B, "kv_len must be (B,)");
   TORCH_CHECK(Hkv > 0 && H % Hkv == 0, "H must be a multiple of Hkv");
-  check_head_dim("decode_attention_int8", D, decode_attention_head_dim());
+  check_head_dim("decode_attention_int8", D,
+                 decode_attention_has_head_dim(static_cast<int>(D)));
   TORCH_CHECK(H / Hkv <= decode_attention_max_group(),
               "decode_attention_int8: more than " +
               std::to_string(decode_attention_max_group()) +
@@ -311,7 +314,7 @@ torch::Tensor decode_attention_int8(torch::Tensor q, torch::Tensor k,
       k_scale.data_ptr<float>(), v_scale.data_ptr<float>(),
       kv_len.data_ptr<int>(), out.data_ptr<float>(), static_cast<int>(B),
       static_cast<int>(H), static_cast<int>(Hkv), static_cast<int>(T),
-      static_cast<int>(splits), static_cast<int>(chunk),
+      static_cast<int>(D), static_cast<int>(splits), static_cast<int>(chunk),
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
@@ -337,7 +340,8 @@ torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
               "q_offset/kv_len must be (B,)");
   TORCH_CHECK(Hkv > 0 && H % Hkv == 0, "H must be a multiple of Hkv");
   TORCH_CHECK(B < 65536 && H < 65536, "flash_attention: grid too large");
-  check_head_dim("flash_attention", D, flash_attention_head_dim());
+  check_head_dim("flash_attention", D,
+                 flash_attention_has_head_dim(static_cast<int>(D)));
   TORCH_CHECK(window >= 0, "window must be >= 0");
   TORCH_CHECK(reinterpret_cast<uintptr_t>(q.data_ptr()) % 16 == 0 &&
               reinterpret_cast<uintptr_t>(k.data_ptr()) % 16 == 0 &&
@@ -350,8 +354,8 @@ torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
       q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
       q_offset.data_ptr<int>(), kv_len.data_ptr<int>(), out.data_ptr<float>(),
       static_cast<int>(B), static_cast<int>(H), static_cast<int>(Hkv),
-      static_cast<int>(S), static_cast<int>(T), static_cast<int>(window),
-      c10::cuda::getCurrentCUDAStream());
+      static_cast<int>(S), static_cast<int>(T), static_cast<int>(D),
+      static_cast<int>(window), c10::cuda::getCurrentCUDAStream());
   TORCH_CHECK(err == cudaSuccess,
               std::string("flash_attention: setting its shared memory size "
                           "failed: ") + cudaGetErrorString(err));
@@ -377,7 +381,8 @@ torch::Tensor flash_attention_int8(torch::Tensor q, torch::Tensor k,
               "q_offset/kv_len must be (B,)");
   TORCH_CHECK(Hkv > 0 && H % Hkv == 0, "H must be a multiple of Hkv");
   TORCH_CHECK(B < 65536 && H < 65536, "flash_attention_int8: grid too large");
-  check_head_dim("flash_attention_int8", D, flash_attention_head_dim());
+  check_head_dim("flash_attention_int8", D,
+                 flash_attention_has_head_dim(static_cast<int>(D)));
   TORCH_CHECK(window >= 0, "window must be >= 0");
   check_aligned16("flash_attention_int8: q", q);
   const c10::cuda::CUDAGuard guard(q.device());
@@ -388,8 +393,8 @@ torch::Tensor flash_attention_int8(torch::Tensor q, torch::Tensor k,
       k_scale.data_ptr<float>(), v_scale.data_ptr<float>(),
       q_offset.data_ptr<int>(), kv_len.data_ptr<int>(), out.data_ptr<float>(),
       static_cast<int>(B), static_cast<int>(H), static_cast<int>(Hkv),
-      static_cast<int>(S), static_cast<int>(T), static_cast<int>(window),
-      c10::cuda::getCurrentCUDAStream());
+      static_cast<int>(S), static_cast<int>(T), static_cast<int>(D),
+      static_cast<int>(window), c10::cuda::getCurrentCUDAStream());
   TORCH_CHECK(err == cudaSuccess,
               std::string("flash_attention_int8: setting its shared memory "
                           "size failed: ") + cudaGetErrorString(err));

@@ -16,8 +16,8 @@
 // folded in after the dot product, s = (q . k_int8) * k_scale / sqrt(D),
 // and into the weight, p * v_scale, before P V, so the result differs from
 // dequantizing first only by float32 rounding.  HBM streams the int8
-// leaves (TMA bulk copies of 64-byte key rows, as the float32 instance's
-// 256-byte rows) plus one float per key and leaf, never a dequantized
+// leaves (TMA bulk copies of D-byte key rows, as the float32 instance's
+// 4 D-byte rows) plus one float per key and leaf, never a dequantized
 // copy.  The scales come as plain 4-byte loads, one per lane and tile: a
 // (b, head) row of scales starts at ((b Hkv + h) T + t) * 4 bytes, which at
 // the serve buffer (T = 370) is only 8-byte aligned for every other row,
@@ -25,14 +25,23 @@
 // with the Pallas kernel's masked-row contract: `m_safe` pinned to 0 while
 // the max is -inf and the denominator floored at 1e-30, so a row with
 // kv_len == 0 comes out as zeros; keys past kv_len are never read.
-// Compiled for the served head dim only (D = 64, smollm-360m); the
-// binding rejects any other.
+// Compiled for the served head dims, D = 64 (smollm-360m) and D = 128
+// (granite-8b), a template parameter beside G and KV; the binding rejects
+// any other.  The two instances share one layout of a key's work: each
+// lane takes 32 columns of one key, so a key spans D / 32 lanes (a
+// half-warp at D = 64, a quarter-warp at D = 128) and a warp holds
+// 32 / (D / 32) keys of a tile (16 and 8).  A 4-warp tile is then 64 keys
+// at D = 64 and 32 at D = 128: the same 32 KB of float32 K and V per
+// stage, so two stages (66 KB) still fit three blocks on an SM at either
+// head dim (64-key tiles at D = 128 would take 128 KB for two stages,
+// one block per SM, and the split plan could not keep the grid resident).
 //
 // What bounds it on the card: bytes.  One query per head does ~4 D flops
 // per key against the 2 D * 4 bytes of K and V that its G heads share,
 // under two flops per byte, so the time is the K/V stream:
-// 2 * Hkv * sum(min(kv_len, T)) * D * 4 bytes (15-20 MB at the serve shape,
-// 4.6-6 us at 3.35 TB/s; the int8 instance 2 * Hkv * keys * (D + 4)
+// 2 * Hkv * sum(min(kv_len, T)) * D * 4 bytes (15-20 MB at smollm-360m's
+// serve shape, 4.6-6 us at 3.35 TB/s; granite-8b's 8 KV heads of 128
+// columns stream 3.2 times as much; the int8 instance 2 * Hkv * keys * (D + 4)
 // bytes, about a quarter).  A stream that short needs the whole card
 // pulling at once, so the design puts every SM's bytes in flight early:
 //   * grid (splits, Hkv, B), launched as clusters of `splits` blocks
@@ -46,18 +55,19 @@
 //     l = 0, acc = 0);
 //   * one thread copies the block's live K and V keys, each one contiguous
 //     run of keys * D * 4 bytes, with TMA bulk copies (cp.async.bulk)
-//     that complete on an mbarrier; a range longer than one 64-key tile
-//     streams through a two-stage ring (a full and an empty mbarrier per
+//     that complete on an mbarrier; a range longer than one tile (64 keys
+//     at D = 64, 32 at D = 128) streams through a two-stage ring (a full and an empty mbarrier per
 //     stage), so the next tile loads while this one is used;
-//   * each warp owns 16 keys of a tile and keeps its own online softmax
+//   * each warp owns 16 (D = 64) or 8 (D = 128) keys of a tile and keeps
+//     its own online softmax
 //     for all G query heads of the group in registers (G is a template
 //     parameter, so the state is sized to the group and a block of 128
 //     threads fits seven to an SM), so each K/V byte is read from device
-//     memory once for the group: the two half-warps split D for the
-//     scores (float4 shared loads, the column order swizzled by key so a
-//     quarter-warp touches 8 distinct bank groups), the lanes split D for
-//     P V.  No block barrier per tile: a warp waits only for its tile to
-//     arrive;
+//     memory once for the group: the D / 32 lanes of a key split D for
+//     the scores (float4 shared loads, the column order swizzled by key so
+//     a quarter-warp touches 8 distinct bank groups), the lanes split D
+//     for P V (D / 32 columns each).  No block barrier per tile: a warp
+//     waits only for its tile to arrive;
 //   * the warps' partials merge in the block (two barriers: the partials
 //     reuse the K/V stages' shared memory), the blocks' through
 //     distributed shared memory: each block writes its (m, l, acc) into
@@ -80,32 +90,38 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kD = 64;                       // head dim
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kWarpKeys = 16;                // keys of a tile per warp
-constexpr int kTK = kWarps * kWarpKeys;      // keys per tile
 constexpr int kStages = 2;                   // tiles in flight per block
 constexpr int kMaxG = 8;                     // query heads per KV head
 constexpr int kMaxSplits = 8;                // the portable cluster size
-constexpr int kPart = kD + 2;                // one head's (m, l, acc[D])
-constexpr float kScale = 0.125f;             // 1 / sqrt(kD)
 
-static_assert(kD == 64, "lanes own 2 columns, half-warps 32 columns");
+// The compiled head dims and the work layout each implies.
+template <int D>
+struct Dims {
+  static_assert(D == 64 || D == 128, "compiled for head dims 64 and 128");
+  static constexpr int kKeyLanes = D / 32;           // lanes per key
+  static constexpr int kWarpKeys = 32 / kKeyLanes;   // keys of a tile/warp
+  static constexpr int kTK = kWarps * kWarpKeys;     // keys per tile
+  static constexpr int kCols = D / 32;               // P V columns per lane
+  static constexpr int kPart = D + 2;                // one head's (m, l, acc)
+};
 
 // The dynamic shared memory, in floats: `stages` K/V tiles of `tk` keys
 // each, of `kv_bytes` bytes an element (the warps' partials reuse them
 // once every warp is done), q of the group, one partial per block of the
 // cluster (written by the peers into rank 0's), then a full and an empty
 // mbarrier per stage.
+template <int D>
 struct Layout {
+  static constexpr int kPart = Dims<D>::kPart;
   int tk, stages, G, splits, kv_bytes;
   __host__ __device__ int q_off() const {
-    const int kv = stages * 2 * tk * kD * kv_bytes / 4,
+    const int kv = stages * 2 * tk * D * kv_bytes / 4,
               parts = kWarps * G * kPart;
     return kv > parts ? kv : parts;
   }
-  __host__ __device__ int block_off() const { return q_off() + G * kD; }
+  __host__ __device__ int block_off() const { return q_off() + G * D; }
   __host__ __device__ int bar_off() const {
     return (block_off() + splits * G * kPart + 1) & ~1;
   }
@@ -176,27 +192,63 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 }
 
 // Tile j of the block's `n` keys (K at `k`, V at `v`) into its stage.
-template <typename KV>
+template <int D, typename KV>
 __device__ __forceinline__ void load_tile(float* smem, uint64_t* full,
                                           const KV* k, const KV* v,
                                           int j, int n, int tk, int stages) {
   const int s = j % stages;
-  const uint32_t bytes = sizeof(KV) * kD * min(tk, n - j * tk);
-  KV* ks = reinterpret_cast<KV*>(smem) + s * 2 * tk * kD;
-  const size_t off = static_cast<size_t>(j) * tk * kD;
+  const uint32_t bytes = sizeof(KV) * D * min(tk, n - j * tk);
+  KV* ks = reinterpret_cast<KV*>(smem) + s * 2 * tk * D;
+  const size_t off = static_cast<size_t>(j) * tk * D;
   mbar_expect_tx(&full[s], 2 * bytes);
   bulk_load(ks, k + off, bytes, &full[s]);
-  bulk_load(ks + tk * kD, v + off, bytes, &full[s]);
+  bulk_load(ks + tk * D, v + off, bytes, &full[s]);
 }
 
-// G, the query heads of a KV head, is a template parameter so that the
-// per-head softmax state stays in registers sized to it: up to four heads
-// fit seven blocks per SM (72 registers; a cap of 64 for eight spilled at
-// G = 3), as many as a 47-key single stage's shared memory allows.  KV is
-// the K/V element type: float, or int8_t with `k_scale`/`v_scale` (one
-// float per key; unused by the float instance).
-template <int G, typename KV>
-__global__ void __launch_bounds__(kThreads, G <= 4 ? 7 : 4)
+// `kCols` columns of a V row (float or int8) as floats.
+template <int N, typename KV>
+__device__ __forceinline__ void load_cols(const KV* p, float (&x)[N]) {
+  static_assert(N == 2 || N == 4, "2 or 4 columns per lane");
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    if constexpr (N == 2) {
+      const char2 c = *reinterpret_cast<const char2*>(p);
+      x[0] = c.x;
+      x[1] = c.y;
+    } else {
+      const char4 c = *reinterpret_cast<const char4*>(p);
+      x[0] = c.x;
+      x[1] = c.y;
+      x[2] = c.z;
+      x[3] = c.w;
+    }
+  } else {
+    if constexpr (N == 2) {
+      const float2 f = *reinterpret_cast<const float2*>(p);
+      x[0] = f.x;
+      x[1] = f.y;
+    } else {
+      const float4 f = *reinterpret_cast<const float4*>(p);
+      x[0] = f.x;
+      x[1] = f.y;
+      x[2] = f.z;
+      x[3] = f.w;
+    }
+  }
+}
+
+// D, the head dim, and G, the query heads of a KV head, are template
+// parameters so that the per-head softmax state and accumulators stay in
+// registers sized to them.  The blocks per SM that the register budget
+// must allow: at D = 64 up to four heads fit seven (72 registers; a cap
+// of 64 for eight spilled at G = 3), as many as a 47-key single stage's
+// shared memory allows; D = 128 holds twice the P V accumulators, and its
+// two stages fit three blocks per SM, so a cap of 128 registers (four
+// blocks) leaves them room (`ops.py::decode_split_plan` counts blocks per
+// SM with the same numbers).  KV is the K/V element type: float, or
+// int8_t with `k_scale`/`v_scale` (one float per key; unused by the float
+// instance).
+template <int D, int G, typename KV>
+__global__ void __launch_bounds__(kThreads, D == 64 ? (G <= 4 ? 7 : 4) : 4)
 decode_attention_kernel(const float* __restrict__ q,
                         const KV* __restrict__ k,
                         const KV* __restrict__ v,
@@ -206,6 +258,12 @@ decode_attention_kernel(const float* __restrict__ q,
                         float* __restrict__ out, int H, int Hkv, int T,
                         int chunk, int tk, int stages) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  constexpr int kD = D;
+  constexpr int kWarpKeys = Dims<D>::kWarpKeys;
+  constexpr int kCols = Dims<D>::kCols;
+  constexpr int kPart = Dims<D>::kPart;
+  // 1 / sqrt(D).
+  constexpr float kScale = D == 64 ? 0.125f : 0.08838834764831845f;
   cg::cluster_group cluster = cg::this_cluster();
   // The first barrier phase only says that every block of the cluster
   // has started (rank 0's shared memory exists): arrive now, wait once
@@ -216,7 +274,7 @@ decode_attention_kernel(const float* __restrict__ q,
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   extern __shared__ __align__(16) float smem[];
-  const Layout lay{tk, stages, G, splits, static_cast<int>(sizeof(KV))};
+  const Layout<D> lay{tk, stages, G, splits, static_cast<int>(sizeof(KV))};
   float* q_s = smem + lay.q_off();
   float* wpart = smem;
   float* bpart = smem + lay.block_off();
@@ -238,7 +296,7 @@ decode_attention_kernel(const float* __restrict__ q,
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     for (int j = 0; j < min(stages, n_tiles); ++j) {
-      load_tile(smem, full, k + kv_base, v + kv_base, j, n, tk, stages);
+      load_tile<D>(smem, full, k + kv_base, v + kv_base, j, n, tk, stages);
     }
   }
   const float4* qb = reinterpret_cast<const float4*>(
@@ -248,14 +306,17 @@ decode_attention_kernel(const float* __restrict__ q,
   }
   __syncthreads();
 
-  float m[G], l[G], acc[G][2];
+  float m[G], l[G], acc[G][kCols];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
-    acc[g][0] = acc[g][1] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[g][c] = 0.f;
   }
-  const int t = lane & 15, half = lane >> 4;
+  // Lane (t, part) takes key t of the warp's keys, columns [32 part,
+  // 32 part + 32) for the scores.
+  const int t = lane % kWarpKeys, part = lane / kWarpKeys;
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % stages;
     const uint32_t parity = (j / stages) & 1;
@@ -278,10 +339,10 @@ decode_attention_kernel(const float* __restrict__ q,
     const KV* ks = reinterpret_cast<const KV*>(smem) + s * 2 * tk * kD;
     const KV* vs = ks + tk * kD;
     if (nw > 0) {
-      // Scores: lane (t, half) takes key w0 + t over columns
-      // [32 half, 32 half + 32), 4 by 4 in swizzled order.
-      const KV* krow = ks + (w0 + (valid ? t : 0)) * kD + 32 * half;
-      const float* qh = q_s + 32 * half;
+      // Scores: lane (t, part) takes key w0 + t over columns
+      // [32 part, 32 part + 32), 4 by 4 in swizzled order.
+      const KV* krow = ks + (w0 + (valid ? t : 0)) * kD + 32 * part;
+      const float* qh = q_s + 32 * part;
       float sc[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) sc[g] = 0.f;
@@ -304,19 +365,23 @@ decode_attention_kernel(const float* __restrict__ q,
           sc[g] = fmaf(qq.w, kk.w, sc[g]);
         }
       }
-      // The online softmax of the warp's keys, per head: lanes t and
-      // t + 16 hold the same key after the halves are summed.
+      // The online softmax of the warp's keys, per head: the lanes
+      // t + kWarpKeys i hold the same key once the parts are summed.
       float p[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         // Every lane shuffles (a full-mask shuffle skipped by some lanes
         // is undefined), then the lanes past the warp's keys drop out as
         // -inf.
-        const float dot = sc[g] + __shfl_xor_sync(0xffffffffu, sc[g], 16);
+        float dot = sc[g];
+#pragma unroll
+        for (int off = kWarpKeys; off < 32; off <<= 1) {
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        }
         const float sg = valid ? dot * kmul : -INFINITY;
         float mx = sg;
 #pragma unroll
-        for (int off = 8; off > 0; off >>= 1) {
+        for (int off = kWarpKeys / 2; off > 0; off >>= 1) {
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
         }
         const float m_new = fmaxf(m[g], mx);
@@ -325,32 +390,27 @@ decode_attention_kernel(const float* __restrict__ q,
         p[g] = valid ? expf(sg - m_safe) : 0.f;
         float sum = p[g];
 #pragma unroll
-        for (int off = 8; off > 0; off >>= 1) {
+        for (int off = kWarpKeys / 2; off > 0; off >>= 1) {
           sum += __shfl_xor_sync(0xffffffffu, sum, off);
         }
         l[g] = l[g] * alpha + sum;
         m[g] = m_new;
-        acc[g][0] *= alpha;
-        acc[g][1] *= alpha;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[g][c] *= alpha;
         if constexpr (kQuant) p[g] *= vmul;
       }
-      // P V: lane owns columns 2 lane, 2 lane + 1; key i's weight comes
-      // from lane i.
-      const KV* vcol = vs + w0 * kD + 2 * lane;
+      // P V: lane owns columns kCols lane .. kCols lane + kCols - 1; key
+      // i's weight comes from lane i.
+      const KV* vcol = vs + w0 * kD + kCols * lane;
 #pragma unroll 4
       for (int i = 0; i < nw; ++i) {
-        float2 vv;
-        if constexpr (kQuant) {
-          const char2 v8 = *reinterpret_cast<const char2*>(vcol + i * kD);
-          vv = make_float2(v8.x, v8.y);
-        } else {
-          vv = *reinterpret_cast<const float2*>(vcol + i * kD);
-        }
+        float vv[kCols];
+        load_cols<kCols>(vcol + i * kD, vv);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float pg = __shfl_sync(0xffffffffu, p[g], i);
-          acc[g][0] = fmaf(pg, vv.x, acc[g][0]);
-          acc[g][1] = fmaf(pg, vv.y, acc[g][1]);
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) acc[g][c] = fmaf(pg, vv[c], acc[g][c]);
         }
       }
     }
@@ -360,8 +420,8 @@ decode_attention_kernel(const float* __restrict__ q,
     if (lane == 0) mbar_arrive(&empty[s]);
     if (tid == 0 && j + stages < n_tiles) {
       mbar_wait(&empty[s], parity);
-      load_tile(smem, full, k + kv_base, v + kv_base, j + stages, n, tk,
-                stages);
+      load_tile<D>(smem, full, k + kv_base, v + kv_base, j + stages, n, tk,
+                   stages);
     }
   }
 
@@ -375,8 +435,12 @@ decode_attention_kernel(const float* __restrict__ q,
       wp[g * kPart] = m[g];
       wp[g * kPart + 1] = l[g];
     }
-    *reinterpret_cast<float2*>(wp + g * kPart + 2 + 2 * lane) =
-        make_float2(acc[g][0], acc[g][1]);
+    // 8-byte aligned: kPart, 2 and kCols are even.
+#pragma unroll
+    for (int c = 0; c < kCols; c += 2) {
+      *reinterpret_cast<float2*>(wp + g * kPart + 2 + kCols * lane + c) =
+          make_float2(acc[g][c], acc[g][c + 1]);
+    }
   }
   __syncthreads();
   // The block's partial goes straight into its slot of rank 0's shared
@@ -444,13 +508,13 @@ decode_attention_kernel(const float* __restrict__ q,
 
 }  // namespace
 
-int decode_attention_head_dim() { return kD; }
+bool decode_attention_has_head_dim(int d) { return d == 64 || d == 128; }
 int decode_attention_max_group() { return kMaxG; }
 int decode_attention_max_splits() { return kMaxSplits; }
 
 namespace {
 
-template <typename KV>
+template <int D, typename KV>
 cudaError_t launch(const float* q, const KV* k, const KV* v,
                    const float* k_scale, const float* v_scale,
                    const int* kv_len, float* out, int B, int H, int Hkv,
@@ -459,16 +523,17 @@ cudaError_t launch(const float* q, const KV* k, const KV* v,
                           const float*, const int*, float*, int, int, int,
                           int, int, int);
   constexpr Kernel kKernels[kMaxG] = {
-      decode_attention_kernel<1, KV>, decode_attention_kernel<2, KV>,
-      decode_attention_kernel<3, KV>, decode_attention_kernel<4, KV>,
-      decode_attention_kernel<5, KV>, decode_attention_kernel<6, KV>,
-      decode_attention_kernel<7, KV>, decode_attention_kernel<8, KV>};
+      decode_attention_kernel<D, 1, KV>, decode_attention_kernel<D, 2, KV>,
+      decode_attention_kernel<D, 3, KV>, decode_attention_kernel<D, 4, KV>,
+      decode_attention_kernel<D, 5, KV>, decode_attention_kernel<D, 6, KV>,
+      decode_attention_kernel<D, 7, KV>, decode_attention_kernel<D, 8, KV>};
   constexpr int kvb = static_cast<int>(sizeof(KV));
+  constexpr int kTK = Dims<D>::kTK;
   const int G = H / Hkv;
   if (G < 1 || G > kMaxG) return cudaErrorInvalidValue;
   const Kernel kernel = kKernels[G - 1];
   // The dynamic shared memory above 48 KB is granted once per device,
-  // element type and group size.
+  // head dim, element type and group size.
   constexpr int kMaxDevices = 64;
   static bool granted[kMaxDevices][kMaxG] = {};
   int device = 0;
@@ -477,7 +542,8 @@ cudaError_t launch(const float* q, const KV* k, const KV* v,
   if (device >= kMaxDevices || !granted[device][G - 1]) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(Layout{kTK, kStages, G, kMaxSplits, kvb}.bytes()));
+        static_cast<int>(
+            Layout<D>{kTK, kStages, G, kMaxSplits, kvb}.bytes()));
     if (err != cudaSuccess) return err;
     if (device < kMaxDevices) granted[device][G - 1] = true;
   }
@@ -487,7 +553,7 @@ cudaError_t launch(const float* q, const KV* k, const KV* v,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, Hkv, B);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = Layout{tk, stages, G, splits, kvb}.bytes();
+  cfg.dynamicSmemBytes = Layout<D>{tk, stages, G, splits, kvb}.bytes();
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -500,15 +566,32 @@ cudaError_t launch(const float* q, const KV* k, const KV* v,
                             out, H, Hkv, T, chunk, tk, stages);
 }
 
+template <typename KV>
+cudaError_t launch_d(const float* q, const KV* k, const KV* v,
+                     const float* k_scale, const float* v_scale,
+                     const int* kv_len, float* out, int B, int H, int Hkv,
+                     int T, int D, int splits, int chunk,
+                     cudaStream_t stream) {
+  if (D == 64) {
+    return launch<64, KV>(q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv,
+                          T, splits, chunk, stream);
+  }
+  if (D == 128) {
+    return launch<128, KV>(q, k, v, k_scale, v_scale, kv_len, out, B, H,
+                           Hkv, T, splits, chunk, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 cudaError_t launch_decode_attention(const float* q, const float* k,
                                     const float* v, const int* kv_len,
                                     float* out, int B, int H, int Hkv, int T,
-                                    int splits, int chunk,
+                                    int D, int splits, int chunk,
                                     cudaStream_t stream) {
-  return launch<float>(q, k, v, nullptr, nullptr, kv_len, out, B, H, Hkv, T,
-                       splits, chunk, stream);
+  return launch_d<float>(q, k, v, nullptr, nullptr, kv_len, out, B, H, Hkv,
+                         T, D, splits, chunk, stream);
 }
 
 cudaError_t launch_decode_attention_int8(const float* q, const int8_t* k,
@@ -516,8 +599,9 @@ cudaError_t launch_decode_attention_int8(const float* q, const int8_t* k,
                                          const float* k_scale,
                                          const float* v_scale,
                                          const int* kv_len, float* out, int B,
-                                         int H, int Hkv, int T, int splits,
-                                         int chunk, cudaStream_t stream) {
-  return launch<int8_t>(q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv, T,
-                        splits, chunk, stream);
+                                         int H, int Hkv, int T, int D,
+                                         int splits, int chunk,
+                                         cudaStream_t stream) {
+  return launch_d<int8_t>(q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv,
+                          T, D, splits, chunk, stream);
 }

@@ -9,37 +9,53 @@ import torch
 
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 from repro_torch.kernels.mode import (H100_SMS, MAX_CLUSTER, aligned16,
-                                      launch_counts, sm_count, use_kernel)
+                                      launch_counts, launch_name, sm_count,
+                                      use_kernel)
 
 
-# The kernel's tile and its shared memory (decode_attention.cu): K and V
-# of up to 64 keys per stage (one key of K and V: 2 x 64 float32, or 2 x
-# 64 int8 for the int8 instance, whose scales are loaded straight into
-# registers), two stages for a longer range, up to ~8 KB more for q, the
-# cluster's partials and the barriers; up to 8 blocks an SM.
-_TILE_KEYS, _EXTRA_BYTES, _MAX_BLOCKS = 64, 8192, 8
-KEY_BYTES_F32, KEY_BYTES_INT8 = 2 * 64 * 4, 2 * 64 * 1
+# The kernel's tiles and their shared memory (decode_attention.cu), per
+# compiled head dim D: K and V of up to 64 keys per stage at D = 64 and 32
+# at D = 128 (one key of K and V: 2 x D float32, or 2 x D int8 for the
+# int8 instance, whose scales are loaded straight into registers), two
+# stages for a longer range, up to ~8 KB more for q, the cluster's
+# partials and the barriers; up to 8 blocks an SM at D = 64 and 4 at
+# D = 128 (the instances' register caps).
+_TILE_KEYS = {64: 64, 128: 32}
+_MAX_BLOCKS = {64: 8, 128: 4}
+_EXTRA_BYTES = 8192
 _SMEM_PER_SM, _SMEM_PER_BLOCK_RESERVED = 228 * 1024, 1024
 
 
+def bytes_per_key(head_dim: int, int8: bool = False) -> int:
+    """Shared memory of one key of K and V in the instance for
+    ``head_dim`` (float32, or ``int8``)."""
+    return 2 * head_dim * (1 if int8 else 4)
+
+
+KEY_BYTES_F32, KEY_BYTES_INT8 = bytes_per_key(64), bytes_per_key(64, True)
+
+
 def decode_split_plan(b: int, hkv: int, t: int, sms: int = H100_SMS,
-                      key_bytes: int = KEY_BYTES_F32) -> tuple[int, int]:
+                      key_bytes: int = KEY_BYTES_F32,
+                      head_dim: int = 64) -> tuple[int, int]:
     """(splits, chunk): each (row, KV head) runs as a cluster of ``splits``
     blocks, block i owning keys [i chunk, min((i + 1) chunk, t)) (empty
     where it starts at or past t).  The most splits (at most 8, at most
     one per 16 keys) whose whole grid is resident on the card at once:
-    a second wave of blocks costs more than the splits gain (at the serve
-    shape, 2 splits: 320 blocks of two 64-key stages, 3 per SM).
-    ``key_bytes`` is the shared memory of one key of K and V
-    (``KEY_BYTES_INT8`` for the int8 instance)."""
+    a second wave of blocks costs more than the splits gain (at
+    smollm-360m's serve shape, 2 splits: 320 blocks of two 64-key stages,
+    3 per SM).  ``head_dim`` picks the instance (64 or 128) and
+    ``key_bytes`` is the shared memory of one of its keys of K and V
+    (``bytes_per_key(head_dim, int8)``)."""
     rows = max(1, b * hkv)
+    tile_keys, max_blocks = _TILE_KEYS[head_dim], _MAX_BLOCKS[head_dim]
     best = 1
     for splits in range(2, min(MAX_CLUSTER, max(1, -(-t // 16))) + 1):
         chunk = -(-t // splits)
-        tile = min(chunk, _TILE_KEYS)
+        tile = min(chunk, tile_keys)
         stages = 2 if chunk > tile else 1
         smem = stages * tile * key_bytes + _EXTRA_BYTES
-        per_sm = min(_MAX_BLOCKS,
+        per_sm = min(max_blocks,
                      _SMEM_PER_SM // (smem + _SMEM_PER_BLOCK_RESERVED))
         if rows * splits <= sms * per_sm:
             best = splits
@@ -52,25 +68,29 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, H, D); k/v: (B, Hkv, T, D) f32, or int8 with ``k_scale``/
     ``v_scale`` (B, Hkv, T, 1) f32 (both or neither); kv_len: (B,) ->
-    (B, H, D).  The two routes agree to float32 summation order.  The
-    int8 instance counts under ``decode_attention_int8``."""
+    (B, H, D).  The two routes agree to float32 summation order.  Launches
+    count under ``launch_name``: ``decode_attention`` and
+    ``decode_attention_int8`` at D = 64, ``..._d128`` at D = 128."""
     assert (k_scale is None) == (v_scale is None)
     if not use_kernel(q):
         return decode_attention_plain(q, k, v, kv_len, k_scale, v_scale)
     from repro_torch.kernels.build import load_kernels
     ext = load_kernels()
     kvl = kv_len.to(torch.int32).contiguous()
-    if k_scale is None:
-        splits, chunk = decode_split_plan(k.shape[0], k.shape[1],
-                                          k.shape[2], sm_count(q.device))
+    d, int8 = q.shape[-1], k_scale is not None
+    # A head dim the kernel is not compiled for gets the smallest plan;
+    # the binding then raises.
+    splits, chunk = (decode_split_plan(
+        k.shape[0], k.shape[1], k.shape[2], sm_count(q.device),
+        bytes_per_key(d, int8), d) if d in _TILE_KEYS
+        else (1, max(1, k.shape[2])))
+    if not int8:
         out = ext.decode_attention(aligned16(q), aligned16(k), aligned16(v),
                                    kvl, splits, chunk)
-        launch_counts["decode_attention"] += 1
-        return out
-    splits, chunk = decode_split_plan(k.shape[0], k.shape[1], k.shape[2],
-                                      sm_count(q.device), KEY_BYTES_INT8)
-    out = ext.decode_attention_int8(aligned16(q), aligned16(k), aligned16(v),
-                                    k_scale.contiguous(),
-                                    v_scale.contiguous(), kvl, splits, chunk)
-    launch_counts["decode_attention_int8"] += 1
+    else:
+        out = ext.decode_attention_int8(aligned16(q), aligned16(k),
+                                        aligned16(v), k_scale.contiguous(),
+                                        v_scale.contiguous(), kvl, splits,
+                                        chunk)
+    launch_counts[launch_name("decode_attention", d, int8)] += 1
     return out

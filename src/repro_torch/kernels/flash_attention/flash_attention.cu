@@ -12,7 +12,8 @@
 // key t iff  t < T  and  t < kv_len[b]  and  t <= q_pos  and
 // (window > 0: t > q_pos - window) -- the masks of kernel.py:69-76 (the
 // serving path's prefill is always causal).  Compiled for the served
-// head dim only (D = 64, smollm-360m); the binding rejects any other.  The
+// head dims, D = 64 (smollm-360m) and D = 128 (granite-8b), a template
+// parameter beside KV; the binding rejects any other.  The
 // masked-row contract is ref.py::masked_softmax: the online softmax pins
 // m_safe to 0 while a row's running max is -inf and floors the
 // denominator at 1e-30, so a fully masked row (bucket padding,
@@ -43,8 +44,22 @@
 //   * one block serves up to three query heads of one KV head (GQA), one
 //     warp group each, so a K/V tile is staged once for all of them:
 //     168 KB of shared memory, 384 threads, one block per SM.
+// At D = 128 the same layout would not fit: two 64-key K/V stages take
+// 133 KB and each head's Q and P^T 51 KB, 235 KB for two heads against
+// the SM's 227 KB, and a thread's 8 x 8 output tile beside its 32 scores
+// would spill under the 168-register cap of 384 threads.  The D = 128
+// instance keeps the thread layout and halves the key tile instead:
+// 32-key tiles (thread (tr, tc) scores keys tc and tc + 16), an 8 x 8
+// output tile per thread (columns 4 tc .. 4 tc + 3 and 64 + 4 tc ..
+// 64 + 4 tc + 3, so a half-warp still reads a V row's 256 contiguous
+// bytes per float4), and up to two query heads per block: 67 KB of K/V
+// stages plus 42 KB of Q and P^T per head, 152 KB and 256 threads (a
+// cap of 255 registers; ptxas gives 192, no spill) for granite's group
+// of 4 in two blocks.  Two heads
+// rather than one, so that each K/V tile is staged twice per KV head,
+// not four times; the same 8 warps per SM either way.
 // The int8 instance (scales k_scale/v_scale (B, Hkv, T, 1)) stages each
-// tile's int8 K and V rows (16-byte cp.async copies of the 64-byte rows)
+// tile's int8 K and V rows (16-byte cp.async copies of the D-byte rows)
 // and its scales (4-byte cp.async copies: a scale row starts only 4-byte
 // aligned) in two stages, zero-filled past T, and dequantizes the tile in
 // shared memory into ONE float32 K/V tile (k_int8 * k_scale, the plain
@@ -65,30 +80,45 @@
 
 namespace {
 
-constexpr int kD = 64;                  // head dim
+// The tile of a head dim: keys per K/V tile, query heads per block.
+template <int D>
+struct Tile;
+template <>
+struct Tile<64> {
+  static constexpr int kBK = 64;
+  static constexpr int kMaxHeads = 3;
+};
+template <>
+struct Tile<128> {
+  static constexpr int kBK = 32;
+  static constexpr int kMaxHeads = 2;
+};
+
 constexpr int kBQ = 64;                 // query rows per warp group
 constexpr int kRowStep = kBQ / 8;       // thread row r is row tr + kRowStep r
-constexpr int kBK = 64;                 // keys per KV tile
-constexpr int kKN = kBK / 16;           // keys of a tile per thread
 constexpr int kGroup = 2 * kBQ;         // threads per warp group
-constexpr int kMaxHeads = 3;            // query heads per block
-constexpr int kDP = kD + 4;             // padded row of Q and K
 constexpr int kPP = kBQ + 4;            // padded row of P^T
-// 1 / sqrt(kD) times log2(e): scores live in the log2 domain.
-constexpr float kScaleLog2 = 0.125f * 1.4426950408889634f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory, in floats: the float32 K/V stages (two for the float32
 // instance, one for the int8 instance), the int8 instance's two raw stages
 // (K and V rows, then their scales), then Q and P^T per group.
-constexpr int kKStage = kBK * kDP;
-constexpr int kVStage = kBK * kD;
-constexpr int kGroupFloats = kBQ * kDP + kBK * kPP;
-constexpr int kRawKV = kBK * kD / 4;           // one int8 K (or V) tile
-constexpr int kRawStage = 2 * kRawKV + 2 * kBK;  // K, V, k scales, v scales
-
-template <typename KV>
+template <int D, typename KV>
 struct Smem {
   static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  static constexpr int kBK = Tile<D>::kBK;             // keys per KV tile
+  static constexpr int kKN = kBK / 16;                 // keys of a tile/thread
+  static constexpr int kOC = D / 16;                   // output columns/thread
+  static constexpr int kMaxHeads = Tile<D>::kMaxHeads;  // query heads/block
+  static constexpr int kDP = D + 4;                    // padded row of Q, K
+  // 1 / sqrt(D) times log2(e): scores live in the log2 domain.
+  static constexpr float kScaleLog2 =
+      (D == 64 ? 0.125f : 0.08838834764831845f) * kLog2e;
+  static constexpr int kKStage = kBK * kDP;
+  static constexpr int kVStage = kBK * D;
+  static constexpr int kGroupFloats = kBQ * kDP + kBK * kPP;
+  static constexpr int kRawKV = kBK * D / 4;         // one int8 K (or V) tile
+  static constexpr int kRawStage = 2 * kRawKV + 2 * kBK;  // K, V, scales
   static constexpr int kStagesF = kQuant ? 1 : 2;
   static constexpr int kOffV = kStagesF * kKStage;
   static constexpr int kOffRaw = kOffV + kStagesF * kVStage;
@@ -97,19 +127,6 @@ struct Smem {
     return (kOffGroups + heads * kGroupFloats) * sizeof(float);
   }
 };
-
-constexpr size_t smem_bytes(int heads) { return Smem<float>::bytes(heads); }
-constexpr int kOffV = Smem<float>::kOffV;
-
-static_assert(kD == 64, "kScaleLog2 and the thread tiles assume D = 64");
-static_assert(kBQ % 32 == 0 && kBK % 16 == 0 && kD == 4 * 16,
-              "thread (tr, tc): 8 rows, kKN keys, 4 output columns");
-static_assert(smem_bytes(kMaxHeads) <= 232448, "one block fits on an SM");
-static_assert(Smem<int8_t>::bytes(kMaxHeads) <= 232448,
-              "one int8 block fits on an SM");
-static_assert(kDP % 4 == 0 && kPP % 4 == 0 && kGroupFloats % 4 == 0 &&
-              Smem<int8_t>::kOffRaw % 4 == 0 && kRawStage % 4 == 0,
-              "float4 alignment");
 
 __device__ __forceinline__ void cp_async16_zfill(void* smem_dst,
                                                  const void* gmem_src,
@@ -149,10 +166,13 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 
 // One K/V tile (keys k0 .. k0 + kBK - 1) into a stage, by every thread of
 // the block.
+template <int D>
 __device__ __forceinline__ void load_kv(float* ks, float* vs,
                                         const float* __restrict__ k,
                                         const float* __restrict__ v,
                                         size_t kv_base, int k0, int T) {
+  using L = Smem<D, float>;
+  constexpr int kD = D, kBK = L::kBK, kDP = L::kDP;
   for (int e = threadIdx.x; e < kBK * kD / 4; e += blockDim.x) {
     const int r = e / (kD / 4), d4 = e % (kD / 4);
     const int kk = k0 + r;
@@ -166,12 +186,15 @@ __device__ __forceinline__ void load_kv(float* ks, float* vs,
 
 // One int8 K/V tile (keys k0 .. k0 + kBK - 1) and its scales into a raw
 // stage, by every thread of the block; rows past T are zeros.
+template <int D>
 __device__ __forceinline__ void load_kv(float* raw,
                                         const int8_t* __restrict__ k,
                                         const int8_t* __restrict__ v,
                                         const float* __restrict__ k_scale,
                                         const float* __restrict__ v_scale,
                                         size_t kv_base, int k0, int T) {
+  using L = Smem<D, int8_t>;
+  constexpr int kD = D, kBK = L::kBK, kRawKV = L::kRawKV;
   int8_t* ks = reinterpret_cast<int8_t*>(raw);
   int8_t* vs = reinterpret_cast<int8_t*>(raw + kRawKV);
   for (int e = threadIdx.x; e < kBK * kD / 16; e += blockDim.x) {
@@ -196,8 +219,11 @@ __device__ __forceinline__ void load_kv(float* raw,
 
 // A raw int8 stage into the float32 K (padded rows) and V tiles:
 // k_int8 * k_scale, v_int8 * v_scale.
+template <int D>
 __device__ __forceinline__ void dequantize_kv(float* ks, float* vs,
                                               const float* raw) {
+  using L = Smem<D, int8_t>;
+  constexpr int kD = D, kBK = L::kBK, kDP = L::kDP, kRawKV = L::kRawKV;
   const char4* k8 = reinterpret_cast<const char4*>(raw);
   const char4* v8 = reinterpret_cast<const char4*>(raw + kRawKV);
   const float* sk = raw + 2 * kRawKV;
@@ -213,10 +239,10 @@ __device__ __forceinline__ void dequantize_kv(float* ks, float* vs,
   }
 }
 
-// KV is the K/V element type: float, or int8_t with `k_scale`/`v_scale`
-// (one float per key; unused by the float instance).
-template <typename KV>
-__global__ void __launch_bounds__(kGroup * kMaxHeads, 1)
+// D is the head dim; KV is the K/V element type: float, or int8_t with
+// `k_scale`/`v_scale` (one float per key; unused by the float instance).
+template <int D, typename KV>
+__global__ void __launch_bounds__(kGroup * Tile<D>::kMaxHeads, 1)
 flash_attention_kernel(const float* __restrict__ q,
                        const KV* __restrict__ k,
                        const KV* __restrict__ v,
@@ -226,7 +252,11 @@ flash_attention_kernel(const float* __restrict__ q,
                        const int* __restrict__ kv_len,
                        float* __restrict__ out, int H, int Hkv, int S, int T,
                        int window, int heads) {
-  using L = Smem<KV>;
+  using L = Smem<D, KV>;
+  constexpr int kD = D, kBK = L::kBK, kKN = L::kKN, kOC = L::kOC,
+                kDP = L::kDP, kKStage = L::kKStage, kVStage = L::kVStage,
+                kOffV = L::kOffV;
+  constexpr float kScaleLog2 = L::kScaleLog2;
   extern __shared__ __align__(16) float smem[];
   const int g = threadIdx.x / kGroup, t = threadIdx.x % kGroup;
   const int tr = t / 16, tc = t % 16;
@@ -237,7 +267,7 @@ flash_attention_kernel(const float* __restrict__ q,
   const int row0 = iq * kBQ;
   const int qoff = q_offset[b];
   const int klen = min(kv_len[b], T);
-  float* Qs = smem + L::kOffGroups + g * kGroupFloats;
+  float* Qs = smem + L::kOffGroups + g * L::kGroupFloats;
   float* Pt = Qs + kBQ * kDP;
 
   const size_t q_base = (static_cast<size_t>(b) * H + h) * S * kD;
@@ -250,9 +280,10 @@ flash_attention_kernel(const float* __restrict__ q,
   const int n_tiles = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
   if (n_tiles > 0) {
     if constexpr (L::kQuant) {
-      load_kv(smem + L::kOffRaw, k, v, k_scale, v_scale, kv_base, kbeg, T);
+      load_kv<D>(smem + L::kOffRaw, k, v, k_scale, v_scale, kv_base, kbeg,
+                 T);
     } else {
-      load_kv(smem, smem + kOffV, k, v, kv_base, kbeg, T);
+      load_kv<D>(smem, smem + kOffV, k, v, kv_base, kbeg, T);
     }
   }
 
@@ -273,7 +304,7 @@ flash_attention_kernel(const float* __restrict__ q,
     *reinterpret_cast<float4*>(Qs + r * kDP + 4 * d4) = qv;
   }
 
-  float o[8][4] = {};
+  float o[8][kOC] = {};
   float m[8], l[8];
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
@@ -297,19 +328,19 @@ flash_attention_kernel(const float* __restrict__ q,
       // The raw stage of tile it + 1 was last read while dequantizing
       // tile it - 1, before that tile's second barrier.
       if (it + 1 < n_tiles) {
-        load_kv(smem + L::kOffRaw + (stage ^ 1) * kRawStage, k, v, k_scale,
-                v_scale, kv_base, k0 + kBK, T);
+        load_kv<D>(smem + L::kOffRaw + (stage ^ 1) * L::kRawStage, k, v,
+                   k_scale, v_scale, kv_base, k0 + kBK, T);
       }
-      dequantize_kv(smem, smem + L::kOffV,
-                    smem + L::kOffRaw + stage * kRawStage);
+      dequantize_kv<D>(smem, smem + L::kOffV,
+                       smem + L::kOffRaw + stage * L::kRawStage);
       __syncthreads();
       ks = smem;
       vs = smem + L::kOffV;
     } else {
       if (it + 1 < n_tiles) {
-        load_kv(smem + (stage ^ 1) * kKStage,
-                smem + kOffV + (stage ^ 1) * kVStage, k, v, kv_base,
-                k0 + kBK, T);
+        load_kv<D>(smem + (stage ^ 1) * kKStage,
+                   smem + kOffV + (stage ^ 1) * kVStage, k, v, kv_base,
+                   k0 + kBK, T);
       }
       ks = smem + stage * kKStage;
       vs = smem + kOffV + stage * kVStage;
@@ -375,7 +406,7 @@ flash_attention_kernel(const float* __restrict__ q,
       l[r] = l[r] * alpha + psum;
       m[r] = m_new;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) o[r][c] *= alpha;
+      for (int c = 0; c < kOC; ++c) o[r][c] *= alpha;
     }
 
     // P^T (key, 8 tr + r) in the rows this warp owns.
@@ -389,19 +420,24 @@ flash_attention_kernel(const float* __restrict__ q,
     }
     __syncwarp();
 
-    // O += P V: rows tr + kRowStep r, columns 4 tc .. 4 tc + 3.
+    // O += P V: rows tr + kRowStep r, columns 64 j + 4 tc .. 64 j + 4 tc
+    // + 3 for j < kOC / 4.
 #pragma unroll 16
     for (int key = 0; key < kBK; ++key) {
       const float4 p0 = *reinterpret_cast<const float4*>(Pt + key * kPP + 8 * tr);
       const float4 p1 = *reinterpret_cast<const float4*>(Pt + key * kPP + 8 * tr + 4);
-      const float4 vv = *reinterpret_cast<const float4*>(vs + key * kD + 4 * tc);
       const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        o[r][0] = fmaf(pr[r], vv.x, o[r][0]);
-        o[r][1] = fmaf(pr[r], vv.y, o[r][1]);
-        o[r][2] = fmaf(pr[r], vv.z, o[r][2]);
-        o[r][3] = fmaf(pr[r], vv.w, o[r][3]);
+      for (int j = 0; j < kOC / 4; ++j) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            vs + key * kD + 64 * j + 4 * tc);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          o[r][4 * j] = fmaf(pr[r], vv.x, o[r][4 * j]);
+          o[r][4 * j + 1] = fmaf(pr[r], vv.y, o[r][4 * j + 1]);
+          o[r][4 * j + 2] = fmaf(pr[r], vv.z, o[r][4 * j + 2]);
+          o[r][4 * j + 3] = fmaf(pr[r], vv.w, o[r][4 * j + 3]);
+        }
       }
     }
     __syncwarp();  // P^T is rewritten by the next tile
@@ -418,50 +454,78 @@ flash_attention_kernel(const float* __restrict__ q,
     const int s = row0 + tr + kRowStep * r;
     if (s < S) {
       const float denom = fmaxf(lt, 1e-30f);
-      *reinterpret_cast<float4*>(out + q_base + static_cast<size_t>(s) * kD +
-                                 4 * tc) =
-          make_float4(o[r][0] / denom, o[r][1] / denom, o[r][2] / denom,
-                      o[r][3] / denom);
+#pragma unroll
+      for (int j = 0; j < kOC / 4; ++j) {
+        *reinterpret_cast<float4*>(out + q_base +
+                                   static_cast<size_t>(s) * kD + 64 * j +
+                                   4 * tc) =
+            make_float4(o[r][4 * j] / denom, o[r][4 * j + 1] / denom,
+                        o[r][4 * j + 2] / denom, o[r][4 * j + 3] / denom);
+      }
     }
   }
 }
 
 }  // namespace
 
-int flash_attention_head_dim() { return kD; }
+bool flash_attention_has_head_dim(int d) { return d == 64 || d == 128; }
 
 namespace {
 
-template <typename KV>
+template <int D, typename KV>
 cudaError_t launch(const float* q, const KV* k, const KV* v,
                    const float* k_scale, const float* v_scale,
                    const int* q_offset, const int* kv_len, float* out, int B,
                    int H, int Hkv, int S, int T, int window,
                    cudaStream_t stream) {
-  // The dynamic shared memory above 48 KB is granted once per device and
-  // element type.
+  using L = Smem<D, KV>;
+  static_assert(kBQ % 32 == 0 && L::kBK % 16 == 0 && D == 64 * (L::kOC / 4),
+                "thread (tr, tc): 8 rows, kKN keys, kOC output columns");
+  static_assert(L::bytes(L::kMaxHeads) <= 232448, "one block fits on an SM");
+  static_assert(L::kDP % 4 == 0 && kPP % 4 == 0 && L::kGroupFloats % 4 == 0 &&
+                L::kOffRaw % 4 == 0 && L::kRawStage % 4 == 0 &&
+                L::kOffV % 4 == 0, "float4 alignment");
+  // The dynamic shared memory above 48 KB is granted once per device,
+  // head dim and element type.
   constexpr int kMaxDevices = 64;
   static bool granted[kMaxDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= kMaxDevices || !granted[device]) {
-    err = cudaFuncSetAttribute(flash_attention_kernel<KV>,
+    err = cudaFuncSetAttribute(flash_attention_kernel<D, KV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(Smem<KV>::bytes(kMaxHeads)));
+                               static_cast<int>(L::bytes(L::kMaxHeads)));
     if (err != cudaSuccess) return err;
     if (device < kMaxDevices) granted[device] = true;
   }
   // The most query heads of one KV head (a divisor of H / Hkv) per block.
   const int G = H / Hkv;
-  int heads = kMaxHeads;
+  int heads = L::kMaxHeads;
   while (G % heads) --heads;
   const dim3 grid(H / heads, B, (S + kBQ - 1) / kBQ);
-  flash_attention_kernel<KV>
-      <<<grid, kGroup * heads, Smem<KV>::bytes(heads), stream>>>(
+  flash_attention_kernel<D, KV>
+      <<<grid, kGroup * heads, L::bytes(heads), stream>>>(
           q, k, v, k_scale, v_scale, q_offset, kv_len, out, H, Hkv, S, T,
           window, heads);
   return cudaSuccess;
+}
+
+template <typename KV>
+cudaError_t launch_d(const float* q, const KV* k, const KV* v,
+                     const float* k_scale, const float* v_scale,
+                     const int* q_offset, const int* kv_len, float* out,
+                     int B, int H, int Hkv, int S, int T, int D, int window,
+                     cudaStream_t stream) {
+  if (D == 64) {
+    return launch<64, KV>(q, k, v, k_scale, v_scale, q_offset, kv_len, out,
+                          B, H, Hkv, S, T, window, stream);
+  }
+  if (D == 128) {
+    return launch<128, KV>(q, k, v, k_scale, v_scale, q_offset, kv_len, out,
+                           B, H, Hkv, S, T, window, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -469,10 +533,10 @@ cudaError_t launch(const float* q, const KV* k, const KV* v,
 cudaError_t launch_flash_attention(const float* q, const float* k,
                                    const float* v, const int* q_offset,
                                    const int* kv_len, float* out, int B, int H,
-                                   int Hkv, int S, int T, int window,
+                                   int Hkv, int S, int T, int D, int window,
                                    cudaStream_t stream) {
-  return launch<float>(q, k, v, nullptr, nullptr, q_offset, kv_len, out, B, H,
-                       Hkv, S, T, window, stream);
+  return launch_d<float>(q, k, v, nullptr, nullptr, q_offset, kv_len, out, B,
+                         H, Hkv, S, T, D, window, stream);
 }
 
 cudaError_t launch_flash_attention_int8(const float* q, const int8_t* k,
@@ -480,8 +544,8 @@ cudaError_t launch_flash_attention_int8(const float* q, const int8_t* k,
                                         const float* v_scale,
                                         const int* q_offset, const int* kv_len,
                                         float* out, int B, int H, int Hkv,
-                                        int S, int T, int window,
+                                        int S, int T, int D, int window,
                                         cudaStream_t stream) {
-  return launch<int8_t>(q, k, v, k_scale, v_scale, q_offset, kv_len, out, B,
-                        H, Hkv, S, T, window, stream);
+  return launch_d<int8_t>(q, k, v, k_scale, v_scale, q_offset, kv_len, out,
+                          B, H, Hkv, S, T, D, window, stream);
 }

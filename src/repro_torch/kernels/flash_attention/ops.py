@@ -8,7 +8,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
-from repro_torch.kernels.mode import aligned16, launch_counts, use_kernel
+from repro_torch.kernels.mode import (aligned16, launch_counts, launch_name,
+                                      use_kernel)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -21,8 +22,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int8 with ``k_scale``/``v_scale`` (B, Hkv, T, 1) f32 (both or
     neither); optional (B,) i32 ``q_offset``/``kv_len`` (defaults: offset
     0, full T) -> (B, H, S, D).  The two routes agree to float32
-    summation order.  The int8 instance counts under
-    ``flash_attention_int8``."""
+    summation order.  Launches count under ``launch_name``:
+    ``flash_attention`` and ``flash_attention_int8`` at D = 64,
+    ``..._d128`` at D = 128."""
     assert (k_scale is None) == (v_scale is None)
     if not use_kernel(q):
         return flash_attention_plain(q, k, v, q_offset, kv_len, k_scale,
@@ -40,11 +42,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k_scale is None:
         out = ext.flash_attention(aligned16(q), aligned16(k), aligned16(v),
                                   q_offset, kv_len, int(window))
-        launch_counts["flash_attention"] += 1
-        return out
-    out = ext.flash_attention_int8(aligned16(q), aligned16(k), aligned16(v),
-                                   k_scale.contiguous(),
-                                   v_scale.contiguous(), q_offset, kv_len,
-                                   int(window))
-    launch_counts["flash_attention_int8"] += 1
+    else:
+        out = ext.flash_attention_int8(aligned16(q), aligned16(k),
+                                       aligned16(v), k_scale.contiguous(),
+                                       v_scale.contiguous(), q_offset,
+                                       kv_len, int(window))
+    launch_counts[launch_name("flash_attention", q.shape[-1],
+                              k_scale is not None)] += 1
     return out

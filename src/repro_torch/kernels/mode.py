@@ -35,6 +35,14 @@ def reset_launch_counts() -> None:
     launch_counts.clear()
 
 
+def launch_name(kernel: str, head_dim: int, int8: bool = False) -> str:
+    """The ``launch_counts`` key of an attention kernel's instance: the
+    kernel's name, ``_int8`` for int8 K/V, and ``_d<D>`` for a head dim
+    other than 64 (``decode_attention``, ``flash_attention_int8_d128``)."""
+    name = kernel + ("_int8" if int8 else "")
+    return name if head_dim == 64 else f"{name}_d{head_dim}"
+
+
 def use_kernel(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU
     tensor (run the plain version); raises for any other device."""

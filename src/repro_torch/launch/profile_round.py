@@ -1,12 +1,14 @@
 """Where a fused serving round spends its time on the card.
 
-  python -m repro_torch.launch.profile_round [--rounds 6] [--quant] \
-      [--strategy gls] [--trace build/profile_round_trace.json]
+  python -m repro_torch.launch.profile_round [--arch smollm-360m] \
+      [--rounds 6] [--quant] [--strategy gls] \
+      [--trace build/profile_round_trace.json]
 
-Serves smollm-360m at its published widths with the serving geometry of
-``chip_smoke.py`` (32-layer target, 4-layer drafter, 4 slots x 8 drafts
-x 4 draft tokens, the kernel verifier and both attention kernels,
-float32; ``--strategy``: the verification strategy, GLS by default, one
+Serves a dense model (``--arch``: smollm-360m by default, or granite-8b)
+at its published widths with the serving geometry of ``chip_smoke.py``
+(the full-depth target, a 4-layer drafter of the same widths, 4 slots x
+8 drafts x 4 draft tokens, the kernel verifier and both attention
+kernels, float32; ``--strategy``: the verification strategy, GLS by default, one
 draft for single and daliri; ``--quant``: int8 KV arenas and the W8A8
 verify chunk of ``SpecDecConfig(quant=True)``), fills all four slots,
 warms up, then
@@ -44,11 +46,15 @@ import numpy as np
 import torch
 
 from repro_torch import random as R
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.launch.serve import build_pair
 from repro_torch.specdec import STRATEGIES, CachedSpecDecEngine
 from repro_torch.specdec import SpecDecConfig, SpecDecServer
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# The kv_fused engine serves the dense family only.
+DENSE_ARCHS = tuple(a for a in ARCH_NAMES
+                    if get_config(a).family == "dense")
 
 
 def _union_us(intervals) -> float:
@@ -121,6 +127,7 @@ def analyse(trace: dict, rounds: int, prefix: str = "round/",
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="smollm-360m", choices=DENSE_ARCHS)
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -136,7 +143,7 @@ def main(argv=None):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    target, drafter = build_pair("smollm-360m", 4, args.seed, dev)
+    target, drafter = build_pair(args.arch, 4, args.seed, dev)
     k = 1 if args.strategy in ("single", "daliri") else 8
     cfg = SpecDecConfig(num_drafts=k, draft_len=4, strategy=args.strategy,
                         top_k=50, verifier_backend="kernel",
@@ -172,9 +179,9 @@ def main(argv=None):
     wall = float(np.mean(walls))
     res.update(wall_ms_per_round=wall, wall_ms_rounds=walls,
                device_idle_share=1.0 - res["device_busy_ms_per_round"] / wall,
-               quant=args.quant, strategy=args.strategy,
+               quant=args.quant, strategy=args.strategy, arch=args.arch,
                device=torch.cuda.get_device_name(0))
-    print(f"strategy={args.strategy} quant={args.quant} "
+    print(f"arch={args.arch} strategy={args.strategy} quant={args.quant} "
           f"rounds={args.rounds} wall={wall:.2f} ms/round "
           f"device_busy={res['device_busy_ms_per_round']:.2f} ms/round "
           f"idle_share={res['device_idle_share']:.3f} "

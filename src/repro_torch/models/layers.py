@@ -110,8 +110,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The flash kernel also takes a sliding ``window``, but no served
     model has one, so this function never passes it.  Both kernels are
-    compiled for head dim 64 only (smollm-360m); other head dims take
-    the kernels' plain versions on the CPU and raise on the card.
+    compiled for head dims 64 (smollm-360m) and 128 (granite-8b), up to
+    8 query heads per KV head; on the card any other head dim raises
+    (there is no fallback to the dense path), on the CPU every head dim
+    takes the kernels' plain versions.
 
     Both are online-softmax streams, equal to the dense path up to
     float32 summation order.  Everything else takes the dense path.

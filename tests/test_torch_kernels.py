@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention.ops import (KEY_BYTES_INT8,
+                                                      bytes_per_key,
                                                       decode_attention,
                                                       decode_split_plan)
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
@@ -233,15 +234,21 @@ def _attn_inputs(rng, b, h, hkv, s, t, d):
     return q, k, v
 
 
+# (head dim, query heads over 2 KV heads): G = 3 as smollm-360m, G = 4 as
+# granite-8b, at head dims 16 and 128 (granite's).
+ATTN_DIMS = [(16, 6), (16, 8), (128, 6), (128, 8)]
+
+
+@pytest.mark.parametrize("d,h", ATTN_DIMS)
 @pytest.mark.parametrize("t", [40, 130])
-def test_decode_plain_matches_interpret_kernel(jx, t):
-    """G = 3 grouped heads, ragged kv_len and a kv_len = 0 row: the plain
-    version follows the Pallas kernel's contract (zeros on a fully
+def test_decode_plain_matches_interpret_kernel(jx, t, d, h):
+    """G = 3 and 4 grouped heads, ragged kv_len and a kv_len = 0 row: the
+    plain version follows the Pallas kernel's contract (zeros on a fully
     masked row), compared with the interpret kernel on every row and
     with ``decode_attention_ref`` (plain softmax, NaN at kv_len = 0) on
     the rows with a live key."""
     rng = np.random.RandomState(t)
-    q, k, v = _attn_inputs(rng, 5, 6, 2, 1, t, 16)
+    q, k, v = _attn_inputs(rng, 5, h, 2, 1, t, d)
     q = q[:, :, 0]
     kv_len = np.array([0, 1, t // 3, t - 1, t], np.int32)
     plain = decode_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
@@ -259,13 +266,15 @@ def test_decode_plain_matches_interpret_kernel(jx, t):
     assert np.isnan(ref[0]).all()
 
 
+@pytest.mark.parametrize("d,h", ATTN_DIMS)
 @pytest.mark.parametrize("window", [0, 7])
-def test_flash_plain_matches_interpret_kernel(jx, window):
+def test_flash_plain_matches_interpret_kernel(jx, window, d, h):
     """Per-row q_offset/kv_len arena masks, a bucket-padded row (queries
     past kv_len), a row whose chunk runs past T, and a fully masked row
-    (kv_len = 0) -- against the interpret kernel and the reference."""
+    (kv_len = 0) -- against the interpret kernel and the reference, at
+    G = 3 and 4."""
     rng = np.random.RandomState(11 + window)
-    b, h, hkv, s, t, d = 5, 6, 2, 16, 40, 16
+    b, hkv, s, t = 5, 2, 16, 40
     q, k, v = _attn_inputs(rng, b, h, hkv, s, t, d)
     q_off = np.array([0, 8, 3, 30, 0], np.int32)
     kv_len = np.array([16, 24, 10, 46, 0], np.int32)   # row 2: padded tail
@@ -505,6 +514,133 @@ def test_flash_kernel_matches_plain_on_card(cuda, case):
         ref = flash_attention_plain(q, k, v, off, kvl, window=window)
         assert float((out - ref).abs().max()) <= 1e-4, window
         assert bool((out[kvl == 0] == 0).all())
+
+
+# The D = 128 instances (granite-8b): groups 1, 4 (granite's) and 8 (the
+# cap), on split edges and on the 32-key tile's edges.
+D128_GROUPS = [1, 4, 8]
+D128_KEYS = [1, 31, 32, 33, 64, 65, 370]
+
+
+def _decode_edges(b, t, splits, chunk):
+    edges = [0, 1, chunk, chunk - 1, chunk + 1, (splits - 1) * chunk, 32,
+             33, 64, 65, t - 1, t]
+    return np.array([min(max(e, 0), t) for e in edges] * b, np.int32)[:b]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", D128_GROUPS)
+@pytest.mark.parametrize("t", D128_KEYS)
+@pytest.mark.parametrize("b,hkv", DECODE_ROWS)
+def test_decode_kernel_d128_at_split_edges_on_card(cuda, g, t, b, hkv):
+    """The D = 128 instance within 1e-4 of plain with kv_len on its split
+    plan's edges and the 32/33/64/65-key tile edges; a kv_len == 0 row is
+    exactly zero; only ``decode_attention_d128`` counts the launch."""
+    rng = np.random.RandomState(t + g + 200)
+    q, k, v = (torch.from_numpy(x).to(cuda)
+               for x in _attn_inputs(rng, b, g * hkv, hkv, 1, t, 128))
+    splits, chunk = decode_split_plan(b, hkv, t, key_bytes=bytes_per_key(128),
+                                      head_dim=128)
+    kvl = torch.from_numpy(_decode_edges(b, t, splits, chunk)).to(cuda)
+    before = dict(launch_counts)
+    out = decode_attention(q[:, :, 0], k, v, kvl)
+    ref = decode_attention_plain(q[:, :, 0], k, v, kvl)
+    assert float((out - ref).abs().max()) <= 1e-4
+    assert bool((out[kvl == 0] == 0).all())
+    assert launch_counts["decode_attention_d128"] == \
+        before.get("decode_attention_d128", 0) + 1
+    assert launch_counts["decode_attention"] == \
+        before.get("decode_attention", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", D128_GROUPS)
+@pytest.mark.parametrize("t", D128_KEYS)
+@pytest.mark.parametrize("b,hkv", DECODE_ROWS)
+def test_decode_int8_kernel_d128_at_split_edges_on_card(cuda, g, t, b, hkv):
+    """The int8 D = 128 instance (128-byte key rows) within 1e-4 of plain
+    on its own split plan's edges; only ``decode_attention_int8_d128``
+    counts the launch."""
+    rng = np.random.RandomState(t + g + 300)
+    q = torch.from_numpy(rng.randn(b, g * hkv, 128).astype(np.float32)).to(
+        cuda)
+    k8, v8, ks, vs = _int8_kv(rng, b, hkv, t, 128, cuda)
+    splits, chunk = decode_split_plan(
+        b, hkv, t, key_bytes=bytes_per_key(128, int8=True), head_dim=128)
+    kvl = torch.from_numpy(_decode_edges(b, t, splits, chunk)).to(cuda)
+    before = dict(launch_counts)
+    out = decode_attention(q, k8, v8, kvl, ks, vs)
+    ref = decode_attention_plain(q, k8, v8, kvl, ks, vs)
+    assert float((out - ref).abs().max()) <= 1e-4
+    assert bool((out[kvl == 0] == 0).all())
+    assert launch_counts["decode_attention_int8_d128"] == \
+        before.get("decode_attention_int8_d128", 0) + 1
+    assert launch_counts["decode_attention_int8"] == \
+        before.get("decode_attention_int8", 0)
+
+
+# The float32 instance's cases at D = 128, plus granite's group (32 query
+# heads over 8 KV heads, the serve buffer) and the cap of 8.
+FLASH_D128_CASES = dict(
+    FLASH_CARD_CASES,
+    granite_group=(2, 32, 8, 100, 370, [0, 256], [100, 356], (0,)),
+    group_8=(2, 16, 2, 96, 160, [0, 40], [96, 136], (0, 9)),
+    keys_32_33=(3, 8, 2, 64, 65, [0, 1, 0], [32, 65, 33], (0,)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("case", sorted(FLASH_D128_CASES))
+def test_flash_kernel_d128_matches_plain_on_card(cuda, case, int8):
+    """The D = 128 instances (float32 and int8 K/V) within 1e-4 of plain on
+    the tile-edge cases (32-key tiles, up to two query heads per block);
+    a row with kv_len == 0 is exactly zero; each counts under its own
+    name."""
+    b, h, hkv, s, t, off, kvl, windows = FLASH_D128_CASES[case]
+    rng = np.random.RandomState(8)
+    q = torch.from_numpy(rng.randn(b, h, s, 128).astype(np.float32)).to(
+        cuda)
+    if int8:
+        kv = _int8_kv(rng, b, hkv, t, 128, cuda)
+    else:
+        kv = tuple(torch.from_numpy(rng.randn(b, hkv, t, 128).astype(
+            np.float32)).to(cuda) for _ in range(2)) + (None, None)
+    if off is None:
+        off = rng.randint(0, 150, b)
+        kvl = off + s
+        kvl[0] = 0
+    off, kvl = (torch.tensor(np.asarray(x, np.int32), device=cuda)
+                for x in (off, kvl))
+    name = "flash_attention_int8_d128" if int8 else "flash_attention_d128"
+    before = launch_counts[name]
+    for window in windows:
+        out = flash_attention(q, kv[0], kv[1], off, kvl, kv[2], kv[3],
+                              window=window)
+        ref = flash_attention_plain(q, kv[0], kv[1], off, kvl, kv[2], kv[3],
+                                    window=window)
+        assert float((out - ref).abs().max()) <= 1e-4, window
+        assert bool((out[kvl == 0] == 0).all())
+    assert launch_counts[name] == before + len(windows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_attention_kernels_reject_head_dim_96(cuda, int8):
+    """Head dims 64 and 128 are compiled; 96 (a multiple of 32 between
+    them) raises on the card for every instance."""
+    rng = np.random.RandomState(4)
+    q = torch.from_numpy(rng.randn(2, 6, 4, 96).astype(np.float32)).to(cuda)
+    if int8:
+        k, v, ks, vs = _int8_kv(rng, 2, 2, 9, 96, cuda)
+    else:
+        k, v = (torch.from_numpy(rng.randn(2, 2, 9, 96).astype(
+            np.float32)).to(cuda) for _ in range(2))
+        ks = vs = None
+    kvl = torch.tensor([9, 3], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="head dim 96"):
+        decode_attention(q[:, :, 0].contiguous(), k, v, kvl, ks, vs)
+    with pytest.raises(RuntimeError, match="head dim 96"):
+        flash_attention(q, k, v, torch.zeros_like(kvl), kvl, ks, vs)
 
 
 @pytest.mark.cuda

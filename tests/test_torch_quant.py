@@ -153,11 +153,18 @@ def _int8_kv(seed, b=3, hkv=2, t=40, d=16):
     return rng, (k8, v8, ks, vs)
 
 
-def test_int8_decode_plain_matches_jax():
+# (head dim, query heads over 2 KV heads): the cases of
+# ``test_quant_fused.py`` (d 16, G = 2), G = 4 as granite-8b, and both at
+# granite's head dim 128.
+INT8_DIMS = [(16, 4), (16, 8), (128, 4), (128, 8)]
+
+
+@pytest.mark.parametrize("d,h", INT8_DIMS)
+def test_int8_decode_plain_matches_jax(d, h):
     """``test_quant_fused.py:132-163``'s decode case (kv_len 40, 11, 1)
     plus a fully masked row (kv_len 0: zeros, the kernels' contract)."""
-    rng, (k8, v8, ks, vs) = _int8_kv(6, b=4)
-    q = rng.randn(4, 4, 16).astype(np.float32)
+    rng, (k8, v8, ks, vs) = _int8_kv(6, b=4, d=d)
+    q = rng.randn(4, h, d).astype(np.float32)
     kv_len = np.array([40, 11, 1, 0], np.int32)
     j_args = [jnp.asarray(a) for a in (q, k8, v8, kv_len, ks, vs)]
     t_args = [torch.tensor(a) for a in (q, k8, v8, kv_len, ks, vs)]
@@ -169,11 +176,12 @@ def test_int8_decode_plain_matches_jax():
     np.testing.assert_allclose(got[:3], ref, atol=ATTN_TOL, rtol=ATTN_TOL)
 
 
-def test_int8_flash_plain_matches_jax():
+@pytest.mark.parametrize("d,h", INT8_DIMS)
+def test_int8_flash_plain_matches_jax(d, h):
     """``test_quant_fused.py:132-163``'s prefill case (q_offset 0, 5, 30;
     6 queries each) plus a fully masked row (kv_len 0)."""
-    rng, (k8, v8, ks, vs) = _int8_kv(7, b=4)
-    q = rng.randn(4, 4, 6, 16).astype(np.float32)
+    rng, (k8, v8, ks, vs) = _int8_kv(7, b=4, d=d)
+    q = rng.randn(4, h, 6, d).astype(np.float32)
     q_off = np.array([0, 5, 30, 0], np.int32)
     kv_len = q_off + 6
     kv_len[3] = 0

@@ -126,9 +126,10 @@ extern "C" int variant_blocks_per_sm() {
 # One query head per block: K/V staged once per query head, 100 KB, two
 # blocks per SM.
 FLASH_1_HEAD = [
-    ("constexpr int kMaxHeads = 3;", "constexpr int kMaxHeads = 1;"),
-    ("__launch_bounds__(kGroup * kMaxHeads, 1)",
-     "__launch_bounds__(kGroup * kMaxHeads, 2)"),
+    ("static constexpr int kMaxHeads = 3;",
+     "static constexpr int kMaxHeads = 1;"),
+    ("__launch_bounds__(kGroup * Tile<D>::kMaxHeads, 1)",
+     "__launch_bounds__(kGroup * Tile<D>::kMaxHeads, 2)"),
 ]
 # 32 query rows per warp group and one K/V stage (the next tile loads
 # between two barriers): 88 KB and 192 threads, two blocks per SM.
@@ -137,9 +138,9 @@ FLASH_32_ROWS_1_STAGE = [
     ("static constexpr int kStagesF = kQuant ? 1 : 2;",
      "static constexpr int kStagesF = 1;"),
     ("""      if (it + 1 < n_tiles) {
-        load_kv(smem + (stage ^ 1) * kKStage,
-                smem + kOffV + (stage ^ 1) * kVStage, k, v, kv_base,
-                k0 + kBK, T);
+        load_kv<D>(smem + (stage ^ 1) * kKStage,
+                   smem + kOffV + (stage ^ 1) * kVStage, k, v, kv_base,
+                   k0 + kBK, T);
       }
       ks = smem + stage * kKStage;
       vs = smem + kOffV + stage * kVStage;""", """      ks = smem;
@@ -149,12 +150,12 @@ FLASH_32_ROWS_1_STAGE = [
     if constexpr (!L::kQuant) {
       if (it + 1 < n_tiles) {
         __syncthreads();
-        load_kv(smem, smem + kOffV, k, v, kv_base, k0 + kBK, T);
+        load_kv<D>(smem, smem + kOffV, k, v, kv_base, k0 + kBK, T);
       }
     }
   }"""),
-    ("__launch_bounds__(kGroup * kMaxHeads, 1)",
-     "__launch_bounds__(kGroup * kMaxHeads, 2)"),
+    ("__launch_bounds__(kGroup * Tile<D>::kMaxHeads, 1)",
+     "__launch_bounds__(kGroup * Tile<D>::kMaxHeads, 2)"),
 ]
 FLASH_ENTRY = """
 extern "C" int variant_launch(const float* q, const float* k, const float* v,
@@ -162,15 +163,15 @@ extern "C" int variant_launch(const float* q, const float* k, const float* v,
                               float* out, int B, int H, int Hkv, int S, int T,
                               int window, void* stream) {
   const cudaError_t err = launch_flash_attention(
-      q, k, v, q_offset, kv_len, out, B, H, Hkv, S, T, window,
+      q, k, v, q_offset, kv_len, out, B, H, Hkv, S, T, 64, window,
       static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaPeekAtLastError());
 }
 extern "C" int variant_blocks_per_sm() {
   int n = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, flash_attention_kernel<float>, kGroup * kMaxHeads,
-      smem_bytes(kMaxHeads));
+      &n, flash_attention_kernel<64, float>, kGroup * Tile<64>::kMaxHeads,
+      Smem<64, float>::bytes(Tile<64>::kMaxHeads));
   return n;
 }
 """
@@ -181,8 +182,8 @@ extern "C" int variant_blocks_per_sm() {
 # place of the merge in rank 0's shared memory (and no cluster in the
 # launch).
 DECODE_TWO_PASS = [
-    ("constexpr float kScale = 0.125f;             // 1 / sqrt(kD)",
-     "constexpr float kScale = 0.125f;\n"
+    ("constexpr int kMaxSplits = 8;                // the portable cluster size",
+     "constexpr int kMaxSplits = 8;\n"
      "__device__ float g_scratch[1 << 22];"),
     ("  cluster_arrive_relaxed();\n", ""),
     ("""  cluster_wait();
@@ -204,6 +205,7 @@ DECODE_TWO_PASS = [
 
 __global__ void decode_merge_kernel(float* __restrict__ out, int H, int Hkv,
                                     int splits) {
+  constexpr int kD = 64, kPart = Dims<64>::kPart;
   const int kvh = blockIdx.x, b = blockIdx.y, G = H / Hkv;
   const float* sp = g_scratch +
       (static_cast<size_t>(b) * Hkv + kvh) * splits * G * kPart;
@@ -267,15 +269,15 @@ extern "C" int variant_launch(const float* q, const float* k, const float* v,
                               int Hkv, int T, int splits, int chunk,
                               void* stream) {
   const cudaError_t err = launch_decode_attention(
-      q, k, v, kv_len, out, B, H, Hkv, T, splits, chunk,
+      q, k, v, kv_len, out, B, H, Hkv, T, 64, splits, chunk,
       static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaPeekAtLastError());
 }
 extern "C" int variant_blocks_per_sm() {
   int n = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, decode_attention_kernel<3, float>, kThreads,
-      Layout{64, 2, 3, 2, 4}.bytes());
+      &n, decode_attention_kernel<64, 3, float>, kThreads,
+      Layout<64>{64, 2, 3, 2, 4}.bytes());
   return n;
 }
 """
@@ -287,22 +289,23 @@ extern "C" int variant_launch(const float* q, const int8_t* k,
                               float* out, int B, int H, int Hkv, int T,
                               int splits, int chunk, void* stream) {
   const cudaError_t err = launch_decode_attention_int8(
-      q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv, T, splits, chunk,
-      static_cast<cudaStream_t>(stream));
+      q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv, T, 64, splits,
+      chunk, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaPeekAtLastError());
 }
 extern "C" int variant_blocks_per_sm() {
   int n = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, decode_attention_kernel<3, int8_t>, kThreads,
-      Layout{62, 1, 3, 6, 1}.bytes());
+      &n, decode_attention_kernel<64, 3, int8_t>, kThreads,
+      Layout<64>{62, 1, 3, 6, 1}.bytes());
   return n;
 }
 """
 # The int8 instance under a register cap for six blocks per SM (no
 # spill at G = 3) in place of seven (8 bytes spilled).
-DECODE_INT8_6_BLOCKS = [("__launch_bounds__(kThreads, G <= 4 ? 7 : 4)",
-                         "__launch_bounds__(kThreads, G <= 4 ? 6 : 4)")]
+DECODE_INT8_6_BLOCKS = [
+    ("__launch_bounds__(kThreads, D == 64 ? (G <= 4 ? 7 : 4) : 4)",
+     "__launch_bounds__(kThreads, D == 64 ? (G <= 4 ? 6 : 4) : 4)")]
 DECODE_TWO_PASS_ENTRY = DECODE_ENTRY.replace(
     "  return static_cast<int>(err != cudaSuccess ? err : "
     "cudaPeekAtLastError());\n}",
@@ -507,12 +510,12 @@ SOURCES = {"ssd": (SSD, SSD_ENTRY), "flash": (FLASH, FLASH_ENTRY),
            "decode_parent": (None, PARENT_DECODE_ENTRY),
            "race_parent": (None, PARENT_RACE_ENTRY)}
 # The (mangled) name of the kernel whose ptxas registers and spills each
-# kind reports: decode at the served group size G = 3.
+# kind reports: head dim 64, decode at smollm-360m's group size G = 3.
 PTXAS_KERNEL = {"ssd": "ssd_chunk_kernel",
-                "flash": "flash_attention_kernelIfE",
-                "decode": "decode_attention_kernelILi3EfE",
-                "decode_two_pass": "decode_attention_kernelILi3EfE",
-                "decode_int8": "decode_attention_kernelILi3EaE",
+                "flash": "flash_attention_kernelILi64EfE",
+                "decode": "decode_attention_kernelILi64ELi3EfE",
+                "decode_two_pass": "decode_attention_kernelILi64ELi3EfE",
+                "decode_int8": "decode_attention_kernelILi64ELi3EaE",
                 "race": "gls_row_race_kernel",
                 "decode_parent": "decode_attention_kernel",
                 "race_parent": "gls_row_race_kernel"}
