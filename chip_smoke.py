@@ -32,10 +32,15 @@ when the port's sources are not beside this file.  Phases:
      attention kernels (int8 K/V with per-vector float32 scales, the
      arenas of ``SpecDecConfig(quant=True)``) are held the same way
      against their plain versions at the serve shapes (decode also at
-     its own split plan's edges; the serve buffer T = 370 puts every
-     other (row, head) scale row on an 8-byte boundary), with SDPA over
-     the dequantized K/V (dequantized once, untimed) as the yardstick
-     and the int8 bytes read as the bound;
+     its own split plan's and 256-key tiles' edges; the serve buffer
+     T = 370 puts every other (row, head) scale row on an 8-byte
+     boundary), with SDPA over the dequantized K/V (dequantized once,
+     untimed) as the yardstick and the int8 bytes read as the bound.
+     The int8 decode and the joint race rows also give ``floor_ms``: the
+     device time of the floor of their design (the same grid, clusters
+     and data movement, no arithmetic; ``decode_attention_int8_floor``
+     and ``gls_race_floor``, built with the extension), on the same
+     inputs and plan;
   2b. reference: the cached kernel path (flash prefill, kernel decode)
      against one dense causal forward at full width, logits within 1e-3;
   3. serve: smollm-360m at its published widths (32-layer target, 4-layer
@@ -82,9 +87,9 @@ when the port's sources are not beside this file.  Phases:
      ``decode_attention_int8_d128``, ``flash_attention_int8_d128``),
      held to their plain versions within 1e-4 at granite's serve shapes
      as in phase 2 (decode q (32, 32, 128), k/v (32, 8, 370, 128), cold
-     K/V sets, the split plan's edges and the 32/33/64/65-key tile
-     edges; flash 256 queries), timed beside the plain version, SDPA and
-     the bound; phase 2b's reference check at 36 layers; the phase 3
+     K/V sets, the split plan's edges, the 32/33/64/65-key tile edges
+     and the int8 instance's 128-key ones, its floor; flash 256
+     queries), timed beside the plain version, SDPA and the bound; phase 2b's reference check at 36 layers; the phase 3
      server and its quant twin with 4 requests of 32 new tokens
      (completion, token range, the sync gates, the D = 128 instances'
      and the row race's launches); phase 4's self-draft (>= 0.9 L) and
@@ -267,10 +272,14 @@ def log_kernel(kr: dict, smi: str) -> None:
             if "flops" in kr else "")
     dev = (f" (device {kr['device_ms']:.4f} ms)" if "device_ms" in kr
            else "")
+    floor = (f", floor {kr['floor_ms']:.4f} device ms (the design's grid "
+             f"and data movement, no arithmetic)" if "floor_ms" in kr
+             else "")
     log(f"kernel {kr['name']} [{kr['shape']}]: max_abs_err="
         f"{kr['max_abs_err']:.3g} kernel {kr['ms']:.4f} ms{dev}, plain "
         f"{kr['plain_ms']:.4f} ms, library {lib}{note} ({kr['library']}), "
-        f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}{work}) [{smi}]")
+        f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}{work}){floor} "
+        f"[{smi}]")
     if "err_vs_float64" in kr:
         log(f"kernel {kr['name']} max abs err (y, states) against float64: "
             + ", ".join(f"{k} {v[0]:.3g}, {v[1]:.3g}"
@@ -459,11 +468,12 @@ def kernel_binned(torch, dev, l_max: int):
     }
 
 
-def kernel_joint(torch, dev, vocab: int):
-    """The joint race at the serving race shape: S * (L + 1) rows of K
-    drafts over the vocabulary."""
-    from repro_torch.kernels.gls_race.ops import gls_race
-    from repro_torch.kernels.gls_race.ref import gls_race_plain
+def joint_inputs(torch, dev, vocab: int):
+    """The joint race's (log_s, log_p, log_q, active) at the serving race
+    shape (S * (L + 1) rows of K drafts over the vocabulary), with exact
+    ties (draft row (0, 0) and the target of row 0 across two drafts, whose
+    blocks differ), a +inf weight, an all-dead draft row and a row with no
+    active draft."""
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 20)
     b, k, n = S_SLOTS * (L_DRAFT + 1), K_DRAFTS, vocab
@@ -491,28 +501,71 @@ def kernel_joint(torch, dev, vocab: int):
     log_q[1, 0, 7] = float("inf")
     log_p[2, -1] = float("-inf")
     active[3] = False
-    x_k, y_k = gls_race(log_s, log_p, log_q, active)
-    x_p, y_p = gls_race_plain(log_s, log_p, log_q, active)
+    return log_s, log_p, log_q, active
+
+
+def joint_bound(args):
+    """The joint race's bound: log_s and log_p of every draft, log_q of
+    the active ones (the target race is over active drafts only), the
+    mask and x, y once."""
+    log_s, _, _, active = args
+    b, k, n = log_s.shape
+    live = int(active.sum())
+    return bound((2 * b * k + live) * n * 4 + b * k + (b * k + b) * 4,
+                 (4 * b * k + 2 * live) * n)
+
+
+def time_joint(torch, args) -> dict:
+    """``gls_race`` (event and device time), its plain version, and
+    ``torch.min`` on a precomputed draft score (a note)."""
+    from repro_torch.kernels.gls_race.ops import gls_race
+    from repro_torch.kernels.gls_race.ref import gls_race_plain
+    log_s, log_p = args[:2]
+    score = torch.where(torch.isfinite(log_p), log_s - log_p,
+                        torch.tensor(float("inf"), device=log_s.device))
+    calls = [lambda: gls_race(*args)]
+    out = {"ms": time_ms(calls[0]),
+           "device_ms": device_ms(torch, calls, "gls_race_kernel"),
+           "plain_ms": time_ms(lambda: gls_race_plain(*args)),
+           "note_ms": time_ms(lambda: torch.min(score, dim=-1))}
+    del score
+    return out
+
+
+def kernel_joint(torch, dev, vocab: int):
+    """The joint race at the serving race shape (``joint_inputs``),
+    bitwise against its plain version; timed beside the floor of its
+    design (the extension's ``gls_race_floor``) at the same plan."""
+    from repro_torch.kernels.build import load_kernels
+    from repro_torch.kernels.gls_race.ops import (gls_race,
+                                                  joint_race_split_plan)
+    from repro_torch.kernels.gls_race.ref import gls_race_plain
+    args = joint_inputs(torch, dev, vocab)
+    active = args[3]
+    b, k, n = args[0].shape
+    x_k, y_k = gls_race(*args)
+    x_p, y_p = gls_race_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(x_k, x_p) and torch.equal(y_k, y_p), \
         "gls_race != plain"
     assert int(x_k[0, 0]) == 100 and int(y_k[0]) == 100
     assert int(x_k[1, 0]) != 7 and int(x_k[2, -1]) == 0 and int(y_k[3]) == 0
-    score = torch.where(torch.isfinite(log_p), log_s - log_p,
-                        torch.tensor(float("inf"), device=dev))
-    nbytes = 3 * b * k * n * 4 + b * k + (b * k + b) * 4
-    t_bound, by = bound(nbytes, 6 * b * k * n)
+    t_bound, by = joint_bound(args)
+    live = int(active.sum())
+    kc = joint_race_split_plan(k)
+    floor = load_kernels().gls_race_floor
     return {
         "name": "gls_race", "route": "cuda",
         "source": "src/repro_torch/kernels/gls_race/joint_race.cu",
         "replaces": "src/repro/kernels/gls_race/kernel.py:369",
-        "shape": f"log_s/log_p/log_q ({b}, {k}, {n}) f32, active ({b}, {k})",
+        "shape": f"log_s/log_p/log_q ({b}, {k}, {n}) f32, active ({b}, {k}) "
+                 f"with {live} active, {kc} drafts a block: "
+                 f"{b * -(-k // kc)} blocks",
         "max_abs_err": 0.0,
-        "ms": time_ms(lambda: gls_race(log_s, log_p, log_q, active)),
-        "plain_ms": time_ms(lambda: gls_race_plain(log_s, log_p, log_q,
-                                                   active)),
+        **time_joint(torch, args),
+        "floor_ms": device_ms(torch, [lambda: floor(*args, kc)],
+                              "gls_race_floor_kernel"),
         "library_ms": None,
-        "note_ms": time_ms(lambda: torch.min(score, dim=-1)),
         "library": "none: no single call forms the masked scores and their "
                    "argmins; torch.min(score, -1) on a precomputed draft "
                    "score (a note only) reads a third of the kernel's "
@@ -575,16 +628,60 @@ def time_decode(torch, q, kv_sets, kv_len) -> dict:
 
 
 def decode_edges(torch, dev, b: int, t: int, d: int, splits: int,
-                 chunk: int):
+                 chunk: int, int8: bool = False):
     """kv_len on the edges of the decode kernel's split plan (a range
     ending exactly on a split boundary, one key past it and one short,
     kv_len 0, 1 and T) and of its tiles (64/65 keys; at head dim 128,
-    whose tiles hold 32 keys, also 32/33), repeated over the b rows."""
+    whose float32 tiles hold 32 keys, also 32/33; the int8 instance's
+    tiles of 256 keys at D = 64 and 128 at D = 128: one key short of a
+    tile, a tile, one past, and the same at two tiles where T allows),
+    repeated over the b rows."""
     edges = [0, 1, t, chunk, 2 * chunk, chunk + 1, chunk - 1, t - 1,
              (splits - 1) * chunk, 17, 64, 65] + ([32, 33] if d == 128
                                                   else [])
+    if int8:
+        from repro_torch.kernels.decode_attention.ops import INT8_TILE_KEYS
+        tile = INT8_TILE_KEYS[d]
+        edges += [e for e in (tile - 1, tile, tile + 1, 2 * tile - 1,
+                              2 * tile, 2 * tile + 1) if e <= t]
+    edges = [min(max(e, 0), t) for e in edges]
     return torch.tensor(edges, dtype=torch.int32, device=dev).repeat(
         -(-b // len(edges)))[:b]
+
+
+def decode_bound(b: int, h: int, hkv: int, d: int, keys: float,
+                 int8: bool = False):
+    """The bound of one decode call over ``keys`` live keys (the sum of
+    kv_len): q and out, kv_len, and each live key's K and V (int8: plus
+    its two float32 scales) once."""
+    if int8:
+        return bound(4 * (2 * b * h * d + b) + 2 * hkv * keys * (d + 4),
+                     h * keys * (4 * d + 6))
+    return bound(4 * (2 * b * h * d + 2 * hkv * keys * d + b),
+                 h * keys * (4 * d + 4))
+
+
+def time_decode_int8(torch, q, sets, kv_len, kf, vf) -> dict:
+    """The int8 instance, its plain version cycling through the K/V
+    ``sets``, and SDPA on the first set dequantized (``kf``, ``vf``,
+    untimed) as the yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_plain)
+    t = sets[0][0].shape[2]
+    mask = (torch.arange(t, device=q.device)[None, :]
+            < kv_len.clamp_min(1)[:, None].long())[:, None, None, :]
+    calls = [lambda s_=s_: decode_attention(q, s_[0], s_[1], kv_len, s_[2],
+                                            s_[3]) for s_ in sets]
+    return {"ms": time_cycled(calls),
+            "device_ms": device_ms(torch, calls, "decode_attention_kernel"),
+            "plain_ms": time_cycled([
+                lambda s_=s_: decode_attention_plain(q, s_[0], s_[1], kv_len,
+                                                     s_[2], s_[3])
+                for s_ in sets]),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kf, vf, attn_mask=mask, enable_gqa=True))}
 
 
 def kernel_decode(torch, dev, cfg, t: int):
@@ -593,8 +690,7 @@ def kernel_decode(torch, dev, cfg, t: int):
     tiles (``decode_edges``); timed on cold K/V.  The instance is the
     config's head dim's (``decode_attention`` at 64,
     ``decode_attention_d128`` at 128)."""
-    from repro_torch.kernels.decode_attention.ops import (bytes_per_key,
-                                                          decode_attention,
+    from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                           decode_split_plan)
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_plain)
@@ -602,8 +698,7 @@ def kernel_decode(torch, dev, cfg, t: int):
     b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
     q, kv_sets, kv_len = decode_inputs(torch, dev, b, h, hkv, d, t)
-    splits, chunk = decode_split_plan(b, hkv, t, key_bytes=bytes_per_key(d),
-                                      head_dim=d)
+    splits, chunk = decode_split_plan(b, hkv, t, head_dim=d)
     edges = decode_edges(torch, dev, b, t, d, splits, chunk)
     err = 0.0
     k, v = kv_sets[0]
@@ -616,8 +711,7 @@ def kernel_decode(torch, dev, cfg, t: int):
         assert bool((out_k[lens == 0] == 0).all()), \
             "kv_len == 0 row is not zero"
     keys = float(kv_len.sum())
-    nbytes = 4 * (2 * b * h * d + 2 * hkv * keys * d + b)
-    t_bound, by = bound(nbytes, h * keys * (4 * d + 4))
+    t_bound, by = decode_bound(b, h, hkv, d, keys)
     return {
         "name": launch_name("decode_attention", d), "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attention/"
@@ -698,28 +792,38 @@ def int8_kv_sets(torch, dev, b: int, hkv: int, t: int, d: int, n: int,
     return sets, (dequantize_kv(k8, ks), dequantize_kv(v8, vs))
 
 
+def decode_int8_inputs(torch, dev, b: int, h: int, hkv: int, d: int,
+                       t: int):
+    """q, int8 K/V sets worth three L2 caches (``int8_kv_sets``), the
+    first set dequantized, and the serve's kv_len draw."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 11)
+    q = torch.randn((b, h, d), generator=g, device=dev)
+    n_sets = cold_sets(2 * b * hkv * t * (d + 4))
+    sets, kvf = int8_kv_sets(torch, dev, b, hkv, t, d, n_sets, SEED + 12)
+    return q, sets, kvf, serve_kv_len(torch, dev, b, t, SEED + 11)
+
+
 def kernel_decode_int8(torch, dev, cfg, t: int):
     """The int8 instance of ``decode_attention`` against its plain version
     at the serve shape: the serve's kv_len and the edges of its own split
-    plan; timed on cold K/V (int8 sets worth three L2 caches)."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention.ops import (bytes_per_key,
-                                                          decode_attention,
+    plan and tiles; timed on cold K/V (int8 sets worth three L2 caches)
+    beside the floor of its design (the extension's
+    ``decode_attention_int8_floor``) at the same plan."""
+    from repro_torch.kernels.build import load_kernels
+    from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                           decode_split_plan)
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_plain)
     from repro_torch.kernels.mode import launch_name
     b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
-    g = torch.Generator(device=dev)
-    g.manual_seed(SEED + 11)
-    q = torch.randn((b, h, d), generator=g, device=dev)
-    n_sets = cold_sets(2 * b * hkv * t * (d + 4))
-    sets, (kf, vf) = int8_kv_sets(torch, dev, b, hkv, t, d, n_sets, SEED + 12)
-    kv_len = serve_kv_len(torch, dev, b, t, SEED + 11)
-    splits, chunk = decode_split_plan(
-        b, hkv, t, key_bytes=bytes_per_key(d, int8=True), head_dim=d)
-    edges = decode_edges(torch, dev, b, t, d, splits, chunk)
+    name = launch_name("decode_attention", d, int8=True)
+    q, sets, (kf, vf), kv_len = decode_int8_inputs(torch, dev, b, h, hkv, d,
+                                                   t)
+    n_sets = len(sets)
+    splits, chunk = decode_split_plan(b, hkv, t, head_dim=d, int8=True)
+    edges = decode_edges(torch, dev, b, t, d, splits, chunk, int8=True)
     # T = 370: the scale row of (b, head) starts at (b Hkv + head) * 1480
     # bytes, 8-byte aligned only for every odd row.
     assert (t * 4) % 16 != 0 and hkv * b > 1
@@ -732,15 +836,14 @@ def kernel_decode_int8(torch, dev, cfg, t: int):
         assert err <= 1e-4, f"decode_attention_int8 max abs err {err}"
         assert bool((out_k[lens == 0] == 0).all()), \
             "kv_len == 0 row is not zero"
-    mask = (torch.arange(t, device=dev)[None, :]
-            < kv_len.clamp_min(1)[:, None].long())[:, None, None, :]
-    calls = [lambda s_=s_: decode_attention(q, s_[0], s_[1], kv_len, s_[2],
-                                            s_[3]) for s_ in sets]
+    floor = load_kernels().decode_attention_int8_floor
+    kvl = kv_len.to(torch.int32)
+    floor_calls = [lambda s_=s_: floor(q, s_[0], s_[1], s_[2], s_[3], kvl,
+                                       splits, chunk) for s_ in sets]
     keys = float(kv_len.sum())
-    nbytes = 4 * (2 * b * h * d + b) + 2 * hkv * keys * (d + 4)
-    t_bound, by = bound(nbytes, h * keys * (4 * d + 6))
+    t_bound, by = decode_bound(b, h, hkv, d, keys, int8=True)
     return {
-        "name": launch_name("decode_attention", d, int8=True),
+        "name": name,
         "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attention/"
                   "decode_attention.cu",
@@ -750,14 +853,8 @@ def kernel_decode_int8(torch, dev, cfg, t: int):
                  f"{chunk} keys, {n_sets} K/V sets (cold L2), {int(keys)} "
                  f"live keys",
         "max_abs_err": err,
-        "ms": time_cycled(calls),
-        "device_ms": device_ms(torch, calls, "decode_attention_kernel"),
-        "plain_ms": time_cycled([
-            lambda s_=s_: decode_attention_plain(q, s_[0], s_[1], kv_len,
-                                                 s_[2], s_[3])
-            for s_ in sets]),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None, :], kf, vf, attn_mask=mask, enable_gqa=True)),
+        **time_decode_int8(torch, q, sets, kv_len, kf, vf),
+        "floor_ms": device_ms(torch, floor_calls, "decode_int8_floor_kernel"),
         "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa) "
                    "on K/V dequantized once beforehand (untimed), one warm "
                    "set",
@@ -1739,8 +1836,8 @@ def main() -> int:
             "library_ms")
     for kr in kernels:
         kr["launches"] = int(counts.get(kr["name"], 0))
-    print(json.dumps({"kernels": [{k: kr[k] for k in keys + ("device_ms",)
-                                   if k in kr} for kr in kernels]}))
+    print(json.dumps({"kernels": [{k: kr[k] for k in keys + (
+        "device_ms", "floor_ms") if k in kr} for kr in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,6 +37,10 @@ cudaError_t launch_decode_attention_int8(const float* q, const int8_t* k,
                                          int H, int Hkv, int T, int D,
                                          int splits, int chunk,
                                          cudaStream_t stream);
+cudaError_t launch_decode_attention_int8_floor(
+    const float* q, const int8_t* k, const int8_t* v, const float* k_scale,
+    const float* v_scale, const int* kv_len, float* out, int B, int H,
+    int Hkv, int T, int D, int splits, int chunk, cudaStream_t stream);
 bool decode_attention_has_head_dim(int d);
 int decode_attention_max_group();
 int decode_attention_max_splits();
@@ -58,9 +62,15 @@ void launch_gls_binned_race(const float* log_s, const float* log_q,
                             int batch, int rows_per_batch, int n, int l_max,
                             cudaStream_t stream);
 int gls_binned_race_max_bins();
-void launch_gls_race(const float* log_s, const float* log_p,
-                     const float* log_q, const bool* active, int* x, int* y,
-                     int batch, int k_drafts, int n, cudaStream_t stream);
+cudaError_t launch_gls_race(const float* log_s, const float* log_p,
+                            const float* log_q, const bool* active, int* x,
+                            int* y, int batch, int k_drafts, int n, int kc,
+                            cudaStream_t stream);
+cudaError_t launch_gls_race_floor(const float* log_s, const float* log_p,
+                                  const float* log_q, const bool* active,
+                                  int* x, int* y, int batch, int k_drafts,
+                                  int n, int kc, cudaStream_t stream);
+int gls_race_max_splits();
 cudaError_t launch_ssd_chunk(const float* x, const float* dt, const float* a,
                              const float* b_in, const float* c_in, float* y,
                              float* states, float* total, int batch,
@@ -208,9 +218,17 @@ std::vector<torch::Tensor> gls_binned_race(torch::Tensor log_s,
   return {bmin, barg};
 }
 
-std::vector<torch::Tensor> gls_race(torch::Tensor log_s, torch::Tensor log_p,
-                                    torch::Tensor log_q,
-                                    torch::Tensor active) {
+using JointLaunch = cudaError_t (*)(const float*, const float*,
+                                    const float*, const bool*, int*, int*,
+                                    int, int, int, int, cudaStream_t);
+
+// The joint race, or its floor, at `kc` drafts a block.
+std::vector<torch::Tensor> joint_race(const char* name, JointLaunch launch,
+                                      torch::Tensor log_s,
+                                      torch::Tensor log_p,
+                                      torch::Tensor log_q,
+                                      torch::Tensor active, int64_t kc) {
+  const std::string what(name);
   check_tensor(log_s, "log_s", torch::kFloat32, 3);
   check_tensor(log_p, "log_p", torch::kFloat32, 3);
   check_tensor(log_q, "log_q", torch::kFloat32, 3);
@@ -224,19 +242,41 @@ std::vector<torch::Tensor> gls_race(torch::Tensor log_s, torch::Tensor log_p,
   const int64_t b = log_s.size(0), k = log_s.size(1), n = log_s.size(2);
   TORCH_CHECK(active.size(0) == b && active.size(1) == k,
               "active must be (B, K) of log_s (B, K, N)");
-  TORCH_CHECK(n > 0 && n < INT32_MAX && b * k < INT32_MAX,
-              "gls_race: unsupported shape");
+  TORCH_CHECK(n > 0 && n < INT32_MAX && b * k < INT32_MAX && k > 0,
+              what + ": unsupported shape");
+  // The plan (ops.py::joint_race_split_plan): kc drafts a block, one
+  // cluster of ceil(K / kc) blocks per row.
+  TORCH_CHECK(kc >= 1 && (k + kc - 1) / kc <= gls_race_max_splits(),
+              what + ": " + std::to_string(kc) + " drafts a block do not "
+              "fit a cluster of " + std::to_string(gls_race_max_splits()) +
+              " over " + std::to_string(k) + " drafts");
   const c10::cuda::CUDAGuard guard(log_s.device());
   auto x = torch::empty({b, k}, log_s.options().dtype(torch::kInt32));
   auto y = torch::empty({b}, log_s.options().dtype(torch::kInt32));
   if (b == 0) return {x, y};
-  launch_gls_race(log_s.data_ptr<float>(), log_p.data_ptr<float>(),
-                  log_q.data_ptr<float>(), active.data_ptr<bool>(),
-                  x.data_ptr<int>(), y.data_ptr<int>(), static_cast<int>(b),
-                  static_cast<int>(k), static_cast<int>(n),
-                  c10::cuda::getCurrentCUDAStream());
+  check_launch(name, launch(
+      log_s.data_ptr<float>(), log_p.data_ptr<float>(),
+      log_q.data_ptr<float>(), active.data_ptr<bool>(), x.data_ptr<int>(),
+      y.data_ptr<int>(), static_cast<int>(b), static_cast<int>(k),
+      static_cast<int>(n), static_cast<int>(kc),
+      c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {x, y};
+}
+
+std::vector<torch::Tensor> gls_race(torch::Tensor log_s, torch::Tensor log_p,
+                                    torch::Tensor log_q,
+                                    torch::Tensor active, int64_t kc) {
+  return joint_race("gls_race", launch_gls_race, log_s, log_p, log_q,
+                    active, kc);
+}
+
+std::vector<torch::Tensor> gls_race_floor(torch::Tensor log_s,
+                                          torch::Tensor log_p,
+                                          torch::Tensor log_q,
+                                          torch::Tensor active, int64_t kc) {
+  return joint_race("gls_race_floor", launch_gls_race_floor, log_s, log_p,
+                    log_q, active, kc);
 }
 
 torch::Tensor decode_attention(torch::Tensor q, torch::Tensor k,
@@ -281,35 +321,46 @@ torch::Tensor decode_attention(torch::Tensor q, torch::Tensor k,
   return out;
 }
 
-torch::Tensor decode_attention_int8(torch::Tensor q, torch::Tensor k,
-                                    torch::Tensor v, torch::Tensor k_scale,
-                                    torch::Tensor v_scale,
-                                    torch::Tensor kv_len, int64_t splits,
-                                    int64_t chunk) {
+using Int8DecodeLaunch = cudaError_t (*)(const float*, const int8_t*,
+                                         const int8_t*, const float*,
+                                         const float*, const int*, float*,
+                                         int, int, int, int, int, int, int,
+                                         cudaStream_t);
+
+// The int8 decode, or its floor, at the split plan (splits, chunk).
+torch::Tensor decode_int8(const char* name, Int8DecodeLaunch launch,
+                          torch::Tensor q, torch::Tensor k, torch::Tensor v,
+                          torch::Tensor k_scale, torch::Tensor v_scale,
+                          torch::Tensor kv_len, int64_t splits,
+                          int64_t chunk) {
+  const std::string what(name);
   check_tensor(q, "q", torch::kFloat32, 3);
   check_tensor(kv_len, "kv_len", torch::kInt32, 1);
-  check_int8_kv("decode_attention_int8", q, k, v, k_scale, v_scale);
+  check_int8_kv(name, q, k, v, k_scale, v_scale);
   check_same_device(q, kv_len);
   const int64_t B = q.size(0), H = q.size(1), D = q.size(2);
   const int64_t Hkv = k.size(1), T = k.size(2);
   TORCH_CHECK(k.size(0) == B && k.size(3) == D, "q/k shape mismatch");
   TORCH_CHECK(kv_len.size(0) == B, "kv_len must be (B,)");
   TORCH_CHECK(Hkv > 0 && H % Hkv == 0, "H must be a multiple of Hkv");
-  check_head_dim("decode_attention_int8", D,
+  check_head_dim(name, D,
                  decode_attention_has_head_dim(static_cast<int>(D)));
   TORCH_CHECK(H / Hkv <= decode_attention_max_group(),
-              "decode_attention_int8: more than " +
+              what + ": more than " +
               std::to_string(decode_attention_max_group()) +
               " query heads per KV head");
   TORCH_CHECK(B < 65536 && Hkv < 65536 && T < (1 << 24),
-              "decode_attention_int8: unsupported shape");
-  check_split_plan("decode_attention_int8", splits, chunk, T,
+              what + ": unsupported shape");
+  check_split_plan(name, splits, chunk, T,
                    decode_attention_max_splits(), 1);
-  check_aligned16("decode_attention_int8: q", q);
+  const std::string aligned = what + ": q, k_scale and v_scale";
+  check_aligned16(aligned.c_str(), q);
+  check_aligned16(aligned.c_str(), k_scale);
+  check_aligned16(aligned.c_str(), v_scale);
   const c10::cuda::CUDAGuard guard(q.device());
   auto out = torch::empty_like(q);
   if (B == 0 || H == 0) return out;
-  check_launch("decode_attention_int8", launch_decode_attention_int8(
+  check_launch(name, launch(
       q.data_ptr<float>(), k.data_ptr<int8_t>(), v.data_ptr<int8_t>(),
       k_scale.data_ptr<float>(), v_scale.data_ptr<float>(),
       kv_len.data_ptr<int>(), out.data_ptr<float>(), static_cast<int>(B),
@@ -318,6 +369,26 @@ torch::Tensor decode_attention_int8(torch::Tensor q, torch::Tensor k,
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
+}
+
+torch::Tensor decode_attention_int8(torch::Tensor q, torch::Tensor k,
+                                    torch::Tensor v, torch::Tensor k_scale,
+                                    torch::Tensor v_scale,
+                                    torch::Tensor kv_len, int64_t splits,
+                                    int64_t chunk) {
+  return decode_int8("decode_attention_int8", launch_decode_attention_int8,
+                     q, k, v, k_scale, v_scale, kv_len, splits, chunk);
+}
+
+torch::Tensor decode_attention_int8_floor(torch::Tensor q, torch::Tensor k,
+                                          torch::Tensor v,
+                                          torch::Tensor k_scale,
+                                          torch::Tensor v_scale,
+                                          torch::Tensor kv_len,
+                                          int64_t splits, int64_t chunk) {
+  return decode_int8("decode_attention_int8_floor",
+                     launch_decode_attention_int8_floor, q, k, v, k_scale,
+                     v_scale, kv_len, splits, chunk);
 }
 
 torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
@@ -460,7 +531,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gls_binned_race", &gls_binned_race,
         "per-(row, sheet, bin) (min, argmin) of the binned GLS race");
   m.def("gls_race", &gls_race,
-        "draft argmins and the active target argmin of the joint GLS race");
+        "draft argmins and the active target argmin of the joint GLS race, "
+        "each batch row split over a cluster of blocks of kc drafts");
+  m.def("gls_race_floor", &gls_race_floor,
+        "the floor of gls_race's design (its grid, clusters and loads, no "
+        "compares; x and y zero), for measurement only");
   m.def("ssd_chunk", &ssd_chunk,
         "Mamba-2 SSD intra-chunk output, chunk states and total log-decay");
   m.def("decode_attention", &decode_attention,
@@ -468,6 +543,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "split over a cluster of `splits` blocks of `chunk` keys");
   m.def("decode_attention_int8", &decode_attention_int8,
         "decode_attention over int8 K/V with per-KV-vector float32 scales");
+  m.def("decode_attention_int8_floor", &decode_attention_int8_floor,
+        "the floor of decode_attention_int8's design (its grid, clusters "
+        "and data movement, no arithmetic; out zero), for measurement "
+        "only");
   m.def("flash_attention", &flash_attention,
         "causal (optionally windowed) prefill attention with per-row "
         "offsets");

@@ -4,70 +4,42 @@
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/decode_attention/kernel.py:83 (`decode_attention` ->
 // `pl.pallas_call` at :128, body `_kernel`), both of its branches: float32
-// K/V, and int8 K/V with per-KV-vector float32 scales (kernel.py:53-55,
-// the scale BlockSpecs at :122-127), one instance each of the template
-// below (KV = float, int8_t).
+// K/V (`decode_attention_kernel<D, G>`), and int8 K/V with per-KV-vector
+// float32 scales (kernel.py:53-55, the scale BlockSpecs at :122-127;
+// `decode_attention_kernel_int8<D, G>`, a design of its own, below).
 //
 //   q (B, H, D), k/v (B, Hkv, T, D), kv_len (B,) -> out (B, H, D)
 //   out[b, h] = softmax_t(q[b,h] . k[b, h/G, t] / sqrt(D), t < kv_len[b])
 //               @ v[b, h/G]
-// where the int8 instance reads k[b, j, t] = k_int8[b, j, t] *
-// k_scale[b, j, t] (and v likewise), scales (B, Hkv, T, 1): the scale is
-// folded in after the dot product, s = (q . k_int8) * k_scale / sqrt(D),
-// and into the weight, p * v_scale, before P V, so the result differs from
-// dequantizing first only by float32 rounding.  HBM streams the int8
-// leaves (TMA bulk copies of D-byte key rows, as the float32 instance's
-// 4 D-byte rows) plus one float per key and leaf, never a dequantized
-// copy.  The scales come as plain 4-byte loads, one per lane and tile: a
-// (b, head) row of scales starts at ((b Hkv + h) T + t) * 4 bytes, which at
-// the serve buffer (T = 370) is only 8-byte aligned for every other row,
-// and a bulk copy needs 16.
 // with the Pallas kernel's masked-row contract: `m_safe` pinned to 0 while
 // the max is -inf and the denominator floored at 1e-30, so a row with
 // kv_len == 0 comes out as zeros; keys past kv_len are never read.
 // Compiled for the served head dims, D = 64 (smollm-360m) and D = 128
-// (granite-8b), a template parameter beside G and KV; the binding rejects
-// any other.  The two instances share one layout of a key's work: each
-// lane takes 32 columns of one key, so a key spans D / 32 lanes (a
-// half-warp at D = 64, a quarter-warp at D = 128) and a warp holds
-// 32 / (D / 32) keys of a tile (16 and 8).  A 4-warp tile is then 64 keys
-// at D = 64 and 32 at D = 128: the same 32 KB of float32 K and V per
-// stage, so two stages (66 KB) still fit three blocks on an SM at either
-// head dim (64-key tiles at D = 128 would take 128 KB for two stages,
-// one block per SM, and the split plan could not keep the grid resident).
+// (granite-8b), template parameters beside G (1..8); the binding rejects
+// any other.
 //
 // What bounds it on the card: bytes.  One query per head does ~4 D flops
-// per key against the 2 D * 4 bytes of K and V that its G heads share,
-// under two flops per byte, so the time is the K/V stream:
-// 2 * Hkv * sum(min(kv_len, T)) * D * 4 bytes (15-20 MB at smollm-360m's
-// serve shape, 4.6-6 us at 3.35 TB/s; granite-8b's 8 KV heads of 128
-// columns stream 3.2 times as much; the int8 instance 2 * Hkv * keys * (D + 4)
-// bytes, about a quarter).  A stream that short needs the whole card
-// pulling at once, so the design puts every SM's bytes in flight early:
+// per key against the K and V bytes that its G heads share, so the time
+// is the K/V stream: 2 * Hkv * sum(min(kv_len, T)) * D * 4 bytes for
+// float32 (15-20 MB at smollm-360m's serve shape, 4.6-6 us at 3.35 TB/s),
+// 2 * Hkv * keys * (D + 4) for int8, about a quarter.  A stream that
+// short needs the whole card pulling at once, so both designs put every
+// SM's bytes in flight early:
 //   * grid (splits, Hkv, B), launched as clusters of `splits` blocks
 //     (cudaLaunchKernelEx with a cluster dimension).  Block i of a
 //     cluster owns keys [i chunk, (i + 1) chunk) of one (b, KV head) row;
-//     the wrapper's plan (`ops.py::decode_split_plan`) picks the most
-//     splits, up to 8, whose whole grid is resident at once (a second
-//     wave of blocks cost more than the extra splits gained: 2 splits,
-//     320 blocks at the serve shape).  A block whose range starts at or
-//     past kv_len loads nothing and leaves the neutral partial (m = -inf,
-//     l = 0, acc = 0);
+//     the wrapper's plan (`ops.py::decode_split_plan`) picks `splits` per
+//     instance.  A block whose range starts at or past kv_len loads
+//     nothing and leaves the neutral partial (m = -inf, l = 0, acc = 0);
 //   * one thread copies the block's live K and V keys, each one contiguous
-//     run of keys * D * 4 bytes, with TMA bulk copies (cp.async.bulk)
-//     that complete on an mbarrier; a range longer than one tile (64 keys
-//     at D = 64, 32 at D = 128) streams through a two-stage ring (a full and an empty mbarrier per
-//     stage), so the next tile loads while this one is used;
-//   * each warp owns 16 (D = 64) or 8 (D = 128) keys of a tile and keeps
-//     its own online softmax
-//     for all G query heads of the group in registers (G is a template
-//     parameter, so the state is sized to the group and a block of 128
-//     threads fits seven to an SM), so each K/V byte is read from device
-//     memory once for the group: the D / 32 lanes of a key split D for
-//     the scores (float4 shared loads, the column order swizzled by key so
-//     a quarter-warp touches 8 distinct bank groups), the lanes split D
-//     for P V (D / 32 columns each).  No block barrier per tile: a warp
-//     waits only for its tile to arrive;
+//     run of keys * D bytes per element byte, with TMA bulk copies
+//     (cp.async.bulk) that complete on an mbarrier; a range longer than
+//     one tile streams through a two-stage ring (a full and an empty
+//     mbarrier per stage), so the next tile loads while this one is used;
+//   * the warps keep their own online softmax for all G query heads of
+//     the group in registers, so each K/V byte is read from device memory
+//     once for the group; no block barrier per tile: a warp waits only
+//     for its tile to arrive;
 //   * the warps' partials merge in the block (two barriers: the partials
 //     reuse the K/V stages' shared memory), the blocks' through
 //     distributed shared memory: each block writes its (m, l, acc) into
@@ -80,11 +52,58 @@
 //     without waiting for rank 0 (rank 0 pulling the partials took a
 //     second barrier and a remote read round trip: 5 % slower,
 //     `tools/kernel_variants.py`).  No global scratch, no second kernel.
+//
+// The float32 instance: each lane takes 32 columns of one key, so a key
+// spans D / 32 lanes (a half-warp at D = 64, a quarter-warp at D = 128)
+// and a warp holds 32 / (D / 32) keys of a tile (16 and 8).  A 4-warp
+// tile is then 64 keys at D = 64 and 32 at D = 128: the same 32 KB of
+// K and V per stage, so two stages (66 KB) fit three blocks on an SM at
+// either head dim.  The D / 32 lanes of a key split D for the scores
+// (float4 shared loads, the column order swizzled by key so a
+// quarter-warp touches 8 distinct bank groups) and sum by shuffles; a
+// max and a sum tree per tile and head; P V takes each key's weight from
+// its lane by a shuffle.
+//
+// The int8 instance is sized to its own bytes.  Its float32-sized
+// chain (a shuffle sum per key, two trees per 16 keys and head, one
+// shuffle per key and head in P V) and its float32 tiles (8 KB a stage)
+// left it at 7-10x its bound.  Here, with 8 warps a block taking a tile's
+// 32-key chunks in turn:
+//   * a stage carries as many bytes as a float32 one: 256 keys at D = 64,
+//     128 at D = 128 (32 KB of K and V), and the tile's scales with it:
+//     a (b, head) row of scales starts at ((b Hkv + h) T + t) * 4 bytes,
+//     only 8-byte aligned at the serve buffer (T = 370), so the same
+//     mbarrier takes two more bulk copies of the scale arrays from the
+//     16-byte boundary at or before the tile's first key to the one at or
+//     after its last (clipped to the tensor; a key past the clip, at most
+//     three at the very end of a tensor whose size is no multiple of 4,
+//     is read from global memory);
+//   * a lane scores a whole key (at D = 128 a lane pair, 64 bytes each,
+//     one shuffle to add): four 16-byte shared loads of its int8 row,
+//     converted exactly by a byte permute and an add (2^23 + 128 + x as
+//     float bits, less 2^23 + 128) where an int-to-float conversion runs
+//     at an eighth of the FMA rate, against q from shared memory (each
+//     16-column chunk padded to 20 floats).  Each lane starts its row at
+//     another 16-byte chunk (rotated by key), so a quarter-warp's loads
+//     of K and of q hit 8 distinct bank groups;
+//   * per 32 keys and head one max tree; the sums stay per lane (the max
+//     is warp-uniform) and meet in one tree at the end;
+//   * the weights, with the V scale folded in, go to a per-warp shared
+//     array, and P V reads them as broadcasts, four keys a float4, each
+//     lane owning D / 32 columns of the output;
+//   * a one-split plan merges in the block and writes the output, with no
+//     cluster barrier; with more splits rank 0 merges `splits` partials.
+// Measured on the card (`tools/kernel_variants.py`): one split beats two
+// and four at both serve shapes, 8 warps beat 4 at D = 64, the byte
+// permute beats `cvt`; the floor of this design (its grid and data
+// movement, no arithmetic) is about 40 % of its time at D = 64, and a
+// tensor-core variant (mma.sync, fp16 hi + lo) ties it at D = 64.
+// `decode_int8_floor_kernel` is that floor, for measurement only
+// (`chip_smoke.py` times it beside the int8 instance).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -96,7 +115,7 @@ constexpr int kStages = 2;                   // tiles in flight per block
 constexpr int kMaxG = 8;                     // query heads per KV head
 constexpr int kMaxSplits = 8;                // the portable cluster size
 
-// The compiled head dims and the work layout each implies.
+// The compiled head dims and the float32 instance's work layout.
 template <int D>
 struct Dims {
   static_assert(D == 64 || D == 128, "compiled for head dims 64 and 128");
@@ -107,18 +126,17 @@ struct Dims {
   static constexpr int kPart = D + 2;                // one head's (m, l, acc)
 };
 
-// The dynamic shared memory, in floats: `stages` K/V tiles of `tk` keys
-// each, of `kv_bytes` bytes an element (the warps' partials reuse them
-// once every warp is done), q of the group, one partial per block of the
-// cluster (written by the peers into rank 0's), then a full and an empty
+// The float32 instance's dynamic shared memory, in floats: `stages` K/V
+// tiles of `tk` keys each (the warps' partials reuse them once every warp
+// is done), q of the group, one partial per block of the cluster
+// (written by the peers into rank 0's), then a full and an empty
 // mbarrier per stage.
 template <int D>
 struct Layout {
   static constexpr int kPart = Dims<D>::kPart;
-  int tk, stages, G, splits, kv_bytes;
+  int tk, stages, G, splits;
   __host__ __device__ int q_off() const {
-    const int kv = stages * 2 * tk * D * kv_bytes / 4,
-              parts = kWarps * G * kPart;
+    const int kv = stages * 2 * tk * D, parts = kWarps * G * kPart;
     return kv > parts ? kv : parts;
   }
   __host__ __device__ int block_off() const { return q_off() + G * D; }
@@ -192,47 +210,33 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 }
 
 // Tile j of the block's `n` keys (K at `k`, V at `v`) into its stage.
-template <int D, typename KV>
+template <int D>
 __device__ __forceinline__ void load_tile(float* smem, uint64_t* full,
-                                          const KV* k, const KV* v,
+                                          const float* k, const float* v,
                                           int j, int n, int tk, int stages) {
   const int s = j % stages;
-  const uint32_t bytes = sizeof(KV) * D * min(tk, n - j * tk);
-  KV* ks = reinterpret_cast<KV*>(smem) + s * 2 * tk * D;
+  const uint32_t bytes = sizeof(float) * D * min(tk, n - j * tk);
+  float* ks = smem + s * 2 * tk * D;
   const size_t off = static_cast<size_t>(j) * tk * D;
   mbar_expect_tx(&full[s], 2 * bytes);
   bulk_load(ks, k + off, bytes, &full[s]);
   bulk_load(ks + tk * D, v + off, bytes, &full[s]);
 }
 
-// `kCols` columns of a V row (float or int8) as floats.
-template <int N, typename KV>
-__device__ __forceinline__ void load_cols(const KV* p, float (&x)[N]) {
+// `N` columns of a V row as floats.
+template <int N>
+__device__ __forceinline__ void load_cols(const float* p, float (&x)[N]) {
   static_assert(N == 2 || N == 4, "2 or 4 columns per lane");
-  if constexpr (std::is_same<KV, int8_t>::value) {
-    if constexpr (N == 2) {
-      const char2 c = *reinterpret_cast<const char2*>(p);
-      x[0] = c.x;
-      x[1] = c.y;
-    } else {
-      const char4 c = *reinterpret_cast<const char4*>(p);
-      x[0] = c.x;
-      x[1] = c.y;
-      x[2] = c.z;
-      x[3] = c.w;
-    }
+  if constexpr (N == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    x[0] = f.x;
+    x[1] = f.y;
   } else {
-    if constexpr (N == 2) {
-      const float2 f = *reinterpret_cast<const float2*>(p);
-      x[0] = f.x;
-      x[1] = f.y;
-    } else {
-      const float4 f = *reinterpret_cast<const float4*>(p);
-      x[0] = f.x;
-      x[1] = f.y;
-      x[2] = f.z;
-      x[3] = f.w;
-    }
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    x[0] = f.x;
+    x[1] = f.y;
+    x[2] = f.z;
+    x[3] = f.w;
   }
 }
 
@@ -244,20 +248,15 @@ __device__ __forceinline__ void load_cols(const KV* p, float (&x)[N]) {
 // shared memory allows; D = 128 holds twice the P V accumulators, and its
 // two stages fit three blocks per SM, so a cap of 128 registers (four
 // blocks) leaves them room (`ops.py::decode_split_plan` counts blocks per
-// SM with the same numbers).  KV is the K/V element type: float, or
-// int8_t with `k_scale`/`v_scale` (one float per key; unused by the float
-// instance).
-template <int D, int G, typename KV>
+// SM with the same numbers).
+template <int D, int G>
 __global__ void __launch_bounds__(kThreads, D == 64 ? (G <= 4 ? 7 : 4) : 4)
 decode_attention_kernel(const float* __restrict__ q,
-                        const KV* __restrict__ k,
-                        const KV* __restrict__ v,
-                        const float* __restrict__ k_scale,
-                        const float* __restrict__ v_scale,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
                         const int* __restrict__ kv_len,
                         float* __restrict__ out, int H, int Hkv, int T,
                         int chunk, int tk, int stages) {
-  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   constexpr int kD = D;
   constexpr int kWarpKeys = Dims<D>::kWarpKeys;
   constexpr int kCols = Dims<D>::kCols;
@@ -274,7 +273,7 @@ decode_attention_kernel(const float* __restrict__ q,
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   extern __shared__ __align__(16) float smem[];
-  const Layout<D> lay{tk, stages, G, splits, static_cast<int>(sizeof(KV))};
+  const Layout<D> lay{tk, stages, G, splits};
   float* q_s = smem + lay.q_off();
   float* wpart = smem;
   float* bpart = smem + lay.block_off();
@@ -287,8 +286,8 @@ decode_attention_kernel(const float* __restrict__ q,
   const int k0 = first < len ? static_cast<int>(first) : len;
   const int n = min(chunk, len - k0);
   const int n_tiles = (n + tk - 1) / tk;
-  const size_t s_base = (static_cast<size_t>(b) * Hkv + kvh) * T + k0;
-  const size_t kv_base = s_base * kD;
+  const size_t kv_base =
+      ((static_cast<size_t>(b) * Hkv + kvh) * T + k0) * kD;
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
@@ -323,25 +322,13 @@ decode_attention_kernel(const float* __restrict__ q,
     const int w0 = warp * kWarpKeys;
     const int nw = min(kWarpKeys, min(tk, n - j * tk) - w0);
     const bool valid = t < nw;
-    // The int8 instance's scales of key w0 + t, loaded while the tile is
-    // in flight (score multiplier with 1 / sqrt(D) folded in, and the
-    // weight's multiplier for P V).
-    float kmul = kScale;
-    [[maybe_unused]] float vmul = 1.f;
-    if constexpr (kQuant) {
-      if (valid) {
-        const size_t si = s_base + static_cast<size_t>(j) * tk + w0 + t;
-        kmul = __ldg(k_scale + si) * kScale;
-        vmul = __ldg(v_scale + si);
-      }
-    }
     mbar_wait(&full[s], parity);
-    const KV* ks = reinterpret_cast<const KV*>(smem) + s * 2 * tk * kD;
-    const KV* vs = ks + tk * kD;
+    const float* ks = smem + s * 2 * tk * kD;
+    const float* vs = ks + tk * kD;
     if (nw > 0) {
       // Scores: lane (t, part) takes key w0 + t over columns
       // [32 part, 32 part + 32), 4 by 4 in swizzled order.
-      const KV* krow = ks + (w0 + (valid ? t : 0)) * kD + 32 * part;
+      const float* krow = ks + (w0 + (valid ? t : 0)) * kD + 32 * part;
       const float* qh = q_s + 32 * part;
       float sc[G];
 #pragma unroll
@@ -349,13 +336,7 @@ decode_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int c4 = 0; c4 < 8; ++c4) {
         const int c = 4 * (c4 ^ (t & 7));
-        float4 kk;
-        if constexpr (kQuant) {
-          const char4 k8 = *reinterpret_cast<const char4*>(krow + c);
-          kk = make_float4(k8.x, k8.y, k8.z, k8.w);
-        } else {
-          kk = *reinterpret_cast<const float4*>(krow + c);
-        }
+        const float4 kk = *reinterpret_cast<const float4*>(krow + c);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float4 qq = *reinterpret_cast<const float4*>(qh + g * kD + c);
@@ -378,7 +359,7 @@ decode_attention_kernel(const float* __restrict__ q,
         for (int off = kWarpKeys; off < 32; off <<= 1) {
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
         }
-        const float sg = valid ? dot * kmul : -INFINITY;
+        const float sg = valid ? dot * kScale : -INFINITY;
         float mx = sg;
 #pragma unroll
         for (int off = kWarpKeys / 2; off > 0; off >>= 1) {
@@ -397,11 +378,10 @@ decode_attention_kernel(const float* __restrict__ q,
         m[g] = m_new;
 #pragma unroll
         for (int c = 0; c < kCols; ++c) acc[g][c] *= alpha;
-        if constexpr (kQuant) p[g] *= vmul;
       }
       // P V: lane owns columns kCols lane .. kCols lane + kCols - 1; key
       // i's weight comes from lane i.
-      const KV* vcol = vs + w0 * kD + kCols * lane;
+      const float* vcol = vs + w0 * kD + kCols * lane;
 #pragma unroll 4
       for (int i = 0; i < nw; ++i) {
         float vv[kCols];
@@ -506,6 +486,543 @@ decode_attention_kernel(const float* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The int8 instance
+// ---------------------------------------------------------------------------
+
+constexpr int kQWarps = 8;
+constexpr int kQThreads = 32 * kQWarps;
+constexpr int kQStages = 2;
+constexpr int kQStageBytes = 32768;  // K and V of a stage, as a float32 one
+constexpr int kQPad = 20;            // floats of a 16-column chunk of q
+constexpr int kQChunk = 32;          // keys of a warp's chunk of a tile
+
+// The int8 instance's work layout per head dim.
+template <int D>
+struct QDims {
+  static_assert(D == 64 || D == 128, "compiled for head dims 64 and 128");
+  static constexpr int kKeyLanes = D / 64;             // lanes per key
+  static constexpr int kTK = kQStageBytes / (2 * D);   // keys per tile
+  static constexpr int kChunks = D / 16;               // 16-byte row chunks
+  static constexpr int kCols = D / 32;                 // P V columns/lane
+  static constexpr int kPart = D + 2;                  // one head's partial
+};
+
+// The int8 instance's dynamic shared memory, in bytes: `stages` tiles of
+// `tk` keys (K, V, then the K and V scale arrays; the warps' partials
+// reuse them once every warp is done), q of the group in padded chunks,
+// each warp's 32 weights per head, one partial per block of the cluster,
+// then a full and an empty mbarrier per stage.
+template <int D>
+struct QLayout {
+  static constexpr int kPart = QDims<D>::kPart;
+  int tk, stages, G, splits;
+  // A scale array holds the tile's keys at offsets e0 % 4 ..
+  // e0 % 4 + tk - 1 (e0: the first key's index in the scale tensor),
+  // rounded up to 16 bytes.
+  __host__ __device__ int scale_floats() const { return (tk + 6) & ~3; }
+  __host__ __device__ int stage_bytes() const {
+    return 2 * tk * D + 8 * scale_floats();
+  }
+  __host__ __device__ int q_off() const {
+    const int kv = stages * stage_bytes(),
+              parts = 4 * kQWarps * G * kPart;
+    return kv > parts ? kv : parts;
+  }
+  __host__ __device__ int p_off() const {
+    return q_off() + 4 * G * QDims<D>::kChunks * kQPad;
+  }
+  __host__ __device__ int block_off() const {
+    return p_off() + 4 * kQWarps * G * kQChunk;
+  }
+  __host__ __device__ int bar_off() const {
+    return (block_off() + 4 * splits * G * kPart + 7) & ~7;
+  }
+  __host__ __device__ size_t bytes() const { return bar_off() + 16 * stages; }
+};
+
+// The 16-byte bounds [lo, hi) of the scale elements that tile j's bulk
+// copies bring: from the boundary at or before its first key e0 to the
+// one at or after its last, clipped to the last whole 16 bytes of the
+// tensor's `numel` floats.
+struct ScaleSpan {
+  size_t e0, lo, hi;
+  __device__ ScaleSpan(size_t e_base, size_t numel, int j, int tk, int nk)
+      : e0(e_base + static_cast<size_t>(j) * tk),
+        lo(e0 & ~static_cast<size_t>(3)) {
+    const size_t end = (e0 + nk + 3) & ~static_cast<size_t>(3),
+                 clip = numel & ~static_cast<size_t>(3);
+    hi = end < clip ? end : clip;
+  }
+};
+
+// Tile j of the block's `n` keys into its stage: K and V rows, and the
+// scale arrays' aligned span, all on the stage's full barrier.
+template <int D>
+__device__ __forceinline__ void load_tile_int8(
+    unsigned char* smem, const QLayout<D>& lay, uint64_t* full,
+    const int8_t* k, const int8_t* v, const float* k_scale,
+    const float* v_scale, size_t e_base, size_t numel, int j, int n) {
+  const int s = j % lay.stages;
+  const int nk = min(lay.tk, n - j * lay.tk);
+  const ScaleSpan sp(e_base, numel, j, lay.tk, nk);
+  const uint32_t kv_bytes = D * nk;
+  const uint32_t sc_bytes = sp.hi > sp.lo ? 4 * (sp.hi - sp.lo) : 0;
+  unsigned char* st = smem + s * lay.stage_bytes();
+  mbar_expect_tx(&full[s], 2 * (kv_bytes + sc_bytes));
+  bulk_load(st, k + sp.e0 * D, kv_bytes, &full[s]);
+  bulk_load(st + lay.tk * D, v + sp.e0 * D, kv_bytes, &full[s]);
+  if (sc_bytes) {
+    unsigned char* sc = st + 2 * lay.tk * D;
+    bulk_load(sc, k_scale + sp.lo, sc_bytes, &full[s]);
+    bulk_load(sc + 4 * lay.scale_floats(), v_scale + sp.lo, sc_bytes,
+              &full[s]);
+  }
+}
+
+// Four int8 values (one 32-bit word) as floats, exactly: each byte,
+// offset to x + 128, becomes the low byte of the float 2^23 + x + 128,
+// less 2^23 + 128.
+__device__ __forceinline__ void s8x4_to_f32(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
+}
+
+// `N` int8 columns of a V row as floats.
+template <int N>
+__device__ __forceinline__ void load_cols_int8(const int8_t* p,
+                                               float (&x)[N]) {
+  static_assert(N == 2 || N == 4, "2 or 4 columns per lane");
+  float f[4];
+  if constexpr (N == 2) {
+    s8x4_to_f32(*reinterpret_cast<const uint16_t*>(p), f);
+  } else {
+    s8x4_to_f32(*reinterpret_cast<const uint32_t*>(p), f);
+  }
+#pragma unroll
+  for (int c = 0; c < N; ++c) x[c] = f[c];
+}
+
+__device__ __forceinline__ float lane_of(const float4& f, int u) {
+  return u == 0 ? f.x : u == 1 ? f.y : u == 2 ? f.z : f.w;
+}
+
+// Eight warps: the register cap of 128 allows two blocks of 256 threads
+// per SM (`ops.py::decode_split_plan` counts blocks per SM with it).
+template <int D, int G>
+__global__ void __launch_bounds__(kQThreads, 2)
+decode_attention_kernel_int8(const float* __restrict__ q,
+                             const int8_t* __restrict__ k,
+                             const int8_t* __restrict__ v,
+                             const float* __restrict__ k_scale,
+                             const float* __restrict__ v_scale,
+                             const int* __restrict__ kv_len,
+                             float* __restrict__ out, int H, int Hkv, int T,
+                             int chunk, int tk, int stages) {
+  using QD = QDims<D>;
+  constexpr int kKL = QD::kKeyLanes;   // lanes per key
+  constexpr int kKeys = 32 / kKL;      // keys a warp scores per pass
+  constexpr int kPass = kKL;           // passes per chunk
+  constexpr int kCK = kQChunk;
+  constexpr int kNC = QD::kChunks, kCols = QD::kCols, kPart = QD::kPart;
+  constexpr float kScale = D == 64 ? 0.125f : 0.08838834764831845f;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = blockIdx.x;  // the block's rank in its cluster
+  const int splits = gridDim.x;
+  // As in the float32 instance: the first phase is arrived at now and
+  // waited on after the keys.  One split needs no cluster barrier.
+  if (splits > 1) cluster_arrive_relaxed();
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  extern __shared__ __align__(16) unsigned char qsmem[];
+  const QLayout<D> lay{tk, stages, G, splits};
+  float* q_s = reinterpret_cast<float*>(qsmem + lay.q_off());
+  float* pw =
+      reinterpret_cast<float*>(qsmem + lay.p_off()) + warp * G * kCK;
+  float* wpart = reinterpret_cast<float*>(qsmem);
+  float* bpart = reinterpret_cast<float*>(qsmem + lay.block_off());
+  uint64_t* full = reinterpret_cast<uint64_t*>(qsmem + lay.bar_off());
+  uint64_t* empty = full + stages;
+
+  // This block's live keys: [k0, k0 + n) of the row; e_base is k0's
+  // index in the (B, Hkv, T) scale tensor of `numel` floats.
+  const int len = max(0, min(kv_len[b], T));
+  const long long first = static_cast<long long>(split) * chunk;
+  const int k0 = first < len ? static_cast<int>(first) : len;
+  const int n = min(chunk, len - k0);
+  const int n_tiles = (n + tk - 1) / tk;
+  const size_t e_base = (static_cast<size_t>(b) * Hkv + kvh) * T + k0;
+  const size_t numel = static_cast<size_t>(gridDim.z) * Hkv * T;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kQWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int j = 0; j < min(stages, n_tiles); ++j) {
+      load_tile_int8<D>(qsmem, lay, full, k, v, k_scale, v_scale, e_base,
+                        numel, j, n);
+    }
+  }
+  // q of the group in 16-column chunks, each padded to kQPad floats: the
+  // lanes of a quarter-warp read chunks r = 0..3 (at D = 128, 4 h + r)
+  // at 80 r bytes, 8 distinct bank groups.
+  const float4* qb = reinterpret_cast<const float4*>(
+      q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D);
+  for (int i = tid; i < G * D / 4; i += kQThreads) {
+    const int g = i / (D / 4), c4 = i % (D / 4);
+    reinterpret_cast<float4*>(q_s + (g * kNC + c4 / 4) * kQPad)[c4 % 4] =
+        __ldg(qb + i);
+  }
+  __syncthreads();
+
+  float m[G], l[G], acc[G][kCols];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[g][c] = 0.f;
+  }
+  // Lane `lane` scores keys lane / kKL + i kKeys of a chunk (pass i)
+  // over columns [64 half, 64 half + 64), its 16-byte chunks rotated by
+  // the key.
+  const int half = lane % kKL, rot = lane >> 1;
+  const float* qh = q_s + 4 * half * kQPad;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % stages;
+    const uint32_t parity = (j / stages) & 1;
+    const int nk = min(tk, n - j * tk);
+    const ScaleSpan sp(e_base, numel, j, tk, nk);
+    const unsigned char* st = qsmem + s * lay.stage_bytes();
+    const int8_t* ks = reinterpret_cast<const int8_t*>(st);
+    const int8_t* vs = ks + tk * D;
+    const float* kss =
+        reinterpret_cast<const float*>(st + 2 * tk * D) + (sp.e0 & 3);
+    const float* vss = kss + lay.scale_floats();
+    mbar_wait(&full[s], parity);
+    // The warps take the tile's chunks of kCK keys in turn.
+    for (int c0 = kCK * warp; c0 < nk; c0 += kCK * kQWarps) {
+      const int nc = min(kCK, nk - c0);
+      // Pass i scores key lane / kKL + i * kKeys of the chunk.
+      int t[kPass];
+      bool valid[kPass];
+#pragma unroll
+      for (int i = 0; i < kPass; ++i) {
+        const int kk = lane / kKL + i * kKeys;
+        valid[i] = kk < nc;
+        t[i] = c0 + (valid[i] ? kk : 0);
+      }
+      // Two partial sums per (head, key): half-length FMA chains.
+      float dot[G][kPass][2];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int i = 0; i < kPass; ++i) dot[g][i][0] = dot[g][i][1] = 0.f;
+      }
+      // Each q float4 serves the lane's keys of every pass.
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int r = (jj + rot) & 3;
+        float kf[kPass][16];
+#pragma unroll
+        for (int i = 0; i < kPass; ++i) {
+          const int4 w = *reinterpret_cast<const int4*>(
+              ks + t[i] * D + 64 * half + 16 * r);
+          s8x4_to_f32(static_cast<uint32_t>(w.x), kf[i]);
+          s8x4_to_f32(static_cast<uint32_t>(w.y), kf[i] + 4);
+          s8x4_to_f32(static_cast<uint32_t>(w.z), kf[i] + 8);
+          s8x4_to_f32(static_cast<uint32_t>(w.w), kf[i] + 12);
+        }
+        const float* qc = qh + r * kQPad;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 qq = *reinterpret_cast<const float4*>(
+                qc + g * kNC * kQPad + 4 * e);
+#pragma unroll
+            for (int i = 0; i < kPass; ++i) {
+              float& dp = dot[g][i][e & 1];
+              dp = fmaf(qq.x, kf[i][4 * e], dp);
+              dp = fmaf(qq.y, kf[i][4 * e + 1], dp);
+              dp = fmaf(qq.z, kf[i][4 * e + 2], dp);
+              dp = fmaf(qq.w, kf[i][4 * e + 3], dp);
+            }
+          }
+        }
+      }
+      float sc[G][kPass], vmul[kPass];
+#pragma unroll
+      for (int i = 0; i < kPass; ++i) {
+        const size_t e = sp.e0 + t[i];
+        float kmul, vm;
+        if (e < sp.hi) {
+          kmul = kss[t[i]];
+          vm = vss[t[i]];
+        } else {
+          kmul = __ldg(k_scale + e);
+          vm = __ldg(v_scale + e);
+        }
+        kmul *= kScale;
+        vmul[i] = vm;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float d = dot[g][i][0] + dot[g][i][1];
+          // Every lane shuffles, then the lanes past the chunk's keys
+          // drop out as -inf.
+          if constexpr (kKL == 2) d += __shfl_xor_sync(0xffffffffu, d, 1);
+          sc[g][i] = valid[i] ? d * kmul : -INFINITY;
+        }
+      }
+      // Per head, one max tree over the chunk (the lanes of a pair hold
+      // the same scores); each lane keeps the sum of its own keys'
+      // weights (at D = 128 the passes of its half), and writes the
+      // weight times the V scale for P V.
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float mx = sc[g][0];
+#pragma unroll
+        for (int i = 1; i < kPass; ++i) mx = fmaxf(mx, sc[g][i]);
+#pragma unroll
+        for (int off = kKL; off < 32; off <<= 1) {
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        }
+        const float m_new = fmaxf(m[g], mx);
+        const float m_safe = isfinite(m_new) ? m_new : 0.f;
+        const float alpha = isfinite(m[g]) ? expf(m[g] - m_safe) : 0.f;
+        float so = sc[g][0], vo = vmul[0];
+        if constexpr (kKL == 2) {
+          so = half ? sc[g][1] : so;
+          vo = half ? vmul[1] : vo;
+        }
+        const float p = expf(so - m_safe);  // 0 for a key past the chunk
+        pw[g * kCK + lane / kKL + half * kKeys] = p * vo;
+        l[g] = l[g] * alpha + p;
+        m[g] = m_new;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[g][c] *= alpha;
+      }
+      __syncwarp();
+      // P V: lane owns columns kCols lane .. kCols lane + kCols - 1; the
+      // weights of four keys come as one broadcast float4 per head.  No
+      // branch: a key past the chunk has weight 0 and reads the chunk's
+      // last row, so each step's loads issue together.
+      const int8_t* vcol = vs + c0 * D + kCols * lane;
+#pragma unroll 2
+      for (int i4 = 0; i4 < nc; i4 += 4) {
+        float4 pp[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          pp[g] = *reinterpret_cast<const float4*>(pw + g * kCK + i4);
+        }
+        float vv[4][kCols];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          load_cols_int8<kCols>(vcol + min(i4 + u, nc - 1) * D, vv[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float pg = lane_of(pp[g], u);
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) {
+              acc[g][c] = fmaf(pg, vv[u][c], acc[g][c]);
+            }
+          }
+        }
+      }
+      __syncwarp();  // the weights are rewritten by the next chunk
+    }
+    // The stage is free once every warp is done with it; thread 0 then
+    // refills it with tile j + stages.
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (tid == 0 && j + stages < n_tiles) {
+      mbar_wait(&empty[s], parity);
+      load_tile_int8<D>(qsmem, lay, full, k, v, k_scale, v_scale, e_base,
+                        numel, j + stages, n);
+    }
+  }
+  // The warp's sums: each lane summed its own keys' weights.
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], off);
+    }
+  }
+
+  // The warps' partials (over the stages, once every warp is done with
+  // them), then the block's.
+  __syncthreads();
+  float* wp = wpart + warp * G * kPart;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (lane == 0) {
+      wp[g * kPart] = m[g];
+      wp[g * kPart + 1] = l[g];
+    }
+#pragma unroll
+    for (int c = 0; c < kCols; c += 2) {
+      *reinterpret_cast<float2*>(wp + g * kPart + 2 + kCols * lane + c) =
+          make_float2(acc[g][c], acc[g][c + 1]);
+    }
+  }
+  __syncthreads();
+  float* orow =
+      out + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D;
+  float* rpart = bpart;
+  if (splits > 1) {
+    cluster_wait();
+    rpart = cluster.map_shared_rank(bpart, 0) + split * G * kPart;
+  }
+  for (int i = tid; i < G * D; i += kQThreads) {
+    const int g = i / D, d = i % D;
+    float mw[kQWarps];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kQWarps; ++w) {
+      mw[w] = wpart[(w * G + g) * kPart];
+      mx = fmaxf(mx, mw[w]);
+    }
+    const float m_safe = isfinite(mx) ? mx : 0.f;
+    float ls = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kQWarps; ++w) {
+      const float sw = isfinite(mw[w]) ? expf(mw[w] - m_safe) : 0.f;
+      ls = fmaf(sw, wpart[(w * G + g) * kPart + 1], ls);
+      a = fmaf(sw, wpart[(w * G + g) * kPart + 2 + d], a);
+    }
+    if (splits == 1) {
+      orow[i] = a / fmaxf(ls, 1e-30f);
+    } else {
+      rpart[g * kPart + 2 + d] = a;
+      if (d == 0) {
+        rpart[g * kPart] = mx;
+        rpart[g * kPart + 1] = ls;
+      }
+    }
+  }
+  if (splits == 1) return;
+
+  // Rank 0 merges the `splits` published partials; the peers exit.
+  cluster_arrive();
+  cluster_wait();
+  if (split == 0) {
+    for (int i = tid; i < G * D; i += kQThreads) {
+      const int g = i / D, d = i % D;
+      float mx = -INFINITY;
+      for (int r = 0; r < splits; ++r) {
+        mx = fmaxf(mx, bpart[(r * G + g) * kPart]);
+      }
+      const float m_safe = isfinite(mx) ? mx : 0.f;
+      float den = 0.f, num = 0.f;
+      for (int r = 0; r < splits; ++r) {
+        const float* pr = bpart + (r * G + g) * kPart;
+        const float sr = isfinite(pr[0]) ? expf(pr[0] - m_safe) : 0.f;
+        den = fmaf(sr, pr[1], den);
+        num = fmaf(sr, pr[2 + d], num);
+      }
+      orow[i] = num / fmaxf(den, 1e-30f);
+    }
+  }
+}
+
+// The floor of the int8 design: its grid, clusters, shared memory and
+// data movement (q, each tile's K, V and scales through the stage ring by
+// the same bulk copies, the cluster barrier), and no arithmetic; rank 0
+// writes zeros.  Not a decode: its output is not checked.
+template <int D, int G>
+__global__ void __launch_bounds__(kQThreads, 2)
+decode_int8_floor_kernel(const float* __restrict__ q,
+                         const int8_t* __restrict__ k,
+                         const int8_t* __restrict__ v,
+                         const float* __restrict__ k_scale,
+                         const float* __restrict__ v_scale,
+                         const int* __restrict__ kv_len,
+                         float* __restrict__ out, int H, int Hkv, int T,
+                         int chunk, int tk, int stages) {
+  const int split = blockIdx.x, splits = gridDim.x;
+  if (splits > 1) cluster_arrive_relaxed();
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32;
+  extern __shared__ __align__(16) unsigned char qsmem[];
+  const QLayout<D> lay{tk, stages, G, splits};
+  float* q_s = reinterpret_cast<float*>(qsmem + lay.q_off());
+  uint64_t* full = reinterpret_cast<uint64_t*>(qsmem + lay.bar_off());
+  uint64_t* empty = full + stages;
+  const int len = max(0, min(kv_len[b], T));
+  const long long first = static_cast<long long>(split) * chunk;
+  const int k0 = first < len ? static_cast<int>(first) : len;
+  const int n = min(chunk, len - k0);
+  const int n_tiles = (n + tk - 1) / tk;
+  const size_t e_base = (static_cast<size_t>(b) * Hkv + kvh) * T + k0;
+  const size_t numel = static_cast<size_t>(gridDim.z) * Hkv * T;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kQWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int j = 0; j < min(stages, n_tiles); ++j) {
+      load_tile_int8<D>(qsmem, lay, full, k, v, k_scale, v_scale, e_base,
+                        numel, j, n);
+    }
+  }
+  const float4* qb = reinterpret_cast<const float4*>(
+      q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D);
+  for (int i = tid; i < G * D / 4; i += kQThreads) {
+    reinterpret_cast<float4*>(q_s)[i] = __ldg(qb + i);
+  }
+  __syncthreads();
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % stages;
+    const uint32_t parity = (j / stages) & 1;
+    mbar_wait(&full[s], parity);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (tid == 0 && j + stages < n_tiles) {
+      mbar_wait(&empty[s], parity);
+      load_tile_int8<D>(qsmem, lay, full, k, v, k_scale, v_scale, e_base,
+                        numel, j + stages, n);
+    }
+  }
+  __syncthreads();
+  if (splits > 1) {
+    cluster_wait();
+    cluster_arrive();
+    cluster_wait();
+  }
+  if (split == 0) {
+    float* orow = out +
+        (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D;
+    for (int i = tid; i < G * D; i += kQThreads) orow[i] = 0.f;
+  }
+}
+
+using Int8Kernel = void (*)(const float*, const int8_t*, const int8_t*,
+                            const float*, const float*, const int*, float*,
+                            int, int, int, int, int, int);
+
+// The int8 instances, and their floors, by group size at head dim D.
+template <int D>
+constexpr Int8Kernel kInt8Kernels[kMaxG] = {
+    decode_attention_kernel_int8<D, 1>, decode_attention_kernel_int8<D, 2>,
+    decode_attention_kernel_int8<D, 3>, decode_attention_kernel_int8<D, 4>,
+    decode_attention_kernel_int8<D, 5>, decode_attention_kernel_int8<D, 6>,
+    decode_attention_kernel_int8<D, 7>, decode_attention_kernel_int8<D, 8>};
+template <int D>
+constexpr Int8Kernel kInt8Floors[kMaxG] = {
+    decode_int8_floor_kernel<D, 1>, decode_int8_floor_kernel<D, 2>,
+    decode_int8_floor_kernel<D, 3>, decode_int8_floor_kernel<D, 4>,
+    decode_int8_floor_kernel<D, 5>, decode_int8_floor_kernel<D, 6>,
+    decode_int8_floor_kernel<D, 7>, decode_int8_floor_kernel<D, 8>};
+
 }  // namespace
 
 bool decode_attention_has_head_dim(int d) { return d == 64 || d == 128; }
@@ -514,46 +1031,33 @@ int decode_attention_max_splits() { return kMaxSplits; }
 
 namespace {
 
-template <int D, typename KV>
-cudaError_t launch(const float* q, const KV* k, const KV* v,
-                   const float* k_scale, const float* v_scale,
-                   const int* kv_len, float* out, int B, int H, int Hkv,
-                   int T, int splits, int chunk, cudaStream_t stream) {
-  using Kernel = void (*)(const float*, const KV*, const KV*, const float*,
-                          const float*, const int*, float*, int, int, int,
-                          int, int, int);
-  constexpr Kernel kKernels[kMaxG] = {
-      decode_attention_kernel<D, 1, KV>, decode_attention_kernel<D, 2, KV>,
-      decode_attention_kernel<D, 3, KV>, decode_attention_kernel<D, 4, KV>,
-      decode_attention_kernel<D, 5, KV>, decode_attention_kernel<D, 6, KV>,
-      decode_attention_kernel<D, 7, KV>, decode_attention_kernel<D, 8, KV>};
-  constexpr int kvb = static_cast<int>(sizeof(KV));
-  constexpr int kTK = Dims<D>::kTK;
-  const int G = H / Hkv;
-  if (G < 1 || G > kMaxG) return cudaErrorInvalidValue;
-  const Kernel kernel = kKernels[G - 1];
-  // The dynamic shared memory above 48 KB is granted once per device,
-  // head dim, element type and group size.
-  constexpr int kMaxDevices = 64;
-  static bool granted[kMaxDevices][kMaxG] = {};
+// The dynamic shared memory above 48 KB is granted once per device and
+// kernel (`granted`, one flag per device and group size).
+template <typename Kernel>
+cudaError_t grant_smem(Kernel kernel, bool (&granted)[64][kMaxG], int G,
+                       size_t bytes) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  if (device >= kMaxDevices || !granted[device][G - 1]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(
-            Layout<D>{kTK, kStages, G, kMaxSplits, kvb}.bytes()));
-    if (err != cudaSuccess) return err;
-    if (device < kMaxDevices) granted[device][G - 1] = true;
-  }
-  // A range of one tile or less is one stage, sized to the range.
-  const int tk = chunk < kTK ? chunk : kTK;
-  const int stages = chunk > tk ? kStages : 1;
+  if (device < 64 && granted[device][G - 1]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && device < 64) granted[device][G - 1] = true;
+  return err;
+}
+
+// One launch of grid (splits, Hkv, B) in clusters of `splits` blocks (a
+// cluster attribute also for one split: without it the int8 instance
+// took 3-6 % longer, `tools/kernel_variants.py`).
+template <typename Kernel, typename... Args>
+cudaError_t launch_clusters(Kernel kernel, int splits, int Hkv, int B,
+                            int threads, size_t smem, cudaStream_t stream,
+                            Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, Hkv, B);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = Layout<D>{tk, stages, G, splits, kvb}.bytes();
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -562,25 +1066,61 @@ cudaError_t launch(const float* q, const KV* k, const KV* v,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, q, k, v, k_scale, v_scale, kv_len,
-                            out, H, Hkv, T, chunk, tk, stages);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-template <typename KV>
-cudaError_t launch_d(const float* q, const KV* k, const KV* v,
-                     const float* k_scale, const float* v_scale,
-                     const int* kv_len, float* out, int B, int H, int Hkv,
-                     int T, int D, int splits, int chunk,
-                     cudaStream_t stream) {
-  if (D == 64) {
-    return launch<64, KV>(q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv,
-                          T, splits, chunk, stream);
-  }
-  if (D == 128) {
-    return launch<128, KV>(q, k, v, k_scale, v_scale, kv_len, out, B, H,
-                           Hkv, T, splits, chunk, stream);
-  }
-  return cudaErrorInvalidValue;
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   const int* kv_len, float* out, int B, int H, int Hkv,
+                   int T, int splits, int chunk, cudaStream_t stream) {
+  using Kernel = void (*)(const float*, const float*, const float*,
+                          const int*, float*, int, int, int, int, int, int);
+  constexpr Kernel kKernels[kMaxG] = {
+      decode_attention_kernel<D, 1>, decode_attention_kernel<D, 2>,
+      decode_attention_kernel<D, 3>, decode_attention_kernel<D, 4>,
+      decode_attention_kernel<D, 5>, decode_attention_kernel<D, 6>,
+      decode_attention_kernel<D, 7>, decode_attention_kernel<D, 8>};
+  constexpr int kTK = Dims<D>::kTK;
+  const int G = H / Hkv;
+  if (G < 1 || G > kMaxG) return cudaErrorInvalidValue;
+  const Kernel kernel = kKernels[G - 1];
+  static bool granted[64][kMaxG] = {};
+  cudaError_t err = grant_smem(
+      kernel, granted, G, Layout<D>{kTK, kStages, G, kMaxSplits}.bytes());
+  if (err != cudaSuccess) return err;
+  // A range of one tile or less is one stage, sized to the range.
+  const int tk = chunk < kTK ? chunk : kTK;
+  const int stages = chunk > tk ? kStages : 1;
+  return launch_clusters(kernel, splits, Hkv, B, kThreads,
+                         Layout<D>{tk, stages, G, splits}.bytes(), stream,
+                         q, k, v, kv_len, out, H, Hkv, T, chunk, tk, stages);
+}
+
+// The int8 launch at head dim D of one of `kernels` (by group size:
+// the int8 instances or their floors); `granted` holds their shared
+// memory grants.
+template <int D>
+cudaError_t launch_int8(const Int8Kernel (&kernels)[kMaxG],
+                        bool (&granted)[64][kMaxG], const float* q,
+                        const int8_t* k, const int8_t* v,
+                        const float* k_scale, const float* v_scale,
+                        const int* kv_len, float* out, int B, int H, int Hkv,
+                        int T, int splits, int chunk, cudaStream_t stream) {
+  constexpr int kTK = QDims<D>::kTK;
+  const int G = H / Hkv;
+  if (G < 1 || G > kMaxG) return cudaErrorInvalidValue;
+  const Int8Kernel kernel = kernels[G - 1];
+  cudaError_t err = grant_smem(
+      kernel, granted, G,
+      QLayout<D>{kTK, kQStages, G, kMaxSplits}.bytes());
+  if (err != cudaSuccess) return err;
+  // A range of one tile or less is one stage, sized to the range.
+  const int tk = chunk < kTK ? chunk : kTK;
+  const int stages = chunk > tk ? kQStages : 1;
+  return launch_clusters(kernel, splits, Hkv, B, kQThreads,
+                         QLayout<D>{tk, stages, G, splits}.bytes(), stream,
+                         q, k, v, k_scale, v_scale, kv_len, out, H, Hkv, T,
+                         chunk, tk, stages);
 }
 
 }  // namespace
@@ -590,8 +1130,15 @@ cudaError_t launch_decode_attention(const float* q, const float* k,
                                     float* out, int B, int H, int Hkv, int T,
                                     int D, int splits, int chunk,
                                     cudaStream_t stream) {
-  return launch_d<float>(q, k, v, nullptr, nullptr, kv_len, out, B, H, Hkv,
-                         T, D, splits, chunk, stream);
+  if (D == 64) {
+    return launch<64>(q, k, v, kv_len, out, B, H, Hkv, T, splits, chunk,
+                      stream);
+  }
+  if (D == 128) {
+    return launch<128>(q, k, v, kv_len, out, B, H, Hkv, T, splits, chunk,
+                       stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t launch_decode_attention_int8(const float* q, const int8_t* k,
@@ -602,6 +1149,34 @@ cudaError_t launch_decode_attention_int8(const float* q, const int8_t* k,
                                          int H, int Hkv, int T, int D,
                                          int splits, int chunk,
                                          cudaStream_t stream) {
-  return launch_d<int8_t>(q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv,
-                          T, D, splits, chunk, stream);
+  static bool granted[2][64][kMaxG] = {};
+  if (D == 64) {
+    return launch_int8<64>(kInt8Kernels<64>, granted[0], q, k, v, k_scale,
+                           v_scale, kv_len, out, B, H, Hkv, T, splits, chunk,
+                           stream);
+  }
+  if (D == 128) {
+    return launch_int8<128>(kInt8Kernels<128>, granted[1], q, k, v, k_scale,
+                            v_scale, kv_len, out, B, H, Hkv, T, splits,
+                            chunk, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_decode_attention_int8_floor(
+    const float* q, const int8_t* k, const int8_t* v, const float* k_scale,
+    const float* v_scale, const int* kv_len, float* out, int B, int H,
+    int Hkv, int T, int D, int splits, int chunk, cudaStream_t stream) {
+  static bool granted[2][64][kMaxG] = {};
+  if (D == 64) {
+    return launch_int8<64>(kInt8Floors<64>, granted[0], q, k, v, k_scale,
+                           v_scale, kv_len, out, B, H, Hkv, T, splits, chunk,
+                           stream);
+  }
+  if (D == 128) {
+    return launch_int8<128>(kInt8Floors<128>, granted[1], q, k, v, k_scale,
+                            v_scale, kv_len, out, B, H, Hkv, T, splits,
+                            chunk, stream);
+  }
+  return cudaErrorInvalidValue;
 }

@@ -13,52 +13,69 @@ from repro_torch.kernels.mode import (H100_SMS, MAX_CLUSTER, aligned16,
                                       use_kernel)
 
 
-# The kernel's tiles and their shared memory (decode_attention.cu), per
-# compiled head dim D: K and V of up to 64 keys per stage at D = 64 and 32
-# at D = 128 (one key of K and V: 2 x D float32, or 2 x D int8 for the
-# int8 instance, whose scales are loaded straight into registers), two
-# stages for a longer range, up to ~8 KB more for q, the cluster's
-# partials and the barriers; up to 8 blocks an SM at D = 64 and 4 at
-# D = 128 (the instances' register caps).
+# The float32 instance's tiles and their shared memory
+# (decode_attention.cu), per compiled head dim D: K and V of up to 64 keys
+# per stage at D = 64 and 32 at D = 128 (one key of K and V: 2 x D
+# float32), two stages for a longer range, up to ~8 KB more for q, the
+# cluster's partials and the barriers; up to 8 blocks an SM at D = 64 and
+# 4 at D = 128 (the instances' register caps).
 _TILE_KEYS = {64: 64, 128: 32}
 _MAX_BLOCKS = {64: 8, 128: 4}
 _EXTRA_BYTES = 8192
 _SMEM_PER_SM, _SMEM_PER_BLOCK_RESERVED = 228 * 1024, 1024
+# The int8 instance's: 32 KB of K and V per stage (256 keys at D = 64, 128
+# at D = 128) and the stage's two scale arrays (4 bytes a key); up to 2
+# blocks of 8 warps an SM (its register cap).
+INT8_TILE_KEYS = {64: 256, 128: 128}
+_INT8_MAX_BLOCKS = 2
 
 
 def bytes_per_key(head_dim: int, int8: bool = False) -> int:
-    """Shared memory of one key of K and V in the instance for
-    ``head_dim`` (float32, or ``int8``)."""
-    return 2 * head_dim * (1 if int8 else 4)
+    """Shared memory of one key of K and V (and, for ``int8``, its two
+    scales) in the instance for ``head_dim``."""
+    return 2 * head_dim + 8 if int8 else 8 * head_dim
 
 
-KEY_BYTES_F32, KEY_BYTES_INT8 = bytes_per_key(64), bytes_per_key(64, True)
+def resident_blocks_per_sm(chunk: int, head_dim: int, int8: bool) -> int:
+    """Resident blocks per SM of a plan with ranges of ``chunk`` keys: a
+    range of one tile or less is one stage sized to it, a longer one two
+    full stages."""
+    tile_keys = (INT8_TILE_KEYS if int8 else _TILE_KEYS)[head_dim]
+    tile = min(chunk, tile_keys)
+    stages = 2 if chunk > tile else 1
+    smem = stages * tile * bytes_per_key(head_dim, int8) + _EXTRA_BYTES
+    cap = _INT8_MAX_BLOCKS if int8 else _MAX_BLOCKS[head_dim]
+    return min(cap, _SMEM_PER_SM // (smem + _SMEM_PER_BLOCK_RESERVED))
 
 
 def decode_split_plan(b: int, hkv: int, t: int, sms: int = H100_SMS,
-                      key_bytes: int = KEY_BYTES_F32,
-                      head_dim: int = 64) -> tuple[int, int]:
+                      head_dim: int = 64,
+                      int8: bool = False) -> tuple[int, int]:
     """(splits, chunk): each (row, KV head) runs as a cluster of ``splits``
     blocks, block i owning keys [i chunk, min((i + 1) chunk, t)) (empty
-    where it starts at or past t).  The most splits (at most 8, at most
-    one per 16 keys) whose whole grid is resident on the card at once:
-    a second wave of blocks costs more than the splits gain (at
-    smollm-360m's serve shape, 2 splits: 320 blocks of two 64-key stages,
-    3 per SM).  ``head_dim`` picks the instance (64 or 128) and
-    ``key_bytes`` is the shared memory of one of its keys of K and V
-    (``bytes_per_key(head_dim, int8)``)."""
+    where it starts at or past t).  ``head_dim`` picks the instance (64 or
+    128), ``int8`` its int8 K/V.
+
+    Float32: the most splits (at most 8, at most one per 16 keys) whose
+    whole grid is resident on the card at once: a second wave of blocks
+    costs more than the splits gain (at smollm-360m's serve shape, 2
+    splits: 320 blocks of two 64-key stages, 3 per SM).
+
+    int8: the fewest splits whose grid covers every SM (one split where
+    the (row, KV head) clusters alone do), at most the most whose grid is
+    resident: its blocks carry 32 KB tiles, and a cluster's fixed costs
+    (a barrier, rank 0's merge) outweigh shorter ranges.  One split at
+    both serve shapes (smollm-360m's 160 rows, granite-8b's 256), where 2
+    splits measured 32-51 % slower and 4 splits 87-93 %
+    (``tools/kernel_variants.py``)."""
     rows = max(1, b * hkv)
-    tile_keys, max_blocks = _TILE_KEYS[head_dim], _MAX_BLOCKS[head_dim]
-    best = 1
-    for splits in range(2, min(MAX_CLUSTER, max(1, -(-t // 16))) + 1):
-        chunk = -(-t // splits)
-        tile = min(chunk, tile_keys)
-        stages = 2 if chunk > tile else 1
-        smem = stages * tile * key_bytes + _EXTRA_BYTES
-        per_sm = min(max_blocks,
-                     _SMEM_PER_SM // (smem + _SMEM_PER_BLOCK_RESERVED))
-        if rows * splits <= sms * per_sm:
-            best = splits
+    most = min(MAX_CLUSTER, max(1, -(-t // 16)))
+    resident = [s for s in range(1, most + 1)
+                if rows * s <= sms * resident_blocks_per_sm(
+                    -(-t // s), head_dim, int8)]
+    best = max(resident, default=1)
+    if int8:
+        best = min([s for s in resident if rows * s >= sms] or [best])
     return best, max(1, -(-t // best))
 
 
@@ -81,16 +98,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # A head dim the kernel is not compiled for gets the smallest plan;
     # the binding then raises.
     splits, chunk = (decode_split_plan(
-        k.shape[0], k.shape[1], k.shape[2], sm_count(q.device),
-        bytes_per_key(d, int8), d) if d in _TILE_KEYS
-        else (1, max(1, k.shape[2])))
+        k.shape[0], k.shape[1], k.shape[2], sm_count(q.device), d, int8)
+        if d in _TILE_KEYS else (1, max(1, k.shape[2])))
     if not int8:
         out = ext.decode_attention(aligned16(q), aligned16(k), aligned16(v),
                                    kvl, splits, chunk)
     else:
         out = ext.decode_attention_int8(aligned16(q), aligned16(k),
-                                        aligned16(v), k_scale.contiguous(),
-                                        v_scale.contiguous(), kvl, splits,
+                                        aligned16(v), aligned16(k_scale),
+                                        aligned16(v_scale), kvl, splits,
                                         chunk)
     launch_counts[launch_name("decode_attention", d, int8)] += 1
     return out

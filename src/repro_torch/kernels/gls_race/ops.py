@@ -31,6 +31,15 @@ def row_race_split_plan(rows: int, n: int,
     return splits, 4 * -(-max(1, -(-n // splits)) // 4)
 
 
+def joint_race_split_plan(k: int) -> int:
+    """kc, the drafts a block of the joint race takes: each batch row runs
+    as a cluster of ceil(k / kc) blocks, block r streaming the drafts
+    [r kc, min((r + 1) kc, k)) over the whole vocabulary.  One draft a
+    block up to the cluster's 8 (kc drafts a block above): at the serving
+    race shape (20, 8, 49152) 160 blocks."""
+    return -(-max(k, 1) // MAX_CLUSTER)
+
+
 def gls_row_race(log_s: torch.Tensor, log_q: torch.Tensor):
     """log_s/log_q: (B, K, N) f32 -> (rmin (B, K) f32, rarg (B, K) i32).
     Bit-exact between the two routes."""
@@ -72,6 +81,7 @@ def gls_race(log_s: torch.Tensor, log_p: torch.Tensor, log_q: torch.Tensor,
     from repro_torch.kernels.build import load_kernels
     ext = load_kernels()
     x, y = ext.gls_race(log_s.contiguous(), log_p.contiguous(),
-                        log_q.contiguous(), active.contiguous())
+                        log_q.contiguous(), active.contiguous(),
+                        joint_race_split_plan(log_s.shape[1]))
     launch_counts["gls_race"] += 1
     return x, y

@@ -182,16 +182,17 @@ def test_decode_split_plan_partitions_keys_d128(b, hkv, t, int8):
     """The D = 128 instance's plan: the clusters' key ranges partition
     [0, T); at granite's serve shape the float32 grid (256 rows x 1
     split, two 32-key stages of 1 KB keys, 3 blocks per SM) stays in one
-    wave, and the int8 instance's quarter-size keys allow 2 splits."""
-    splits, chunk = decode_split_plan(
-        b, hkv, t, key_bytes=bytes_per_key(128, int8), head_dim=128)
+    wave, and the int8 instance's 256 (row, KV head) clusters already
+    cover the 132 SMs with one split (two 128-key stages of 264-byte keys:
+    its K, V and two scales)."""
+    splits, chunk = decode_split_plan(b, hkv, t, head_dim=128, int8=int8)
     assert 1 <= splits <= MAX_CLUSTER and chunk == max(1, -(-t // splits))
     covered = []
     for start, end in _ranges(splits, chunk, t):
         covered.extend(range(start, end))
     assert covered == list(range(t))
     if (b, hkv, t) == (32, 8, 370):
-        assert (splits, chunk) == ((2, 185) if int8 else (1, 370))
+        assert (splits, chunk) == (1, 370)
     if t <= 16:
         assert splits == 1
-    assert bytes_per_key(128, int8) == 2 * 128 * (1 if int8 else 4)
+    assert bytes_per_key(128, int8) == (2 * 128 + 8 if int8 else 8 * 128)

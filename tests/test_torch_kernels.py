@@ -17,15 +17,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.decode_attention.ops import (KEY_BYTES_INT8,
-                                                      bytes_per_key,
+from repro_torch.kernels.decode_attention.ops import (INT8_TILE_KEYS,
                                                       decode_attention,
-                                                      decode_split_plan)
+                                                      decode_split_plan,
+                                                      resident_blocks_per_sm)
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 from repro_torch.kernels.gls_race.ops import (gls_binned_race, gls_race,
                                               gls_row_race,
+                                              joint_race_split_plan,
                                               row_race_split_plan)
 from repro_torch.kernels.gls_race.ref import (gls_binned_race_plain,
                                               gls_race_plain,
@@ -356,6 +357,58 @@ def test_decode_split_plan_partitions_keys(b, hkv, t):
         assert splits == 1
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,hkv,t", [
+    (32, 5, 370), (32, 8, 370), (16, 2, 370), (40, 5, 370), (5, 1, 257),
+    (2, 2, 0), (1, 1, 4096), (32, 5, 1), (64, 8, 370), (8, 1, 129),
+    (4, 2, 1000)])
+def test_decode_int8_split_plan_partitions_keys(b, hkv, t, d):
+    """The int8 instance's plan at both head dims: the clusters' key
+    ranges partition [0, T) in at most a portable cluster; the grid is
+    resident (its own 32 KB tiles and scales counted per SM); the fewest
+    splits whose grid covers the 132 SMs, or the most resident where none
+    does; one split at both serve shapes (smollm-360m's 32 x 5 rows at
+    D = 64, granite-8b's 32 x 8 at D = 128)."""
+    splits, chunk = decode_split_plan(b, hkv, t, head_dim=d, int8=True)
+    _assert_partition(splits, chunk, t)
+    assert chunk == max(1, -(-t // splits))
+    rows, sms = max(1, b * hkv), 132
+    resident = [s for s in range(1, MAX_CLUSTER + 1)
+                if s <= max(1, -(-t // 16))
+                and rows * s <= sms * resident_blocks_per_sm(-(-t // s), d,
+                                                            True)]
+    assert splits in resident or splits == 1
+    if rows * splits >= sms:
+        assert splits == 1 or rows * (splits - 1) < sms
+    else:
+        assert splits == max(resident, default=1)
+    if (b, hkv, t) in ((32, 5, 370), (32, 8, 370)):
+        assert (splits, chunk) == (1, 370)
+    assert INT8_TILE_KEYS[d] * 2 * d == 32768
+
+
+@pytest.mark.parametrize("b,k,n", [
+    (20, 8, 49152), (5, 8, 50280), (3, 4, 301), (1, 1, 128), (20, 4, 49152),
+    (2, 2, 9000), (2, 20, 1000), (1, 1, 100000), (4, 16, 4099),
+    (1, 3, 20000)])
+def test_joint_race_split_plan_covers_each_element_once(b, k, n):
+    """The joint race's plan: the blocks of a row's cluster (at most a
+    portable cluster, the fewest drafts a block that fit one) take every
+    (draft, vocab) element exactly once, each block its drafts' whole
+    rows; at the serving race shape (20, 8, 49152) one draft a block, at
+    least 132 blocks."""
+    kc = joint_race_split_plan(k)
+    blocks = -(-k // kc)
+    assert 1 <= blocks <= MAX_CLUSTER
+    assert kc == 1 or -(-k // (kc - 1)) > MAX_CLUSTER
+    seen = np.zeros((k, n), np.int64)
+    for r in range(blocks):
+        seen[r * kc:min(k, (r + 1) * kc), :] += 1
+    assert (seen == 1).all()
+    if (b, k, n) == (20, 8, 49152):
+        assert kc == 1 and b * blocks >= 132
+
+
 @pytest.mark.parametrize("rows,n", [
     (40, 50280), (160, 49152), (3, 301), (1, 1), (12, 4), (40, 50281),
     (1, 2 ** 20), (200, 777), (7, 16387)])
@@ -539,8 +592,7 @@ def test_decode_kernel_d128_at_split_edges_on_card(cuda, g, t, b, hkv):
     rng = np.random.RandomState(t + g + 200)
     q, k, v = (torch.from_numpy(x).to(cuda)
                for x in _attn_inputs(rng, b, g * hkv, hkv, 1, t, 128))
-    splits, chunk = decode_split_plan(b, hkv, t, key_bytes=bytes_per_key(128),
-                                      head_dim=128)
+    splits, chunk = decode_split_plan(b, hkv, t, head_dim=128)
     kvl = torch.from_numpy(_decode_edges(b, t, splits, chunk)).to(cuda)
     before = dict(launch_counts)
     out = decode_attention(q[:, :, 0], k, v, kvl)
@@ -566,7 +618,7 @@ def test_decode_int8_kernel_d128_at_split_edges_on_card(cuda, g, t, b, hkv):
         cuda)
     k8, v8, ks, vs = _int8_kv(rng, b, hkv, t, 128, cuda)
     splits, chunk = decode_split_plan(
-        b, hkv, t, key_bytes=bytes_per_key(128, int8=True), head_dim=128)
+        b, hkv, t, head_dim=128, int8=True)
     kvl = torch.from_numpy(_decode_edges(b, t, splits, chunk)).to(cuda)
     before = dict(launch_counts)
     out = decode_attention(q, k8, v8, kvl, ks, vs)
@@ -683,7 +735,7 @@ def test_decode_int8_kernel_at_split_edges_on_card(cuda, g, t, b, hkv):
     q = torch.from_numpy(rng.randn(b, g * hkv, 64).astype(np.float32)).to(
         cuda)
     k8, v8, ks, vs = _int8_kv(rng, b, hkv, t, 64, cuda)
-    splits, chunk = decode_split_plan(b, hkv, t, key_bytes=KEY_BYTES_INT8)
+    splits, chunk = decode_split_plan(b, hkv, t, int8=True)
     edges = [0, 1, chunk, chunk - 1, chunk + 1, (splits - 1) * chunk, 64,
              65, t - 1, t]
     kvl = np.array([min(max(e, 0), t) for e in edges] * b, np.int32)[:b]
@@ -759,6 +811,82 @@ def test_int8_attention_kernels_reject_bad_inputs(cuda):
         flash_attention(q4, k8, v8, off, kvl, ks, vs.double())
     with pytest.raises(RuntimeError, match="k has dtype Float"):
         flash_attention(q4, k8.float(), v8, off, kvl, ks, vs)
+
+
+# (b, hkv, t): below the SMs (5 splits), above them (1 split), and
+# B Hkv T % 4 != 0, whose last keys' scales lie past the 16-byte clip
+# of the bulk copies (read from global memory; 8 splits).
+INT8_EDGE_ROWS = [(16, 2, 370), (40, 5, 370), (5, 1, 257)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", list(range(1, 9)))
+@pytest.mark.parametrize("b,hkv,t", INT8_EDGE_ROWS)
+def test_decode_int8_kernel_at_tile_edges_on_card(cuda, d, g, b, hkv, t):
+    """The int8 instance within 1e-4 of plain with kv_len on its own
+    tiles' edges (one key short of a 256-key tile at D = 64 or a 128-key
+    one at D = 128, a tile, one key past, and the same at two tiles where
+    T allows), 0 and T; at T = 370 every other (row, head) scale row
+    starts only 8-byte aligned; G 1 to 8 at both head dims; a kv_len == 0
+    row is exactly zero; one launch under the instance's name."""
+    from repro_torch.kernels.mode import launch_name
+    rng = np.random.RandomState(1000 * d + 10 * g + t)
+    q = torch.from_numpy(rng.randn(b, g * hkv, d).astype(np.float32)).to(
+        cuda)
+    k8, v8, ks, vs = _int8_kv(rng, b, hkv, t, d, cuda)
+    tile = INT8_TILE_KEYS[d]
+    edges = [tile - 1, tile, tile + 1, 0, t, 2 * tile - 1, 2 * tile,
+             2 * tile + 1, 1, t - 1]
+    kvl = np.array([min(e, t) for e in edges] * b, np.int32)[:b]
+    kvl = torch.from_numpy(kvl).to(cuda)
+    name = launch_name("decode_attention", d, int8=True)
+    before = dict(launch_counts)
+    out = decode_attention(q, k8, v8, kvl, ks, vs)
+    ref = decode_attention_plain(q, k8, v8, kvl, ks, vs)
+    assert float((out - ref).abs().max()) <= 1e-4
+    assert bool((out[kvl == 0] == 0).all())
+    assert launch_counts[name] == before.get(name, 0) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,n", [(20, 8, 49152), (3, 4, 301), (2, 2, 9000),
+                                   (2, 20, 1000), (4, 3, 20000),
+                                   (1, 1, 100000), (2, 12, 4099)])
+def test_joint_race_kernel_bit_exact_at_split_edges_on_card(cuda, b, k, n):
+    """Bitwise equal to plain at the cluster plan's edges: equal target
+    scores in two drafts' blocks (the lower index wins), where a block
+    takes several drafts a tie across the boundary between two blocks'
+    drafts (in the target and in a draft's own row), an all-dead draft
+    row (argmin 0) and a row with no active draft (y = 0)."""
+    log_s, log_p, log_q, active = _joint_inputs(b, k, n, seed=n + k)
+    kc = joint_race_split_plan(k)
+    i, j = n // 7, n // 2
+    if k > 1:
+        log_s[0, 0, j] = log_s[0, k - 1, i] = -60.0
+        log_q[0, 0, j] = log_q[0, k - 1, i] = 0.0
+        active[0, 0] = active[0, k - 1] = True
+    if kc > 1:
+        # Drafts kc - 1 (block 0's last) and kc (block 1's first).
+        i2, j2 = n // 11, n // 3 + 1
+        log_s[0, kc - 1, j2] = log_s[0, kc, [i2, j2]] = -70.0
+        log_p[0, kc - 1, j2] = log_p[0, kc, [i2, j2]] = 0.0
+        log_q[0, kc - 1, j2] = log_q[0, kc, [i2, j2]] = 0.0
+        active[0, kc - 1] = active[0, kc] = True
+    if b > 1:
+        active[b - 1] = False
+    ins = [torch.from_numpy(x).to(cuda)
+           for x in (log_s, log_p, log_q, active)]
+    x, y = gls_race(*ins)
+    xp, yp = gls_race_plain(*ins)
+    assert torch.equal(x, xp) and torch.equal(y, yp)
+    if kc > 1:
+        assert int(x[0, kc]) == i2 and int(x[0, kc - 1]) == j2
+        assert int(y[0]) == i2
+    elif k > 1:
+        assert int(y[0]) == i
+    if b > 1:
+        assert int(x[1, -1]) == 0 and int(y[b - 1]) == 0
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
-"""Time ``decode_attention`` and ``gls_row_race`` of one or more source
-trees the way ``chip_smoke.py`` times them.
+"""Time the port's small kernels of one or more source trees the way
+``chip_smoke.py`` times them.
 
   python3 tools/time_small_kernels.py [SRC ...]
 
@@ -8,16 +8,19 @@ this repository's ``src``; a parent commit unpacked with ``git archive``
 works the same), run in its own process in the order given, so ``A B B A``
 shows the drift between turns.  Each process builds that tree's kernels
 (its own ``build/``) and times them through the tree's own wrappers with
-``chip_smoke.py``'s functions: decode at the serve shape (q (32, 15, 64),
-four (32, 5, 370, 64) K/V sets cycled so each call finds its K/V cold in
-L2, the serve's kv_len), the row race at the kv_fused verifier's (20, 8,
-49152) and the reprefill verifier's (5, 8, 50280), cycling through three
-L2 caches of tables.  Per tree and kernel it prints the CUDA-event time
+``chip_smoke.py``'s functions: ``decode_attention`` and its int8 instance
+at smollm-360m's serve shape (q (32, 15, 64), (32, 5, 370, 64) K/V) and
+granite-8b's (q (32, 32, 128), (32, 8, 370, 128)), each cycling through
+K/V sets worth more than the L2 cache with the serve's kv_len; the row
+race at the kv_fused verifier's (20, 8, 49152) and the reprefill
+verifier's (5, 8, 50280), cycling through three L2 caches of tables; the
+joint race ``gls_race`` at (20, 8, 49152) (``chip_smoke.joint_inputs``,
+94 MB a call).  Per tree and kernel it prints the CUDA-event time
 (``ms``), the kernel's device time per launch from ``torch.profiler``
 (``device_ms``), the plain version's time and the library call's (SDPA
-for decode; ``torch.min`` on a precomputed score, a note, for the race),
-and the bound; then the card's name and power limit.  Nothing here is
-imported by the port.
+for decode; ``torch.min`` on a precomputed score, a note, for the
+races), and the bound; then the card's name and power limit.  Nothing
+here is imported by the port.
 """
 
 from __future__ import annotations
@@ -29,8 +32,10 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-DECODE = (32, 15, 5, 64, 370)          # b, h, hkv, d, t
+# (b, h, hkv, d, t): smollm-360m's and granite-8b's decode serve shapes.
+DECODES = ((32, 15, 5, 64, 370), (32, 32, 8, 128, 370))
 RACES = ((20, 49152), (5, 50280))      # (rows of K drafts, vocab)
+JOINT_VOCAB = 49152
 
 
 def one_tree(src: str) -> dict:
@@ -44,14 +49,22 @@ def one_tree(src: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda")
-    b, h, hkv, d, t = DECODE
-    q, kv_sets, kv_len = C.decode_inputs(torch, dev, b, h, hkv, d, t)
-    keys = float(kv_len.sum())
-    res = {"decode_attention": {
-        **C.time_decode(torch, q, kv_sets, kv_len),
-        "bound_ms": C.bound(4 * (2 * b * h * d + 2 * hkv * keys * d + b),
-                            h * keys * (4 * d + 4))[0]}}
-    del q, kv_sets
+    res = {}
+    for b, h, hkv, d, t in DECODES:
+        suffix = "" if d == 64 else f"_d{d}"
+        q, kv_sets, kv_len = C.decode_inputs(torch, dev, b, h, hkv, d, t)
+        keys = float(kv_len.sum())
+        res["decode_attention" + suffix] = {
+            **C.time_decode(torch, q, kv_sets, kv_len),
+            "bound_ms": C.decode_bound(b, h, hkv, d, keys)[0]}
+        del q, kv_sets
+        q, sets, (kf, vf), kv_len = C.decode_int8_inputs(torch, dev, b, h,
+                                                         hkv, d, t)
+        res["decode_attention_int8" + suffix] = {
+            **C.time_decode_int8(torch, q, sets, kv_len, kf, vf),
+            "bound_ms": C.decode_bound(b, h, hkv, d, float(kv_len.sum()),
+                                       int8=True)[0]}
+        del q, sets, kf, vf
     for rows, vocab in RACES:
         nbytes = 2 * rows * C.K_DRAFTS * vocab * 4
         sets = C.race_inputs(torch, dev, rows, vocab, C.cold_sets(nbytes),
@@ -61,6 +74,9 @@ def one_tree(src: str) -> dict:
             "bound_ms": C.bound(nbytes + rows * C.K_DRAFTS * 8,
                                 3 * rows * C.K_DRAFTS * vocab)[0]}
         del sets
+    args = C.joint_inputs(torch, dev, JOINT_VOCAB)
+    res[f"gls_race {tuple(args[0].shape)}"] = {
+        **C.time_joint(torch, args), "bound_ms": C.joint_bound(args)[0]}
     return res
 
 
