@@ -28,9 +28,13 @@ when the port's sources are not beside this file.  Phases:
      function (none for the row and joint races: ``torch.min`` on a
      precomputed score is timed as a note only), and
      the bound (bytes over 3.35 TB/s or float32 operations over
-     67 TFLOP/s, whichever is larger).  The int8 instances of both
-     attention kernels (int8 K/V with per-vector float32 scales, the
-     arenas of ``SpecDecConfig(quant=True)``) are held the same way
+     67 TFLOP/s, whichever is larger); for the flash rows the products
+     at float32 accuracy on the tensor cores (3 TF32 products per float32
+     product, 2 for int8 K/V, at 495 TFLOP/s) or the bytes, whichever is
+     larger, with the float32-FMA bound beside it as ``bound_fma_ms``.
+     The int8 instances of both attention kernels (int8 K/V with
+     per-vector float32 scales, the arenas of
+     ``SpecDecConfig(quant=True)``) are held the same way
      against their plain versions at the serve shapes (decode also at
      its own split plan's and 256-key tiles' edges; the serve buffer
      T = 370 puts every other (row, head) scale row on an 8-byte
@@ -89,7 +93,11 @@ when the port's sources are not beside this file.  Phases:
      as in phase 2 (decode q (32, 32, 128), k/v (32, 8, 370, 128), cold
      K/V sets, the split plan's edges, the 32/33/64/65-key tile edges
      and the int8 instance's 128-key ones, its floor; flash 256
-     queries), timed beside the plain version, SDPA and the bound; phase 2b's reference check at 36 layers; the phase 3
+     queries, where the tensor-core kernel and the plain version are also
+     held to a float64 evaluation of the same inputs: the kernel's max
+     error at most 4x the plain version's), timed beside the plain
+     version, SDPA and the bound; phase 2b's reference check at 36
+     layers; the phase 3
      server and its quant twin with 4 requests of 32 new tokens
      (completion, token range, the sync gates, the D = 128 instances'
      and the row race's launches); phase 4's self-draft (>= 0.9 L) and
@@ -159,10 +167,12 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
-# Published H100 SXM peaks: HBM rate and the
-# float32 rate outside the tensor cores (the port keeps f32 "highest").
+# Published H100 SXM peaks: HBM rate, the float32 rate outside the tensor
+# cores (the port keeps f32 "highest") and the dense TF32 tensor-core rate
+# (a float32-accurate product takes 3 TF32 products, ``flash_bound``).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 # Its L2 cache: the cycled timings of the two small streaming kernels
 # keep three times as many input bytes.
 L2_BYTES = 50 * 2 ** 20
@@ -275,11 +285,18 @@ def log_kernel(kr: dict, smi: str) -> None:
     floor = (f", floor {kr['floor_ms']:.4f} device ms (the design's grid "
              f"and data movement, no arithmetic)" if "floor_ms" in kr
              else "")
+    fma = (f", float32-FMA bound {kr['bound_fma_ms']:.4f} ms"
+           if "bound_fma_ms" in kr else "")
     log(f"kernel {kr['name']} [{kr['shape']}]: max_abs_err="
         f"{kr['max_abs_err']:.3g} kernel {kr['ms']:.4f} ms{dev}, plain "
         f"{kr['plain_ms']:.4f} ms, library {lib}{note} ({kr['library']}), "
-        f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}{work}){floor} "
+        f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}{work}){fma}{floor} "
         f"[{smi}]")
+    if "err64" in kr:
+        a, b = kr["err64"]
+        log(f"kernel {kr['name']} max abs err against float64: kernel "
+            f"{a:.3g}, plain {b:.3g} (ratio "
+            f"{a / b if b else float('inf'):.3g}, held to <= 4)")
     if "err_vs_float64" in kr:
         log(f"kernel {kr['name']} max abs err (y, states) against float64: "
             + ", ".join(f"{k} {v[0]:.3g}, {v[1]:.3g}"
@@ -727,52 +744,143 @@ def kernel_decode(torch, dev, cfg, t: int):
     }
 
 
-def kernel_flash(torch, dev, cfg, s: int, t: int):
-    """``flash_attention`` against its plain version at the admission
-    shape (the config's head dim's instance)."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
-    from repro_torch.kernels.mode import launch_name
+def flash_inputs(torch, dev, b: int, h: int, hkv: int, d: int, s: int,
+                 t: int, int8: bool = False):
+    """The admission shape: q (b, h, s, d) against (b, hkv, t, d) K/V (int8:
+    quantized per vector as the arenas are, ``int8_kv_sets``); half the
+    arena rows are first chunks (offset 0), half second chunks at offset s
+    whose bucket tails run past T (kv_len = offset + s).  Returns the
+    wrapper's arguments (q, k, v, q_off, kv_len, k_scale, v_scale; no
+    scales for float K/V) and the causal mask (b, s, t)."""
     g = torch.Generator(device=dev)
-    g.manual_seed(SEED + 2)
-    b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
-        cfg.resolved_head_dim
+    g.manual_seed(SEED + (13 if int8 else 2))
     q = torch.randn((b, h, s, d), generator=g, device=dev)
-    k = torch.randn((b, hkv, t, d), generator=g, device=dev)
-    v = torch.randn((b, hkv, t, d), generator=g, device=dev)
-    # Arena rows: first chunks (offset 0), second chunks at offset s, and
-    # bucket tails running past T (kv_len = offset + s > T).
+    if int8:
+        sets, _ = int8_kv_sets(torch, dev, b, hkv, t, d, 1, SEED + 14)
+        k, v, ks, vs = sets[0]
+    else:
+        k = torch.randn((b, hkv, t, d), generator=g, device=dev)
+        v = torch.randn((b, hkv, t, d), generator=g, device=dev)
+        ks = vs = None
     q_off = torch.zeros(b, dtype=torch.int32, device=dev)
     q_off[b // 2:] = s
     kv_len = q_off + s
-    out_k = flash_attention(q, k, v, q_off, kv_len)
-    out_p = flash_attention_plain(q, k, v, q_off, kv_len)
-    torch.cuda.synchronize()
-    err = float((out_k - out_p).abs().max())
-    assert err <= 1e-4, f"flash_attention max abs err {err}"
     k_pos = torch.arange(t, device=dev)
     q_pos = q_off[:, None].long() + torch.arange(s, device=dev)
     mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
             & (k_pos[None, None, :] < kv_len[:, None, None].long()))
+    return (q, k, v, q_off, kv_len, ks, vs), mask
+
+
+def flash_kv(torch, args, dtype):
+    """K and V as ``dtype`` (int8: times their scales, in ``dtype``)."""
+    _, k, v, _, _, ks, vs = args
+    if ks is None:
+        return k.to(dtype), v.to(dtype)
+    return k.to(dtype) * ks.to(dtype), v.to(dtype) * vs.to(dtype)
+
+
+def flash_float64(torch, args, mask):
+    """The same attention evaluated in float64 (int8 K/V dequantized
+    exactly), with the plain version's masked-row contract."""
+    from repro_torch.kernels.flash_attention.ref import masked_softmax
+    q = args[0].double()
+    b, h, s, d = q.shape
+    kf, vf = flash_kv(torch, args, torch.float64)
+    hkv = kf.shape[1]
+    qr = q.reshape(b, hkv, h // hkv, s, d)
+    scores = torch.einsum("bhgsd,bhtd->bhgst", qr, kf) / d ** 0.5
+    w = masked_softmax(scores, mask[:, None, None])
+    return torch.einsum("bhgst,bhtd->bhgsd", w, vf).reshape(b, h, s, d)
+
+
+def flash_bound(h: int, hkv: int, d: int, mask, kv_len, t: int,
+                int8: bool):
+    """The bounds of one flash call.  Bytes: q and out once, each live
+    key's K and V once (int8: one byte per element and a float scale per
+    key and leaf), over 3.35 TB/s.  ``bound_ms``, the cheapest admissible
+    design's, the larger of the bytes' time and the products of the
+    unmasked (query, key) pairs (4 D flops a pair) at float32 accuracy on
+    the tensor cores: 3 TF32 products per float32 product (2 for int8
+    K/V, exact in TF32) at 495 TFLOP/s.  ``bound_fma_ms``, the SIMT
+    design's (the D = 64 instances), the larger of the bytes' time and
+    4 D + 4 flops a pair (int8 plus one multiply per dequantized element)
+    at the float32 FMA rate.  Returns (bound_ms, bound_by, bound_fma_ms)."""
+    import torch
+    b, s = mask.shape[:2]
     pairs = float(mask.sum()) * h
     keys = float(torch.clamp(kv_len.long(), max=t).sum())
-    nbytes = 4 * (2 * b * h * s * d + 2 * hkv * keys * d + 2 * b)
-    t_bound, by = bound(nbytes, pairs * (4 * d + 4))
+    if int8:
+        nbytes = 4 * (2 * b * h * s * d + 2 * b) + 2 * hkv * keys * (d + 4)
+        fma_flops = pairs * (4 * d + 4) + 2 * hkv * keys * d
+    else:
+        nbytes = 4 * (2 * b * h * s * d + 2 * hkv * keys * d + 2 * b)
+        fma_flops = pairs * (4 * d + 4)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_tc = (2 if int8 else 3) * pairs * 4 * d / PEAK_TF32_FLOPS * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_tc else (t_tc, "operations")) \
+        + (bound(nbytes, fma_flops)[0],)
+
+
+def time_flash(torch, args, mask) -> dict:
+    """The wrapper, its plain version and SDPA (on K/V dequantized once
+    beforehand, untimed, for int8) on the same inputs; q and K/V (134 and
+    97 MB at granite's shape) are read cold."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    q = args[0]
+    kf, vf = flash_kv(torch, args, torch.float32)
+    return {"ms": time_ms(lambda: flash_attention(*args)),
+            "plain_ms": time_ms(lambda: flash_attention_plain(*args)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, kf, vf, attn_mask=mask[:, None], enable_gqa=True))}
+
+
+def kernel_flash(torch, dev, cfg, s: int, t: int, int8: bool = False):
+    """``flash_attention`` (the config's head dim's instance, float32 or
+    int8 K/V) against its plain version at the admission shape, within
+    1e-4.  At D = 128 both are also held to a float64 evaluation of the
+    same inputs: the tensor-core kernel's error at most 4x the plain
+    version's."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.mode import launch_name
+    b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
+        cfg.resolved_head_dim
+    name = launch_name("flash_attention", d, int8)
+    args, mask = flash_inputs(torch, dev, b, h, hkv, d, s, t, int8)
+    out_k = flash_attention(*args)
+    out_p = flash_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    assert err <= 1e-4, f"{name} max abs err {err}"
+    rec = {}
+    if d == 128:
+        out64 = flash_float64(torch, args, mask)
+        err64 = tuple(float((o.double() - out64).abs().max())
+                      for o in (out_k, out_p))
+        del out64
+        assert err64[0] <= 4 * err64[1], \
+            f"{name} error against float64 {err64[0]} > 4 x plain's {err64[1]}"
+        rec["err64"] = err64
+    del out_k, out_p
+    t_bound, by, t_fma = flash_bound(h, hkv, d, mask, args[4], t, int8)
+    kv = (f"k/v ({b}, {hkv}, {t}, {d}) int8 + scales ({b}, {hkv}, {t}, 1) "
+          f"f32" if int8 else f"k/v ({b}, {hkv}, {t}, {d}) f32")
     return {
-        "name": launch_name("flash_attention", d), "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:106",
-        "shape": f"q ({b}, {h}, {s}, {d}), k/v ({b}, {hkv}, {t}, {d}) f32",
+        "shape": f"q ({b}, {h}, {s}, {d}) f32, {kv}",
         "max_abs_err": err,
-        "ms": time_ms(lambda: flash_attention(q, k, v, q_off, kv_len)),
-        "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, q_off,
-                                                          kv_len)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask[:, None], enable_gqa=True)),
-        "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa)",
-        "bound_ms": t_bound, "bound_by": by,
+        **rec,
+        **time_flash(torch, args, mask),
+        "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa)"
+                   + (" on K/V dequantized once beforehand (untimed)"
+                      if int8 else ""),
+        "bound_ms": t_bound, "bound_by": by, "bound_fma_ms": t_fma,
     }
 
 
@@ -858,56 +966,6 @@ def kernel_decode_int8(torch, dev, cfg, t: int):
         "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa) "
                    "on K/V dequantized once beforehand (untimed), one warm "
                    "set",
-        "bound_ms": t_bound, "bound_by": by,
-    }
-
-
-def kernel_flash_int8(torch, dev, cfg, s: int, t: int):
-    """The int8 instance of ``flash_attention`` against its plain version
-    at the admission shape (as ``kernel_flash``)."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
-    from repro_torch.kernels.mode import launch_name
-    b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
-        cfg.resolved_head_dim
-    g = torch.Generator(device=dev)
-    g.manual_seed(SEED + 13)
-    q = torch.randn((b, h, s, d), generator=g, device=dev)
-    sets, (kf, vf) = int8_kv_sets(torch, dev, b, hkv, t, d, 1, SEED + 14)
-    k8, v8, ks, vs = sets[0]
-    q_off = torch.zeros(b, dtype=torch.int32, device=dev)
-    q_off[b // 2:] = s
-    kv_len = q_off + s
-    args = (q, k8, v8, q_off, kv_len, ks, vs)
-    out_k = flash_attention(*args)
-    out_p = flash_attention_plain(*args)
-    torch.cuda.synchronize()
-    err = float((out_k - out_p).abs().max())
-    assert err <= 1e-4, f"flash_attention_int8 max abs err {err}"
-    k_pos = torch.arange(t, device=dev)
-    q_pos = q_off[:, None].long() + torch.arange(s, device=dev)
-    mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
-            & (k_pos[None, None, :] < kv_len[:, None, None].long()))
-    pairs = float(mask.sum()) * h
-    keys = float(torch.clamp(kv_len.long(), max=t).sum())
-    nbytes = 4 * (2 * b * h * s * d + 2 * b) + 2 * hkv * keys * (d + 4)
-    t_bound, by = bound(nbytes, pairs * (4 * d + 4) + 2 * hkv * keys * d)
-    return {
-        "name": launch_name("flash_attention", d, int8=True),
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:106",
-        "shape": f"q ({b}, {h}, {s}, {d}) f32, k/v ({b}, {hkv}, {t}, {d}) "
-                 f"int8 + scales ({b}, {hkv}, {t}, 1) f32",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: flash_attention(*args)),
-        "plain_ms": time_ms(lambda: flash_attention_plain(*args)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, kf, vf, attn_mask=mask[:, None], enable_gqa=True)),
-        "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa) "
-                   "on K/V dequantized once beforehand (untimed)",
         "bound_ms": t_bound, "bound_by": by,
     }
 
@@ -1319,7 +1377,7 @@ def phase_granite(torch, dev, smi: str, buf_len: int):
     kernels = [kernel_decode(torch, dev, cfg, buf_len),
                kernel_flash(torch, dev, cfg, 256, buf_len),
                kernel_decode_int8(torch, dev, cfg, buf_len),
-               kernel_flash_int8(torch, dev, cfg, 256, buf_len)]
+               kernel_flash(torch, dev, cfg, 256, buf_len, int8=True)]
     for kr in kernels:
         log_kernel(kr, smi)
     phase_reference(torch, dev, target)
@@ -1724,7 +1782,7 @@ def main() -> int:
                kernel_decode(torch, dev, cfg, buf_len),
                kernel_flash(torch, dev, cfg, 256, buf_len),
                kernel_decode_int8(torch, dev, cfg, buf_len),
-               kernel_flash_int8(torch, dev, cfg, 256, buf_len),
+               kernel_flash(torch, dev, cfg, 256, buf_len, int8=True),
                kernel_binned(torch, dev, WZ_LMAX),
                kernel_joint(torch, dev, cfg.vocab_size)]
     binned_l2 = kernel_binned(torch, dev, 2)
@@ -1837,7 +1895,8 @@ def main() -> int:
     for kr in kernels:
         kr["launches"] = int(counts.get(kr["name"], 0))
     print(json.dumps({"kernels": [{k: kr[k] for k in keys + (
-        "device_ms", "floor_ms") if k in kr} for kr in kernels]}))
+        "device_ms", "floor_ms", "bound_fma_ms") if k in kr}
+        for kr in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

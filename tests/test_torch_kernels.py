@@ -637,7 +637,16 @@ FLASH_D128_CASES = dict(
     FLASH_CARD_CASES,
     granite_group=(2, 32, 8, 100, 370, [0, 256], [100, 356], (0,)),
     group_8=(2, 16, 2, 96, 160, [0, 40], [96, 136], (0, 9)),
-    keys_32_33=(3, 8, 2, 64, 65, [0, 1, 0], [32, 65, 33], (0,)))
+    keys_32_33=(3, 8, 2, 64, 65, [0, 1, 0], [32, 65, 33], (0,)),
+    # The tensor-core design's own edges: the 4 warps of a 64-row block
+    # stop at causal limits 16 apart, off the 16-row grid at offset 5;
+    # kv_len one short of, on and one past two and four 32-key tiles;
+    # S not a multiple of a warp's 16 rows; q_offset > 0 with kv_len > T.
+    warps_stop_apart=(2, 8, 2, 100, 200, [0, 5], [100, 105], (0, 9)),
+    keys_32_tile_edges=(6, 8, 2, 40, 130, [100] * 6,
+                        [63, 64, 65, 127, 128, 129], (0,)),
+    rows_not_16_multiple=(2, 8, 2, 37, 100, [0, 20], [37, 57], (0,)),
+    offset_kv_len_past_t=(2, 8, 2, 48, 90, [60, 30], [108, 78], (0,)))
 
 
 @pytest.mark.cuda
@@ -673,6 +682,117 @@ def test_flash_kernel_d128_matches_plain_on_card(cuda, case, int8):
         assert float((out - ref).abs().max()) <= 1e-4, window
         assert bool((out[kvl == 0] == 0).all())
     assert launch_counts[name] == before + len(windows)
+
+
+def _tf32(x, rounded=True):
+    """x (float32) as a TF32 operand: rounded as ``cvt.rna.tf32.f32`` does,
+    to the nearest value with 10 explicit mantissa bits, ties away from
+    zero (add half a TF32 ulp to the magnitude, clear the 13 low bits); or
+    truncated (the 13 low bits cleared)."""
+    bits = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return (((bits + 0x1000) if rounded else bits) & 0xFFFFE000).astype(
+        np.uint32).view(np.float32).astype(np.float64)
+
+
+def _split_products(a, b, n):
+    """a @ b from TF32 operands as the tensor-core flash kernel forms it:
+    n = 3 (float32 operands: a_lo b_hi + a_hi b_lo + a_hi b_hi), 2 (b exact
+    in TF32, the int8 K/V: a_lo b + a_hi b) or 1 (one TF32 product).  hi is
+    x rounded to TF32; lo = x - hi goes to the tensor cores unrounded,
+    emulated as truncated to TF32 (the coarser of what they may make of
+    its low bits).  The products of TF32 values are exact in float64 and
+    summed there; n = 0 is the float64 product itself."""
+    if n == 0:
+        return a @ b
+    a_hi = _tf32(a)
+    a_lo = _tf32(np.float32(a) - np.float32(a_hi), rounded=False)
+    b_hi = _tf32(b)
+    b_lo = _tf32(np.float32(b) - np.float32(b_hi), rounded=False)
+    if n == 1:
+        return a_hi @ b_hi
+    if n == 2:
+        assert (b_lo == 0).all()
+        return a_lo @ b_hi + a_hi @ b_hi
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _split_attention(q, k, v, ks, vs, mask, n):
+    """One head group's attention with Q K^T and P V as ``_split_products``
+    of ``n`` products: q (G, S, D) f32 pre-scaled by 1/sqrt(D), k/v (T, D)
+    (int8 values as float, with scales ks/vs (T, 1): s = ks (q . k8),
+    o += (p vs) . v8), mask (S, T); the softmax in float64 with the
+    masked-row contract, P rounded to float32 as the kernel holds it (n =
+    0: all in float64)."""
+    g, s, d = q.shape
+    scores = _split_products(q.reshape(g * s, d), k.T, n).reshape(g, s, -1)
+    if ks is not None:
+        scores = scores * ks[:, 0]
+    neg = np.where(mask, scores, -np.inf)
+    m = neg.max(-1, keepdims=True)
+    p = np.where(mask, np.exp(neg - np.where(np.isfinite(m), m, 0.0)), 0.0)
+    denom = np.maximum(p.sum(-1, keepdims=True), 1e-30)
+    if n:
+        p = p.astype(np.float32)
+    if vs is not None:
+        p = p * vs[:, 0]
+    out = _split_products(p.reshape(g * s, -1), v, n).reshape(g, s, d)
+    return out / denom
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_tf32_split_attention_holds_float32_accuracy(int8):
+    """The arithmetic of the head-dim-128 flash kernel (3xTF32 for float32
+    K/V, 2 products for int8 K/V, whose values are exact in TF32),
+    emulated in numpy on a small granite-shaped head group (D = 128, G =
+    4, a fully masked row): within 1e-5 of float64 attention and of
+    ``flash_attention_plain``.  The split's dropped and truncated terms
+    are below 2^-20 of each product (~3e-7 on these outputs) and the
+    plain version's float32 sums err ~1e-6, so 1e-5 holds both with a
+    margin.
+    One TF32 product (11 significant bits) misses 1e-4: why the kernel
+    splits."""
+    rng = np.random.RandomState(20)
+    b, hkv, g, s, t, d = 3, 1, 4, 24, 40, 128
+    q = rng.randn(b, hkv * g, s, d).astype(np.float32)
+    q_off = np.array([0, 10, 0], np.int32)
+    kv_len = np.array([24, 34, 0], np.int32)            # row 2: all masked
+    if int8:
+        from repro_torch.serving.quant import quantize_kv
+        (k, ks), (v, vs) = (quantize_kv(torch.from_numpy(
+            rng.randn(b, hkv, t, d).astype(np.float32))) for _ in range(2))
+        k, v, ks, vs = k.numpy(), v.numpy(), ks.numpy(), vs.numpy()
+        kf, vf = k.astype(np.float32), v.astype(np.float32)
+        k64 = kf.astype(np.float64) * ks.astype(np.float64)
+        v64 = vf.astype(np.float64) * vs.astype(np.float64)
+    else:
+        k, v = (rng.randn(b, hkv, t, d).astype(np.float32) for _ in range(2))
+        kf, vf, ks, vs = k, v, None, None
+        k64, v64 = k.astype(np.float64), v.astype(np.float64)
+    qs = q * np.float32(1 / np.sqrt(d))
+    pos = q_off[:, None, None] + np.arange(s)[None, :, None]
+    mask = (np.arange(t)[None, None, :] <= pos) & (
+        np.arange(t)[None, None, :] < kv_len[:, None, None])
+    plain = flash_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(q_off), torch.from_numpy(kv_len),
+        None if ks is None else torch.from_numpy(ks),
+        None if vs is None else torch.from_numpy(vs)).double().numpy()
+    outs = {}
+    for n in (1, 2 if int8 else 3):
+        outs[n] = np.stack([np.stack([_split_attention(
+            qs[bi, hi * g:(hi + 1) * g], kf[bi, hi], vf[bi, hi],
+            None if ks is None else ks[bi, hi],
+            None if vs is None else vs[bi, hi], mask[bi], n)
+            for hi in range(hkv)]).reshape(hkv * g, s, d) for bi in range(b)])
+    exact = np.stack([np.stack([_split_attention(
+        q[bi, hi * g:(hi + 1) * g].astype(np.float64) / np.sqrt(d),
+        k64[bi, hi], v64[bi, hi], None, None, mask[bi], 0)
+        for hi in range(hkv)]).reshape(hkv * g, s, d) for bi in range(b)])
+    split = outs[2 if int8 else 3]
+    assert np.abs(split - exact).max() <= 1e-5
+    assert np.abs(split - plain).max() <= 1e-5
+    assert (split[2] == 0).all() and (plain[2] == 0).all()
+    assert np.abs(outs[1] - exact).max() > 1e-4
 
 
 @pytest.mark.cuda

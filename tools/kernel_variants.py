@@ -2,8 +2,8 @@
 
   python3 tools/kernel_variants.py [--only KIND ...] [--parent DIR]
 
-KIND is one of ssd, flash, decode, decode_int8, decode_int8_d128, race,
-joint (default: all).
+KIND is one of ssd, flash, flash_d128, flash_int8_d128, decode,
+decode_int8, decode_int8_d128, race, joint (default: all).
 
 Needs one CUDA card and ``nvcc``.  A variant is a kernel's shipped source
 (``src/repro_torch/kernels/<kernel>/<kernel>.cu``) with a few text
@@ -15,15 +15,20 @@ file's pieces: the int8 decode on the tensor cores (``mma.sync``, K/V
 exact in fp16, q and the weights split into fp16 hi + lo).  The floors
 (the int8 decode's and the joint race's grid, clusters and data movement
 with no arithmetic) ship in the kernels' sources, where ``chip_smoke.py``
-times them through the extension; here they run beside the variants.  ``--parent DIR`` (a tree unpacked with ``git archive``) adds
-the parent's int8 decode and joint race designs.  Every variant is built
-by ``nvcc`` (the port's flags, ``-Xptxas=-v``) into its own shared
-library under ``build/kernel_variants/``, all builds started together.
+times them through the extension; here they run beside the variants.
+``--parent DIR`` (a tree unpacked with ``git archive``) adds the
+parent's int8 decode, joint race and head-dim-128 flash designs.  Every
+variant is built by ``nvcc`` (the port's flags, ``-Xptxas=-v``) into its
+own shared library under ``build/kernel_variants/``, all builds started
+together.
 Nothing here is imported by the port.
 
 At the shapes ``chip_smoke.py`` times (``ssd_chunk``: x (32, 4, 64, 32,
 64), B/C (32, 4, 64, 128); ``flash_attention``: q (32, 15, 256, 64), k/v
-(32, 5, 370, 64) with half the rows at offset 256; ``decode_attention``:
+(32, 5, 370, 64) with half the rows at offset 256, and at granite-8b's
+q (32, 32, 256, 128), k/v (32, 8, 370, 128), float32 and int8
+(``chip_smoke.flash_inputs``; the check also gives the error against a
+float64 evaluation beside the plain version's); ``decode_attention``:
 q (32, 15, 64), four (32, 5, 370, 64) K/V sets and the serve's kv_len;
 its int8 instance: the same q against int8 K/V sets with float32 scales,
 worth three L2 caches, and at D = 128 granite-8b's q (32, 32, 128)
@@ -186,6 +191,65 @@ extern "C" int variant_blocks_per_sm() {
   return n;
 }
 """
+
+# --- flash_attention at head dim 128 (tensor cores) -------------------------
+
+# Variants of the shipped design (wgmma, flash_attention_tc_kernel).
+
+# TF32 rounding by cvt.rna.tf32.f32 (the same values as the integer
+# operations).
+FLASH_TC_CVT = [
+    ("  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+     '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n'
+     "  return r;")]
+# lo rounded to TF32 as well.
+FLASH_TC_ROUNDED_LO = [("  lo = __float_as_uint(x - __uint_as_float(hi));",
+                        "  lo = tf32_bits(x - __uint_as_float(hi));")]
+# The output rows divided by their sums (one division an element) in place
+# of a multiply by the reciprocal.
+FLASH_TC_DIVIDE = [
+    ("      const float inv = 1.f / fmaxf(lt, 1e-30f);\n"
+     "      float* orow = out + q_base + static_cast<size_t>(s) * kD + 2 * t;",
+     "      const float den = fmaxf(lt, 1e-30f);\n"
+     "      float* orow = out + q_base + static_cast<size_t>(s) * kD + 2 * t;"),
+    ("            make_float2(o[j][2 * rr] * inv, o[j][2 * rr + 1] * inv);",
+     "            make_float2(o[j][2 * rr] / den, o[j][2 * rr + 1] / den);")]
+FLASH_D128_ENTRY = """
+extern "C" int variant_launch(const float* q, const void* k, const void* v,
+                              const float* k_scale, const float* v_scale,
+                              const int* q_offset, const int* kv_len,
+                              float* out, int B, int H, int Hkv, int S, int T,
+                              int window, void* stream) {
+  const cudaError_t err = @LAUNCH@(
+      q, static_cast<const @KV@*>(k), static_cast<const @KV@*>(v), @SCALES@
+      q_offset, kv_len, out, B, H, Hkv, S, T, 128, window,
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaPeekAtLastError());
+}
+extern "C" int variant_blocks_per_sm() {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, @OCCUPANCY@);
+  return n;
+}
+"""
+
+
+def _flash_d128_entry(int8: bool, parent: bool) -> str:
+    """The entry of the shipped design (or the parent's, whose kernel was
+    flash_attention_kernel<128, KV>) through the file's launchers."""
+    kv = "int8_t" if int8 else "float"
+    occupancy = (f"flash_attention_kernel<128, {kv}>, kGroup * "
+                 f"Tile<128>::kMaxHeads, Smem<128, {kv}>::bytes("
+                 f"Tile<128>::kMaxHeads)" if parent else
+                 f"flash_attention_tc_kernel<{kv}>, kTcThreads, "
+                 f"TcLayout<{kv}>::kBytes")
+    return (FLASH_D128_ENTRY
+            .replace("@LAUNCH@", "launch_flash_attention_int8" if int8
+                     else "launch_flash_attention")
+            .replace("@KV@", kv)
+            .replace("@SCALES@", "k_scale, v_scale," if int8 else "")
+            .replace("@OCCUPANCY@", occupancy))
+
 
 # --- decode_attention, float32 ---------------------------------------------
 
@@ -1047,6 +1111,21 @@ VARIANTS = {
 }
 
 
+def _flash_d128_variants(kind: str) -> dict:
+    """A head-dim-128 flash instance: the shipped wgmma kernel with TF32
+    rounding by cvt, lo rounded, or the output divided by the row sums."""
+    name = {"flash_d128": "flash_attention_d128",
+            "flash_int8_d128": "flash_attention_int8_d128"}[kind]
+    return {name: (kind, []),
+            f"{name}/cvt": (kind, FLASH_TC_CVT),
+            f"{name}/rounded_lo": (kind, FLASH_TC_ROUNDED_LO),
+            f"{name}/divide": (kind, FLASH_TC_DIVIDE)}
+
+
+VARIANTS.update(_flash_d128_variants("flash_d128"))
+VARIANTS.update(_flash_d128_variants("flash_int8_d128"))
+
+
 def _int8_variants(kind: str) -> dict:
     """The int8 decode instance's variants at one head dim."""
     name = {"decode_int8": "decode_attention_int8",
@@ -1106,7 +1185,11 @@ SOURCES = {"ssd": (SSD, SSD_ENTRY), "flash": (FLASH, FLASH_ENTRY),
                                                3)),
            "decode_int8_d128_parent": (None, _entry(PARENT_DECODE_INT8_ENTRY,
                                                     128, 4)),
-           "joint_parent": (None, PARENT_JOINT_ENTRY)}
+           "joint_parent": (None, PARENT_JOINT_ENTRY),
+           "flash_d128": (FLASH, _flash_d128_entry(False, False)),
+           "flash_d128_parent": (None, _flash_d128_entry(False, True)),
+           "flash_int8_d128": (FLASH, _flash_d128_entry(True, False)),
+           "flash_int8_d128_parent": (None, _flash_d128_entry(True, True))}
 # The (mangled) name of the kernel whose ptxas registers and spills each
 # kind reports: decode at the serve shapes' groups (G = 3 at D = 64, 4
 # at D = 128).
@@ -1131,7 +1214,11 @@ PTXAS_KERNEL = {"ssd": "ssd_chunk_kernel",
                 "decode_int8_parent": "decode_attention_kernelILi64ELi3EaE",
                 "decode_int8_d128_parent":
                     "decode_attention_kernelILi128ELi4EaE",
-                "joint_parent": "gls_race_kernel"}
+                "joint_parent": "gls_race_kernel",
+                "flash_d128": "flash_attention_tc_kernelIfE",
+                "flash_d128_parent": "flash_attention_kernelILi128EfE",
+                "flash_int8_d128": "flash_attention_tc_kernelIaE",
+                "flash_int8_d128_parent": "flash_attention_kernelILi128EaE"}
 # The input case each source kind runs.
 CASE_OF = {"ssd": "ssd", "flash": "flash", "decode": "decode",
            "decode_two_pass": "decode", "decode_int8": "decode_int8",
@@ -1145,7 +1232,12 @@ CASE_OF = {"ssd": "ssd", "flash": "flash", "decode": "decode",
            "race": "race", "joint": "joint", "joint_floor": "joint",
            "decode_int8_parent": "decode_int8",
            "decode_int8_d128_parent": "decode_int8_d128",
-           "joint_parent": "joint"}
+           "joint_parent": "joint",
+           "flash_d128": "flash_d128", "flash_d128_parent": "flash_d128",
+           "flash_int8_d128": "flash_int8_d128",
+           "flash_int8_d128_parent": "flash_int8_d128"}
+# Cases timed as one call on one input set (no cycling, no device time).
+SINGLE_CALL = ("ssd", "flash", "flash_d128", "flash_int8_d128")
 # Kinds whose output is not the kernel's function (no check).
 UNCHECKED = {"decode_int8_floor", "decode_int8_d128_floor", "joint_floor",
              "decode_int8_probe", "decode_int8_d128_probe"}
@@ -1154,10 +1246,14 @@ PARENT_VARIANTS = {
                                        {"splits": 6}),
     "decode_attention_int8_d128 (parent)": ("decode_int8_d128_parent", [],
                                             {"splits": 2}),
-    "gls_race (parent)": ("joint_parent", [])}
+    "gls_race (parent)": ("joint_parent", []),
+    "flash_attention_d128 (parent)": ("flash_d128_parent", []),
+    "flash_attention_int8_d128 (parent)": ("flash_int8_d128_parent", [])}
 PARENT_FILES = {"decode_int8_parent": DECODE.relative_to(ROOT),
                 "decode_int8_d128_parent": DECODE.relative_to(ROOT),
-                "joint_parent": JOINT.relative_to(ROOT)}
+                "joint_parent": JOINT.relative_to(ROOT),
+                "flash_d128_parent": FLASH.relative_to(ROOT),
+                "flash_int8_d128_parent": FLASH.relative_to(ROOT)}
 
 
 def variant_source(kind: str, subs, parent=None) -> str:
@@ -1204,8 +1300,11 @@ def build_all(names, parent=None):
         regs = re.findall(r"Used (\d+) registers", entry)
         spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
                             r"loads", entry)
+        warn = "".join(f"; ptxas: {w.strip()}" for w in out.splitlines()
+                       if "Performance Loss" in w)
         built[name] = (lib, f"{regs[0] if regs else '?'} registers, spill "
-                            f"stores/loads {spills[0] if spills else '?'}")
+                            f"stores/loads {spills[0] if spills else '?'}"
+                            f"{warn}")
     return built
 
 
@@ -1285,6 +1384,41 @@ def flash_case(torch, dev):
         if err > 1e-4:
             raise AssertionError(f"max abs err {err}")
         return err
+
+    return run, check
+
+
+def flash_d128_case(torch, dev, int8: bool):
+    """The launcher and check of each variant of a head-dim-128 flash
+    instance at granite-8b's admission shape (``chip_smoke.flash_inputs``:
+    q (32, 32, 256, 128), K/V (32, 8, 370, 128)): within 1e-4 of plain;
+    the check also returns the error against a float64 evaluation of the
+    same inputs beside the plain version's."""
+    import chip_smoke as C
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    b, h, hkv, d, s, t = 32, 32, 8, 128, 256, 370
+    args, mask = C.flash_inputs(torch, dev, b, h, hkv, d, s, t, int8)
+    q, k, v, q_off, kv_len, ks, vs = args
+    want = flash_attention_plain(*args)
+    want64 = C.flash_float64(torch, args, mask)
+    plain64 = float((want.double() - want64).abs().max())
+    out = torch.empty_like(q)
+    stream = stream_ptr(torch)
+
+    def run(lib):
+        rc = lib.variant_launch(ptr(q), ptr(k), ptr(v),
+                                ptr(ks) if int8 else None,
+                                ptr(vs) if int8 else None, ptr(q_off),
+                                ptr(kv_len), ptr(out), b, h, hkv, s, t, 0,
+                                stream)
+        if rc:
+            raise RuntimeError(f"launch failed: cuda error {rc}")
+
+    def check():
+        err = float((out - want).abs().max())
+        if err > 1e-4:
+            raise AssertionError(f"max abs err {err}")
+        return err, float((out.double() - want64).abs().max()), plain64
 
     return run, check
 
@@ -1471,7 +1605,8 @@ def main(argv) -> int:
     ap.add_argument("--only", nargs="+", choices=sorted(set(CASE_OF.values())),
                     default=sorted(set(CASE_OF.values())))
     ap.add_argument("--parent", help="a parent tree (git archive) whose "
-                    "int8 decode and joint race kernels run as variants too")
+                    "int8 decode, joint race and head-dim-128 flash kernels "
+                    "run as variants too")
     args = ap.parse_args(argv)
     if args.parent:
         VARIANTS.update(PARENT_VARIANTS)
@@ -1487,7 +1622,9 @@ def main(argv) -> int:
     makers = {"ssd": ssd_case, "flash": flash_case, "decode": decode_case,
               "decode_int8": decode_int8_case,
               "decode_int8_d128": lambda t, d: decode_int8_case(t, d, 128),
-              "race": race_case, "joint": joint_case}
+              "race": race_case, "joint": joint_case,
+              "flash_d128": lambda t, d: flash_d128_case(t, d, False),
+              "flash_int8_d128": lambda t, d: flash_d128_case(t, d, True)}
     cases = {c: makers[c](torch, dev) for c in args.only}
 
     def opts(name):
@@ -1496,7 +1633,7 @@ def main(argv) -> int:
     def shape_calls(case, lib, name):
         """Per shape, the calls (one per input set) a timing cycles
         through."""
-        if case in ("ssd", "flash"):
+        if case in SINGLE_CALL:
             run = cases[case][0]
             return [[lambda: run(lib)]]
         calls = cases[case][0](lib, opts(name))
@@ -1507,7 +1644,7 @@ def main(argv) -> int:
         case = CASE_OF[VARIANTS[name][0]]
         lib = ctypes.CDLL(os.fspath(lib_path))
         try:
-            if case in ("ssd", "flash"):
+            if case in SINGLE_CALL:
                 run, check = cases[case]
                 run(lib)
                 torch.cuda.synchronize()
@@ -1530,7 +1667,7 @@ def main(argv) -> int:
         for name in names + names[::-1]:
             times[name].append([C.time_cycled(c) for c in shape_calls(
                 case, libs[name], name)])
-        if case not in ("ssd", "flash"):
+        if case not in SINGLE_CALL:
             for name in names:
                 try:
                     device[name] = [C.device_ms(torch, c, cases[case][2])
@@ -1543,9 +1680,13 @@ def main(argv) -> int:
                            for ts in times[name])
         dev_ms = (", device ms " + ", ".join(f"{t:.4f}" for t in device[name])
                   if name in device else "")
+        err = errs[name]
+        err = (f"{err[0]:.3g} (against float64 {err[1]:.3g}, the plain "
+               f"version's {err[2]:.3g})" if isinstance(err, tuple)
+               else f"{err:.3g}")
         print(f"{name}: {built[name][1]}, {lib.variant_blocks_per_sm()} "
-              f"blocks per SM, ms {turns}{dev_ms}, max abs err "
-              f"{errs[name]:.3g}", flush=True)
+              f"blocks per SM, ms {turns}{dev_ms}, max abs err {err}",
+              flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

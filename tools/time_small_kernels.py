@@ -15,12 +15,18 @@ K/V sets worth more than the L2 cache with the serve's kv_len; the row
 race at the kv_fused verifier's (20, 8, 49152) and the reprefill
 verifier's (5, 8, 50280), cycling through three L2 caches of tables; the
 joint race ``gls_race`` at (20, 8, 49152) (``chip_smoke.joint_inputs``,
-94 MB a call).  Per tree and kernel it prints the CUDA-event time
-(``ms``), the kernel's device time per launch from ``torch.profiler``
-(``device_ms``), the plain version's time and the library call's (SDPA
-for decode; ``torch.min`` on a precomputed score, a note, for the
-races), and the bound; then the card's name and power limit.  Nothing
-here is imported by the port.
+94 MB a call); the four instances of ``flash_attention`` (float32 and
+int8 K/V at head dims 64 and 128) at the admission shapes of smollm-360m
+(q (32, 15, 256, 64), K/V (32, 5, 370, 64)) and granite-8b (q (32, 32,
+256, 128), K/V (32, 8, 370, 128)), ``chip_smoke.flash_inputs``, whose q
+and K/V are read cold at 128.  Per tree and kernel it prints the
+CUDA-event time (``ms``), the kernel's device time per launch from
+``torch.profiler`` (``device_ms``), the plain version's time and the
+library call's (SDPA for attention; ``torch.min`` on a precomputed
+score, a note, for the races), and the bound (flash: the tensor-core
+bound, with the float32-FMA bound beside it); then the card's name and
+power limit.  Nothing here
+is imported by the port.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # (b, h, hkv, d, t): smollm-360m's and granite-8b's decode serve shapes.
 DECODES = ((32, 15, 5, 64, 370), (32, 32, 8, 128, 370))
 RACES = ((20, 49152), (5, 50280))      # (rows of K drafts, vocab)
+# (b, h, hkv, d, s, t): the two admission shapes of flash_attention.
+FLASHES = ((32, 15, 5, 64, 256, 370), (32, 32, 8, 128, 256, 370))
 JOINT_VOCAB = 49152
 
 
@@ -77,6 +85,21 @@ def one_tree(src: str) -> dict:
     args = C.joint_inputs(torch, dev, JOINT_VOCAB)
     res[f"gls_race {tuple(args[0].shape)}"] = {
         **C.time_joint(torch, args), "bound_ms": C.joint_bound(args)[0]}
+    del args
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    for b, h, hkv, d, s, t in FLASHES:
+        for int8 in (False, True):
+            name = ("flash_attention" + ("_int8" if int8 else "")
+                    + ("" if d == 64 else f"_d{d}"))
+            args, mask = C.flash_inputs(torch, dev, b, h, hkv, d, s, t, int8)
+            t_bound, _, t_fma = C.flash_bound(h, hkv, d, mask, args[4], t,
+                                              int8)
+            res[name] = {**C.time_flash(torch, args, mask),
+                         "device_ms": C.device_ms(
+                             torch, [lambda: flash_attention(*args)],
+                             "flash_attention"),
+                         "bound_ms": t_bound, "bound_fma_ms": t_fma}
+            del args, mask
     return res
 
 
@@ -96,10 +119,12 @@ def main(argv) -> int:
     for src, res in rows:
         for name, m in res.items():
             lib = m.get("library_ms", m.get("note_ms"))
+            fma = (f", float32-FMA bound {m['bound_fma_ms']:.4f}"
+                   if "bound_fma_ms" in m else "")
             print(f"{src}: {name}: ms {m['ms']:.4f}, device_ms "
                   f"{m['device_ms']:.4f}, plain "
                   f"{m['plain_ms']:.4f}, library/note {lib:.4f}, bound "
-                  f"{m['bound_ms']:.4f}", flush=True)
+                  f"{m['bound_ms']:.4f}{fma}", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
