@@ -48,14 +48,14 @@ cudaError_t launch_flash_attention(const float* q, const float* k,
                                    const float* v, const int* q_offset,
                                    const int* kv_len, float* out, int B, int H,
                                    int Hkv, int S, int T, int D, int window,
-                                   cudaStream_t stream);
+                                   int causal, cudaStream_t stream);
 cudaError_t launch_flash_attention_int8(const float* q, const int8_t* k,
                                         const int8_t* v, const float* k_scale,
                                         const float* v_scale,
                                         const int* q_offset, const int* kv_len,
                                         float* out, int B, int H, int Hkv,
                                         int S, int T, int D, int window,
-                                        cudaStream_t stream);
+                                        int causal, cudaStream_t stream);
 bool flash_attention_has_head_dim(int d);
 void launch_gls_binned_race(const float* log_s, const float* log_q,
                             const int* bins, float* bmin, int* barg,
@@ -393,7 +393,8 @@ torch::Tensor decode_attention_int8_floor(torch::Tensor q, torch::Tensor k,
 
 torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
                               torch::Tensor v, torch::Tensor q_offset,
-                              torch::Tensor kv_len, int64_t window) {
+                              torch::Tensor kv_len, int64_t window,
+                              bool causal) {
   check_tensor(q, "q", torch::kFloat32, 4);
   check_tensor(k, "k", torch::kFloat32, 4);
   check_tensor(v, "v", torch::kFloat32, 4);
@@ -426,7 +427,8 @@ torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
       q_offset.data_ptr<int>(), kv_len.data_ptr<int>(), out.data_ptr<float>(),
       static_cast<int>(B), static_cast<int>(H), static_cast<int>(Hkv),
       static_cast<int>(S), static_cast<int>(T), static_cast<int>(D),
-      static_cast<int>(window), c10::cuda::getCurrentCUDAStream());
+      static_cast<int>(window), causal ? 1 : 0,
+      c10::cuda::getCurrentCUDAStream());
   TORCH_CHECK(err == cudaSuccess,
               std::string("flash_attention: setting its shared memory size "
                           "failed: ") + cudaGetErrorString(err));
@@ -438,7 +440,8 @@ torch::Tensor flash_attention_int8(torch::Tensor q, torch::Tensor k,
                                    torch::Tensor v, torch::Tensor k_scale,
                                    torch::Tensor v_scale,
                                    torch::Tensor q_offset,
-                                   torch::Tensor kv_len, int64_t window) {
+                                   torch::Tensor kv_len, int64_t window,
+                                   bool causal) {
   check_tensor(q, "q", torch::kFloat32, 4);
   check_tensor(q_offset, "q_offset", torch::kInt32, 1);
   check_tensor(kv_len, "kv_len", torch::kInt32, 1);
@@ -465,7 +468,8 @@ torch::Tensor flash_attention_int8(torch::Tensor q, torch::Tensor k,
       q_offset.data_ptr<int>(), kv_len.data_ptr<int>(), out.data_ptr<float>(),
       static_cast<int>(B), static_cast<int>(H), static_cast<int>(Hkv),
       static_cast<int>(S), static_cast<int>(T), static_cast<int>(D),
-      static_cast<int>(window), c10::cuda::getCurrentCUDAStream());
+      static_cast<int>(window), causal ? 1 : 0,
+      c10::cuda::getCurrentCUDAStream());
   TORCH_CHECK(err == cudaSuccess,
               std::string("flash_attention_int8: setting its shared memory "
                           "size failed: ") + cudaGetErrorString(err));
@@ -548,8 +552,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "and data movement, no arithmetic; out zero), for measurement "
         "only");
   m.def("flash_attention", &flash_attention,
-        "causal (optionally windowed) prefill attention with per-row "
-        "offsets");
+        "causal or non-causal (optionally windowed) prefill attention with "
+        "per-row offsets");
   m.def("flash_attention_int8", &flash_attention_int8,
         "flash_attention over int8 K/V with per-KV-vector float32 scales");
 }

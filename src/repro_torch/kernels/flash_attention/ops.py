@@ -17,18 +17,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len: Optional[torch.Tensor] = None,
                     k_scale: Optional[torch.Tensor] = None,
                     v_scale: Optional[torch.Tensor] = None, *,
-                    window: int = 0) -> torch.Tensor:
-    """Causal attention.  q: (B, H, S, D); k/v: (B, Hkv, T, D) f32, or
-    int8 with ``k_scale``/``v_scale`` (B, Hkv, T, 1) f32 (both or
-    neither); optional (B,) i32 ``q_offset``/``kv_len`` (defaults: offset
-    0, full T) -> (B, H, S, D).  The two routes agree to float32
-    summation order.  Launches count under ``launch_name``:
-    ``flash_attention`` and ``flash_attention_int8`` at D = 64,
-    ``..._d128`` at D = 128."""
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Causal (or, ``causal=False``, non-causal) attention.  q: (B, H, S,
+    D); k/v: (B, Hkv, T, D) f32, or int8 with ``k_scale``/``v_scale`` (B,
+    Hkv, T, 1) f32 (both or neither); optional (B,) i32
+    ``q_offset``/``kv_len`` (defaults: offset 0, full T) -> (B, H, S, D).
+    The two routes agree to float32 summation order (the tensor-core
+    instances, head dim 128 and int8 at 64, to float32 accuracy).
+    Launches count under ``launch_name``: ``flash_attention`` and
+    ``flash_attention_int8`` at D = 64, ``..._d128`` at D = 128."""
     assert (k_scale is None) == (v_scale is None)
     if not use_kernel(q):
         return flash_attention_plain(q, k, v, q_offset, kv_len, k_scale,
-                                     v_scale, window=window)
+                                     v_scale, causal=causal, window=window)
     from repro_torch.kernels.build import load_kernels
     ext = load_kernels()
     b, t = q.shape[0], k.shape[2]
@@ -41,12 +42,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len = kv_len.to(torch.int32).reshape(-1).expand(b).contiguous()
     if k_scale is None:
         out = ext.flash_attention(aligned16(q), aligned16(k), aligned16(v),
-                                  q_offset, kv_len, int(window))
+                                  q_offset, kv_len, int(window),
+                                  bool(causal))
     else:
         out = ext.flash_attention_int8(aligned16(q), aligned16(k),
                                        aligned16(v), k_scale.contiguous(),
                                        v_scale.contiguous(), q_offset,
-                                       kv_len, int(window))
+                                       kv_len, int(window), bool(causal))
     launch_counts[launch_name("flash_attention", q.shape[-1],
                               k_scale is not None)] += 1
     return out

@@ -29,10 +29,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_len: Optional[torch.Tensor] = None,
                           k_scale: Optional[torch.Tensor] = None,
                           v_scale: Optional[torch.Tensor] = None, *,
+                          causal: bool = True,
                           window: int = 0) -> torch.Tensor:
-    """Causal attention.  q: (B, H, S, D); k/v: (B, Hkv, T, D); optional
-    (B,) per-row ``q_offset`` (position of row b's first query) and
-    ``kv_len`` (valid key prefix).  Returns (B, H, S, D).
+    """Causal (or, ``causal=False``, non-causal) attention.  q: (B, H, S,
+    D); k/v: (B, Hkv, T, D); optional (B,) per-row ``q_offset`` (position
+    of row b's first query) and ``kv_len`` (valid key prefix).  Returns
+    (B, H, S, D).
 
     ``k_scale``/``v_scale`` (B, Hkv, T, 1), both or neither: dequant
     scales of int8 k/v, ``k.float() * k_scale`` before the math
@@ -52,8 +54,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            else kv_len.to(torch.int64).reshape(-1).expand(b))
     q_pos = q_off[:, None] + torch.arange(s, device=dev)        # (B, S)
     k_pos = torch.arange(t, device=dev)
-    mask = ((k_pos[None, None, :] < kvl[:, None, None])
-            & (k_pos[None, None, :] <= q_pos[:, :, None]))      # (B, S, T)
+    mask = k_pos[None, None, :] < kvl[:, None, None]        # (B, S, T)
+    if causal:
+        mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
     if window:
         mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
     w = masked_softmax(scores, mask[:, None, None])

@@ -268,24 +268,25 @@ def test_decode_plain_matches_interpret_kernel(jx, t, d, h):
 
 
 @pytest.mark.parametrize("d,h", ATTN_DIMS)
-@pytest.mark.parametrize("window", [0, 7])
-def test_flash_plain_matches_interpret_kernel(jx, window, d, h):
+@pytest.mark.parametrize("window,causal", [(0, True), (7, True), (0, False)],
+                         ids=["0", "7", "0-noncausal"])
+def test_flash_plain_matches_interpret_kernel(jx, window, causal, d, h):
     """Per-row q_offset/kv_len arena masks, a bucket-padded row (queries
     past kv_len), a row whose chunk runs past T, and a fully masked row
     (kv_len = 0) -- against the interpret kernel and the reference, at
-    G = 3 and 4."""
+    G = 3 and 4, causal and not (JAX's static ``causal``)."""
     rng = np.random.RandomState(11 + window)
     b, hkv, s, t = 5, 2, 16, 40
     q, k, v = _attn_inputs(rng, b, h, hkv, s, t, d)
     q_off = np.array([0, 8, 3, 30, 0], np.int32)
     kv_len = np.array([16, 24, 10, 46, 0], np.int32)   # row 2: padded tail
     args = [jx.jnp.asarray(x) for x in (q, k, v, q_off, kv_len)]
-    kern = np.asarray(jx.flash(*args, window=window, tq=8, tk=8,
-                               interpret=True))
-    ref = np.asarray(jx.flash_ref(*args, window=window))
+    kern = np.asarray(jx.flash(*args, causal=causal, window=window, tq=8,
+                               tk=8, interpret=True))
+    ref = np.asarray(jx.flash_ref(*args, causal=causal, window=window))
     plain = flash_attention_plain(
         *[torch.from_numpy(x) for x in (q, k, v, q_off, kv_len)],
-        window=window).numpy()
+        causal=causal, window=window).numpy()
     np.testing.assert_allclose(plain, kern, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(plain, ref, rtol=RTOL, atol=ATOL)
     assert (plain[4] == 0).all()
@@ -531,8 +532,11 @@ def test_decode_kernel_at_split_edges_on_card(cuda, g, t, b, hkv):
     assert bool((out[kvl == 0] == 0).all())
 
 
-# Edges of the kernel's tiles (64 query rows per warp group, 64-key KV
-# tiles, up to 3 query heads of one KV head per block): (b, h, hkv, s, t,
+# Edges of the D = 64 kernels' tiles: the float32 instance's (64 query
+# rows per warp group, 64-key KV tiles, up to 3 query heads of one KV head
+# per block) and the int8 instance's on the tensor cores (64-row q tiles
+# of 16 rows a warp, two a block: two query heads of a KV head, or two q
+# tiles of one head for an odd group; 64-key tiles): (b, h, hkv, s, t,
 # q_offset, kv_len, windows).  None draws the offsets as the arena does.
 FLASH_CARD_CASES = {
     "arena": (8, 15, 5, 64, 200, None, None, (0, 33)),
@@ -544,6 +548,18 @@ FLASH_CARD_CASES = {
     "window": (2, 6, 2, 200, 300, [0, 90], [200, 290], (1, 5, 70)),
     "one_head_per_kv_head": (2, 4, 4, 96, 160, [0, 40], [96, 136], (0, 9)),
     "two_heads_per_kv_head": (2, 4, 2, 96, 160, [0, 40], [96, 136], (0,)),
+    # The tensor-core design's own edges: the 4 warps of a 64-row q tile
+    # stop at causal limits 16 apart, off the 16-row grid at offset 5;
+    # kv_len one short of, on and one past one and two 64-key tiles (two
+    # and four 32-key ones); S not a multiple of a warp's 16 rows;
+    # q_offset > 0 with kv_len > T; G = 3 (smollm-360m) as two q tiles of
+    # one head, the last block's second tile past S.
+    "warps_stop_apart": (2, 8, 2, 100, 200, [0, 5], [100, 105], (0, 9)),
+    "keys_32_tile_edges": (6, 8, 2, 40, 130, [100] * 6,
+                           [63, 64, 65, 127, 128, 129], (0,)),
+    "rows_not_16_multiple": (2, 8, 2, 37, 100, [0, 20], [37, 57], (0,)),
+    "offset_kv_len_past_t": (2, 8, 2, 48, 90, [60, 30], [108, 78], (0,)),
+    "odd_group_q_tiles": (2, 6, 2, 130, 200, [0, 5], [130, 135], (0, 9)),
 }
 
 
@@ -637,16 +653,7 @@ FLASH_D128_CASES = dict(
     FLASH_CARD_CASES,
     granite_group=(2, 32, 8, 100, 370, [0, 256], [100, 356], (0,)),
     group_8=(2, 16, 2, 96, 160, [0, 40], [96, 136], (0, 9)),
-    keys_32_33=(3, 8, 2, 64, 65, [0, 1, 0], [32, 65, 33], (0,)),
-    # The tensor-core design's own edges: the 4 warps of a 64-row block
-    # stop at causal limits 16 apart, off the 16-row grid at offset 5;
-    # kv_len one short of, on and one past two and four 32-key tiles;
-    # S not a multiple of a warp's 16 rows; q_offset > 0 with kv_len > T.
-    warps_stop_apart=(2, 8, 2, 100, 200, [0, 5], [100, 105], (0, 9)),
-    keys_32_tile_edges=(6, 8, 2, 40, 130, [100] * 6,
-                        [63, 64, 65, 127, 128, 129], (0,)),
-    rows_not_16_multiple=(2, 8, 2, 37, 100, [0, 20], [37, 57], (0,)),
-    offset_kv_len_past_t=(2, 8, 2, 48, 90, [60, 30], [108, 78], (0,)))
+    keys_32_33=(3, 8, 2, 64, 65, [0, 1, 0], [32, 65, 33], (0,)))
 
 
 @pytest.mark.cuda
@@ -739,12 +746,15 @@ def _split_attention(q, k, v, ks, vs, mask, n):
     return out / denom
 
 
-@pytest.mark.parametrize("int8", [False, True])
-def test_tf32_split_attention_holds_float32_accuracy(int8):
-    """The arithmetic of the head-dim-128 flash kernel (3xTF32 for float32
+@pytest.mark.parametrize("int8,d,g", [(False, 128, 4), (True, 128, 4),
+                                      (True, 64, 3)],
+                         ids=["False", "True", "int8-d64-g3"])
+def test_tf32_split_attention_holds_float32_accuracy(int8, d, g):
+    """The arithmetic of the tensor-core flash kernel (3xTF32 for float32
     K/V, 2 products for int8 K/V, whose values are exact in TF32),
     emulated in numpy on a small granite-shaped head group (D = 128, G =
-    4, a fully masked row): within 1e-5 of float64 attention and of
+    4) and a smollm-shaped int8 one (D = 64, G = 3), each with a fully
+    masked row: within 1e-5 of float64 attention and of
     ``flash_attention_plain``.  The split's dropped and truncated terms
     are below 2^-20 of each product (~3e-7 on these outputs) and the
     plain version's float32 sums err ~1e-6, so 1e-5 holds both with a
@@ -752,7 +762,7 @@ def test_tf32_split_attention_holds_float32_accuracy(int8):
     One TF32 product (11 significant bits) misses 1e-4: why the kernel
     splits."""
     rng = np.random.RandomState(20)
-    b, hkv, g, s, t, d = 3, 1, 4, 24, 40, 128
+    b, hkv, s, t = 3, 1, 24, 40
     q = rng.randn(b, hkv * g, s, d).astype(np.float32)
     q_off = np.array([0, 10, 0], np.int32)
     kv_len = np.array([24, 34, 0], np.int32)            # row 2: all masked
@@ -874,10 +884,14 @@ def test_decode_int8_kernel_at_split_edges_on_card(cuda, g, t, b, hkv):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["arena", "keys_not_tile_multiple",
                                   "kv_len_zero_row", "chunk_past_t",
-                                  "window", "two_heads_per_kv_head"])
+                                  "window", "two_heads_per_kv_head",
+                                  "warps_stop_apart", "keys_32_tile_edges",
+                                  "rows_not_16_multiple",
+                                  "offset_kv_len_past_t",
+                                  "odd_group_q_tiles"])
 def test_flash_int8_kernel_matches_plain_on_card(cuda, case):
-    """The int8 instance within 1e-4 of plain on the float32 instance's
-    tile-edge cases, and at the serve shape's T = 370 (T % 4 != 0)."""
+    """The int8 instance (the tensor-core kernel at D = 64) within 1e-4 of
+    plain on the tile-edge cases of both D = 64 designs."""
     b, h, hkv, s, t, off, kvl, windows = FLASH_CARD_CASES[case]
     rng = np.random.RandomState(5)
     q = torch.from_numpy(rng.randn(b, h, s, 64).astype(np.float32)).to(cuda)
@@ -908,6 +922,39 @@ def test_flash_int8_kernel_at_serve_shape_on_card(cuda):
     out = flash_attention(q, k8, v8, off, kvl, ks, vs)
     ref = flash_attention_plain(q, k8, v8, off, kvl, ks, vs)
     assert float((out - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,int8", [(64, False), (64, True), (128, False),
+                                    (128, True)])
+@pytest.mark.parametrize("case", ["arena", "kv_len_zero_row", "window",
+                                  "keys_32_tile_edges",
+                                  "offset_kv_len_past_t",
+                                  "odd_group_q_tiles"])
+def test_flash_kernels_non_causal_match_plain_on_card(cuda, case, d, int8):
+    """``causal=False`` (no served path passes it) on each of the four
+    instances: within 1e-4 of plain, a kv_len == 0 row exactly zero."""
+    b, h, hkv, s, t, off, kvl, windows = FLASH_CARD_CASES[case]
+    rng = np.random.RandomState(9)
+    q = torch.from_numpy(rng.randn(b, h, s, d).astype(np.float32)).to(cuda)
+    if int8:
+        kv = _int8_kv(rng, b, hkv, t, d, cuda)
+    else:
+        kv = tuple(torch.from_numpy(rng.randn(b, hkv, t, d).astype(
+            np.float32)).to(cuda) for _ in range(2)) + (None, None)
+    if off is None:
+        off = rng.randint(0, 150, b)
+        kvl = off + s
+        kvl[0] = 0
+    off, kvl = (torch.tensor(np.asarray(x, np.int32), device=cuda)
+                for x in (off, kvl))
+    for window in windows:
+        out = flash_attention(q, kv[0], kv[1], off, kvl, kv[2], kv[3],
+                              causal=False, window=window)
+        ref = flash_attention_plain(q, kv[0], kv[1], off, kvl, kv[2], kv[3],
+                                    causal=False, window=window)
+        assert float((out - ref).abs().max()) <= 1e-4, window
+        assert bool((out[kvl == 0] == 0).all())
 
 
 @pytest.mark.cuda

@@ -176,10 +176,15 @@ def test_int8_decode_plain_matches_jax(d, h):
     np.testing.assert_allclose(got[:3], ref, atol=ATTN_TOL, rtol=ATTN_TOL)
 
 
-@pytest.mark.parametrize("d,h", INT8_DIMS)
-def test_int8_flash_plain_matches_jax(d, h):
+@pytest.mark.parametrize(
+    "d,h,causal", [dh + (True,) for dh in INT8_DIMS]
+    + [dh + (False,) for dh in INT8_DIMS],
+    ids=[f"{d}-{h}" for d, h in INT8_DIMS]
+    + [f"{d}-{h}-noncausal" for d, h in INT8_DIMS])
+def test_int8_flash_plain_matches_jax(d, h, causal):
     """``test_quant_fused.py:132-163``'s prefill case (q_offset 0, 5, 30;
-    6 queries each) plus a fully masked row (kv_len 0)."""
+    6 queries each) plus a fully masked row (kv_len 0), causal and not
+    (JAX's static ``causal``)."""
     rng, (k8, v8, ks, vs) = _int8_kv(7, b=4, d=d)
     q = rng.randn(4, h, 6, d).astype(np.float32)
     q_off = np.array([0, 5, 30, 0], np.int32)
@@ -187,9 +192,10 @@ def test_int8_flash_plain_matches_jax(d, h):
     kv_len[3] = 0
     j_args = [jnp.asarray(a) for a in (q, k8, v8, q_off, kv_len, ks, vs)]
     got = flash_attention(*[torch.tensor(a) for a in
-                            (q, k8, v8, q_off, kv_len, ks, vs)]).numpy()
-    kern = _np(j_flash(*j_args, causal=True, tq=8, tk=16, interpret=True))
-    ref = _np(flash_attention_ref(*j_args, causal=True))
+                            (q, k8, v8, q_off, kv_len, ks, vs)],
+                          causal=causal).numpy()
+    kern = _np(j_flash(*j_args, causal=causal, tq=8, tk=16, interpret=True))
+    ref = _np(flash_attention_ref(*j_args, causal=causal))
     for want in (kern, ref):
         np.testing.assert_allclose(got, want, atol=ATTN_TOL, rtol=ATTN_TOL)
     assert not got[3].any()

@@ -2,8 +2,8 @@
 
   python3 tools/kernel_variants.py [--only KIND ...] [--parent DIR]
 
-KIND is one of ssd, flash, flash_d128, flash_int8_d128, decode,
-decode_int8, decode_int8_d128, race, joint (default: all).
+KIND is one of ssd, flash, flash_int8, flash_d128, flash_int8_d128,
+decode, decode_int8, decode_int8_d128, race, joint (default: all).
 
 Needs one CUDA card and ``nvcc``.  A variant is a kernel's shipped source
 (``src/repro_torch/kernels/<kernel>/<kernel>.cu``) with a few text
@@ -17,7 +17,10 @@ exact in fp16, q and the weights split into fp16 hi + lo).  The floors
 with no arithmetic) ship in the kernels' sources, where ``chip_smoke.py``
 times them through the extension; here they run beside the variants.
 ``--parent DIR`` (a tree unpacked with ``git archive``) adds the
-parent's int8 decode, joint race and head-dim-128 flash designs.  Every
+parent's flash designs (the tensor-core kernel at D = 128 without the
+``causal`` argument, and the SIMT int8 instance at D = 64) and, from
+the tree before the int8 decode and joint race were redesigned, those
+two.  Every
 variant is built by ``nvcc`` (the port's flags, ``-Xptxas=-v``) into its
 own shared library under ``build/kernel_variants/``, all builds started
 together.
@@ -25,8 +28,9 @@ Nothing here is imported by the port.
 
 At the shapes ``chip_smoke.py`` times (``ssd_chunk``: x (32, 4, 64, 32,
 64), B/C (32, 4, 64, 128); ``flash_attention``: q (32, 15, 256, 64), k/v
-(32, 5, 370, 64) with half the rows at offset 256, and at granite-8b's
-q (32, 32, 256, 128), k/v (32, 8, 370, 128), float32 and int8
+(32, 5, 370, 64) with half the rows at offset 256, float32 and int8, and
+at granite-8b's q (32, 32, 256, 128), k/v (32, 8, 370, 128), float32
+and int8
 (``chip_smoke.flash_inputs``; the check also gives the error against a
 float64 evaluation beside the plain version's); ``decode_attention``:
 q (32, 15, 64), four (32, 5, 370, 64) K/V sets and the serve's kv_len;
@@ -151,23 +155,24 @@ FLASH_1_HEAD = [
 # between two barriers): 88 KB and 192 threads, two blocks per SM.
 FLASH_32_ROWS_1_STAGE = [
     ("constexpr int kBQ = 64;", "constexpr int kBQ = 32;"),
-    ("static constexpr int kStagesF = kQuant ? 1 : 2;",
-     "static constexpr int kStagesF = 1;"),
-    ("""      if (it + 1 < n_tiles) {
-        load_kv<D>(smem + (stage ^ 1) * kKStage,
-                   smem + kOffV + (stage ^ 1) * kVStage, k, v, kv_base,
-                   k0 + kBK, T);
-      }
-      ks = smem + stage * kKStage;
-      vs = smem + kOffV + stage * kVStage;""", """      ks = smem;
-      vs = smem + kOffV;"""),
+    ("""  static constexpr int kOffV = 2 * kKStage;
+  static constexpr int kOffGroups = kOffV + 2 * kVStage;""",
+     """  static constexpr int kOffV = kKStage;
+  static constexpr int kOffGroups = kOffV + kVStage;"""),
+    ("""    if (it + 1 < n_tiles) {
+      load_kv<D>(smem + (stage ^ 1) * kKStage,
+                 smem + kOffV + (stage ^ 1) * kVStage, k, v, kv_base,
+                 k0 + kBK, T);
+    }
+    const float* ks = smem + stage * kKStage;
+    const float* vs = smem + kOffV + stage * kVStage;""",
+     """    const float* ks = smem;
+    const float* vs = smem + kOffV;"""),
     ("""    __syncwarp();  // P^T is rewritten by the next tile
   }""", """    __syncwarp();  // P^T is rewritten by the next tile
-    if constexpr (!L::kQuant) {
-      if (it + 1 < n_tiles) {
-        __syncthreads();
-        load_kv<D>(smem, smem + kOffV, k, v, kv_base, k0 + kBK, T);
-      }
+    if (it + 1 < n_tiles) {
+      __syncthreads();
+      load_kv<D>(smem, smem + kOffV, k, v, kv_base, k0 + kBK, T);
     }
   }"""),
     ("__launch_bounds__(kGroup * Tile<D>::kMaxHeads, 1)",
@@ -179,22 +184,22 @@ extern "C" int variant_launch(const float* q, const float* k, const float* v,
                               float* out, int B, int H, int Hkv, int S, int T,
                               int window, void* stream) {
   const cudaError_t err = launch_flash_attention(
-      q, k, v, q_offset, kv_len, out, B, H, Hkv, S, T, 64, window,
+      q, k, v, q_offset, kv_len, out, B, H, Hkv, S, T, 64, window, 1,
       static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaPeekAtLastError());
 }
 extern "C" int variant_blocks_per_sm() {
   int n = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, flash_attention_kernel<64, float>, kGroup * Tile<64>::kMaxHeads,
-      Smem<64, float>::bytes(Tile<64>::kMaxHeads));
+      &n, flash_attention_kernel<64, true>, kGroup * Tile<64>::kMaxHeads,
+      Smem<64>::bytes(Tile<64>::kMaxHeads));
   return n;
 }
 """
 
-# --- flash_attention at head dim 128 (tensor cores) -------------------------
+# --- flash_attention on the tensor cores (D = 128; int8 at D = 64) ---------
 
-# Variants of the shipped design (wgmma, flash_attention_tc_kernel).
+# Variants of the shipped design (wgmma, flash_attention_tc_kernel<D, KV>).
 
 # TF32 rounding by cvt.rna.tf32.f32 (the same values as the integer
 # operations).
@@ -214,7 +219,7 @@ FLASH_TC_DIVIDE = [
      "      float* orow = out + q_base + static_cast<size_t>(s) * kD + 2 * t;"),
     ("            make_float2(o[j][2 * rr] * inv, o[j][2 * rr + 1] * inv);",
      "            make_float2(o[j][2 * rr] / den, o[j][2 * rr + 1] / den);")]
-FLASH_D128_ENTRY = """
+FLASH_TC_ENTRY = """
 extern "C" int variant_launch(const float* q, const void* k, const void* v,
                               const float* k_scale, const float* v_scale,
                               const int* q_offset, const int* kv_len,
@@ -222,7 +227,7 @@ extern "C" int variant_launch(const float* q, const void* k, const void* v,
                               int window, void* stream) {
   const cudaError_t err = @LAUNCH@(
       q, static_cast<const @KV@*>(k), static_cast<const @KV@*>(v), @SCALES@
-      q_offset, kv_len, out, B, H, Hkv, S, T, 128, window,
+      q_offset, kv_len, out, B, H, Hkv, S, T, @D@, window,@CAUSAL@
       static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaPeekAtLastError());
 }
@@ -234,21 +239,45 @@ extern "C" int variant_blocks_per_sm() {
 """
 
 
-def _flash_d128_entry(int8: bool, parent: bool) -> str:
-    """The entry of the shipped design (or the parent's, whose kernel was
-    flash_attention_kernel<128, KV>) through the file's launchers."""
+def _flash_tc_entry(d: int, int8: bool, parent: bool) -> str:
+    """The entry of the shipped tensor-core design at head dim ``d``, or
+    the parent's (its launchers take no ``causal``; at D = 128 its kernel
+    was flash_attention_tc_kernel<KV>, at D = 64 the SIMT
+    flash_attention_kernel<64, KV>) through the file's launchers."""
     kv = "int8_t" if int8 else "float"
-    occupancy = (f"flash_attention_kernel<128, {kv}>, kGroup * "
-                 f"Tile<128>::kMaxHeads, Smem<128, {kv}>::bytes("
-                 f"Tile<128>::kMaxHeads)" if parent else
-                 f"flash_attention_tc_kernel<{kv}>, kTcThreads, "
-                 f"TcLayout<{kv}>::kBytes")
-    return (FLASH_D128_ENTRY
+    if not parent:
+        occupancy = (f"flash_attention_tc_kernel<{d}, {kv}>, kTcThreads, "
+                     f"TcLayout<{d}, {kv}>::kBytes")
+    elif d == 128:
+        occupancy = (f"flash_attention_tc_kernel<{kv}>, kTcThreads, "
+                     f"TcLayout<{kv}>::kBytes")
+    else:
+        occupancy = (f"flash_attention_kernel<64, {kv}>, kGroup * "
+                     f"Tile<64>::kMaxHeads, Smem<64, {kv}>::bytes("
+                     f"Tile<64>::kMaxHeads)")
+    return (FLASH_TC_ENTRY
             .replace("@LAUNCH@", "launch_flash_attention_int8" if int8
                      else "launch_flash_attention")
             .replace("@KV@", kv)
             .replace("@SCALES@", "k_scale, v_scale," if int8 else "")
+            .replace("@D@", str(d))
+            .replace("@CAUSAL@", "" if parent else " 1,")
             .replace("@OCCUPANCY@", occupancy))
+
+
+# The shape of the int8 instance at D = 64 (TcShape<64, int8_t>): keys a
+# K/V tile, stage sets, blocks per SM (the launch bound).
+_TC_SHAPE_64 = re.search(r"struct TcShape<64, int8_t> \{.*?\};",
+                         FLASH.read_text(), re.S).group(0)
+
+
+def flash_int8_shape(keys: int, stages: int, blocks: int):
+    """The substitution that sets TcShape<64, int8_t>."""
+    return [(_TC_SHAPE_64, f"""struct TcShape<64, int8_t> {{
+  static constexpr int kKeys = {keys};
+  static constexpr int kStages = {stages};
+  static constexpr int kMinBlocks = {blocks};
+}};""")]
 
 
 # --- decode_attention, float32 ---------------------------------------------
@@ -1124,6 +1153,16 @@ def _flash_d128_variants(kind: str) -> dict:
 
 VARIANTS.update(_flash_d128_variants("flash_d128"))
 VARIANTS.update(_flash_d128_variants("flash_int8_d128"))
+# The int8 instance at D = 64 (smollm-360m) and its other shapes: 32 or 64
+# keys a tile, two or three stage sets, one or two blocks per SM (64 keys
+# in three sets do not fit two blocks).
+VARIANTS.update({
+    "flash_attention_int8": ("flash_int8", []),
+    **{f"flash_attention_int8/{k}_keys_{st}_stages_{bl}_blocks": (
+        "flash_int8", flash_int8_shape(k, st, bl))
+       for k, st, bl in ((32, 2, 1), (32, 2, 2), (32, 3, 1), (32, 3, 2),
+                         (64, 2, 1), (64, 2, 2), (64, 3, 1))
+       if flash_int8_shape(k, st, bl)[0][1] != _TC_SHAPE_64}})
 
 
 def _int8_variants(kind: str) -> dict:
@@ -1186,15 +1225,17 @@ SOURCES = {"ssd": (SSD, SSD_ENTRY), "flash": (FLASH, FLASH_ENTRY),
            "decode_int8_d128_parent": (None, _entry(PARENT_DECODE_INT8_ENTRY,
                                                     128, 4)),
            "joint_parent": (None, PARENT_JOINT_ENTRY),
-           "flash_d128": (FLASH, _flash_d128_entry(False, False)),
-           "flash_d128_parent": (None, _flash_d128_entry(False, True)),
-           "flash_int8_d128": (FLASH, _flash_d128_entry(True, False)),
-           "flash_int8_d128_parent": (None, _flash_d128_entry(True, True))}
+           "flash_int8": (FLASH, _flash_tc_entry(64, True, False)),
+           "flash_int8_parent": (None, _flash_tc_entry(64, True, True)),
+           "flash_d128": (FLASH, _flash_tc_entry(128, False, False)),
+           "flash_d128_parent": (None, _flash_tc_entry(128, False, True)),
+           "flash_int8_d128": (FLASH, _flash_tc_entry(128, True, False)),
+           "flash_int8_d128_parent": (None, _flash_tc_entry(128, True, True))}
 # The (mangled) name of the kernel whose ptxas registers and spills each
 # kind reports: decode at the serve shapes' groups (G = 3 at D = 64, 4
 # at D = 128).
 PTXAS_KERNEL = {"ssd": "ssd_chunk_kernel",
-                "flash": "flash_attention_kernelILi64EfE",
+                "flash": "flash_attention_kernelILi64ELb1EE",
                 "decode": "decode_attention_kernelILi64ELi3EEE",
                 "decode_two_pass": "decode_attention_kernelILi64ELi3EEE",
                 "decode_int8": "decode_attention_kernel_int8ILi64ELi3EEE",
@@ -1215,10 +1256,12 @@ PTXAS_KERNEL = {"ssd": "ssd_chunk_kernel",
                 "decode_int8_d128_parent":
                     "decode_attention_kernelILi128ELi4EaE",
                 "joint_parent": "gls_race_kernel",
-                "flash_d128": "flash_attention_tc_kernelIfE",
-                "flash_d128_parent": "flash_attention_kernelILi128EfE",
-                "flash_int8_d128": "flash_attention_tc_kernelIaE",
-                "flash_int8_d128_parent": "flash_attention_kernelILi128EaE"}
+                "flash_int8": "flash_attention_tc_kernelILi64EaE",
+                "flash_int8_parent": "flash_attention_kernelILi64EaE",
+                "flash_d128": "flash_attention_tc_kernelILi128EfE",
+                "flash_d128_parent": "flash_attention_tc_kernelIfE",
+                "flash_int8_d128": "flash_attention_tc_kernelILi128EaE",
+                "flash_int8_d128_parent": "flash_attention_tc_kernelIaE"}
 # The input case each source kind runs.
 CASE_OF = {"ssd": "ssd", "flash": "flash", "decode": "decode",
            "decode_two_pass": "decode", "decode_int8": "decode_int8",
@@ -1233,11 +1276,12 @@ CASE_OF = {"ssd": "ssd", "flash": "flash", "decode": "decode",
            "decode_int8_parent": "decode_int8",
            "decode_int8_d128_parent": "decode_int8_d128",
            "joint_parent": "joint",
+           "flash_int8": "flash_int8", "flash_int8_parent": "flash_int8",
            "flash_d128": "flash_d128", "flash_d128_parent": "flash_d128",
            "flash_int8_d128": "flash_int8_d128",
            "flash_int8_d128_parent": "flash_int8_d128"}
 # Cases timed as one call on one input set (no cycling, no device time).
-SINGLE_CALL = ("ssd", "flash", "flash_d128", "flash_int8_d128")
+SINGLE_CALL = ("ssd", "flash", "flash_int8", "flash_d128", "flash_int8_d128")
 # Kinds whose output is not the kernel's function (no check).
 UNCHECKED = {"decode_int8_floor", "decode_int8_d128_floor", "joint_floor",
              "decode_int8_probe", "decode_int8_d128_probe"}
@@ -1247,11 +1291,13 @@ PARENT_VARIANTS = {
     "decode_attention_int8_d128 (parent)": ("decode_int8_d128_parent", [],
                                             {"splits": 2}),
     "gls_race (parent)": ("joint_parent", []),
+    "flash_attention_int8 (parent)": ("flash_int8_parent", []),
     "flash_attention_d128 (parent)": ("flash_d128_parent", []),
     "flash_attention_int8_d128 (parent)": ("flash_int8_d128_parent", [])}
 PARENT_FILES = {"decode_int8_parent": DECODE.relative_to(ROOT),
                 "decode_int8_d128_parent": DECODE.relative_to(ROOT),
                 "joint_parent": JOINT.relative_to(ROOT),
+                "flash_int8_parent": FLASH.relative_to(ROOT),
                 "flash_d128_parent": FLASH.relative_to(ROOT),
                 "flash_int8_d128_parent": FLASH.relative_to(ROOT)}
 
@@ -1388,15 +1434,17 @@ def flash_case(torch, dev):
     return run, check
 
 
-def flash_d128_case(torch, dev, int8: bool):
-    """The launcher and check of each variant of a head-dim-128 flash
-    instance at granite-8b's admission shape (``chip_smoke.flash_inputs``:
-    q (32, 32, 256, 128), K/V (32, 8, 370, 128)): within 1e-4 of plain;
-    the check also returns the error against a float64 evaluation of the
-    same inputs beside the plain version's."""
+def flash_tc_case(torch, dev, d: int, int8: bool):
+    """The launcher and check of each variant of a tensor-core flash
+    instance at its model's admission shape (``chip_smoke.flash_inputs``:
+    granite-8b's q (32, 32, 256, 128), K/V (32, 8, 370, 128); smollm-360m's
+    q (32, 15, 256, 64), K/V (32, 5, 370, 64)): within 1e-4 of plain; the
+    check also returns the error against a float64 evaluation of the same
+    inputs beside the plain version's."""
     import chip_smoke as C
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
-    b, h, hkv, d, s, t = 32, 32, 8, 128, 256, 370
+    b, s, t = 32, 256, 370
+    h, hkv = (32, 8) if d == 128 else (15, 5)
     args, mask = C.flash_inputs(torch, dev, b, h, hkv, d, s, t, int8)
     q, k, v, q_off, kv_len, ks, vs = args
     want = flash_attention_plain(*args)
@@ -1605,8 +1653,8 @@ def main(argv) -> int:
     ap.add_argument("--only", nargs="+", choices=sorted(set(CASE_OF.values())),
                     default=sorted(set(CASE_OF.values())))
     ap.add_argument("--parent", help="a parent tree (git archive) whose "
-                    "int8 decode, joint race and head-dim-128 flash kernels "
-                    "run as variants too")
+                    "flash kernels (and, from an older tree, int8 decode "
+                    "and joint race) run as variants too")
     args = ap.parse_args(argv)
     if args.parent:
         VARIANTS.update(PARENT_VARIANTS)
@@ -1623,8 +1671,9 @@ def main(argv) -> int:
               "decode_int8": decode_int8_case,
               "decode_int8_d128": lambda t, d: decode_int8_case(t, d, 128),
               "race": race_case, "joint": joint_case,
-              "flash_d128": lambda t, d: flash_d128_case(t, d, False),
-              "flash_int8_d128": lambda t, d: flash_d128_case(t, d, True)}
+              "flash_int8": lambda t, d: flash_tc_case(t, d, 64, True),
+              "flash_d128": lambda t, d: flash_tc_case(t, d, 128, False),
+              "flash_int8_d128": lambda t, d: flash_tc_case(t, d, 128, True)}
     cases = {c: makers[c](torch, dev) for c in args.only}
 
     def opts(name):

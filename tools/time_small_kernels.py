@@ -1,7 +1,7 @@
 """Time the port's small kernels of one or more source trees the way
 ``chip_smoke.py`` times them.
 
-  python3 tools/time_small_kernels.py [SRC ...]
+  python3 tools/time_small_kernels.py [--serve] [SRC ...]
 
 Needs one CUDA card.  Each ``SRC`` is a tree's ``src`` directory (default:
 this repository's ``src``; a parent commit unpacked with ``git archive``
@@ -24,9 +24,10 @@ CUDA-event time (``ms``), the kernel's device time per launch from
 ``torch.profiler`` (``device_ms``), the plain version's time and the
 library call's (SDPA for attention; ``torch.min`` on a precomputed
 score, a note, for the races), and the bound (flash: the tensor-core
-bound, with the float32-FMA bound beside it); then the card's name and
-power limit.  Nothing here
-is imported by the port.
+bound, with the float32-FMA bound beside it); with ``--serve``, instead
+of the kernels, ``chip_smoke.py``'s phase 3q serve of smollm-360m (int8
+arenas, W8A8 verify): tok/s, round wall and mean TTFT.  Then the card's
+name and power limit.  Nothing here is imported by the port.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ FLASHES = ((32, 15, 5, 64, 256, 370), (32, 32, 8, 128, 256, 370))
 JOINT_VOCAB = 49152
 
 
-def one_tree(src: str) -> dict:
+def one_tree(src: str, serve: bool = False) -> dict:
     sys.path.insert(0, os.path.abspath(src))
     sys.path.insert(1, os.fspath(ROOT))
     import torch
@@ -58,6 +59,11 @@ def one_tree(src: str) -> dict:
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda")
     res = {}
+    if serve:
+        from repro_torch.launch.serve import build_pair
+        target, drafter = build_pair("smollm-360m", 4, C.SEED, dev)
+        _, stats = C.phase_serve(torch, dev, target, drafter, quant=True)
+        return {"serve quant": stats}
     for b, h, hkv, d, t in DECODES:
         suffix = "" if d == 64 else f"_d{d}"
         q, kv_sets, kv_len = C.decode_inputs(torch, dev, b, h, hkv, d, t)
@@ -104,13 +110,16 @@ def one_tree(src: str) -> dict:
 
 
 def main(argv) -> int:
+    serve = "--serve" in argv
+    argv = [a for a in argv if a != "--serve"]
     if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(one_tree(argv[1])))
+        print(json.dumps(one_tree(argv[1], serve)))
         return 0
     trees = argv or [os.fspath(ROOT / "src")]
     rows = []
     for src in trees:
-        r = subprocess.run([sys.executable, __file__, "--one", src],
+        r = subprocess.run([sys.executable, __file__, "--one", src]
+                           + (["--serve"] if serve else []),
                            capture_output=True, text=True)
         if r.returncode != 0:
             print(f"{src}: failed\n{r.stdout}{r.stderr}", file=sys.stderr)
@@ -118,6 +127,11 @@ def main(argv) -> int:
         rows.append((src, json.loads(r.stdout.strip().splitlines()[-1])))
     for src, res in rows:
         for name, m in res.items():
+            if name == "serve quant":
+                print(f"{src}: smollm-360m {name}: " + ", ".join(
+                    f"{k} {m[k]:.4f}" for k in ("tok_s", "round_ms",
+                                                 "ttft_ms")), flush=True)
+                continue
             lib = m.get("library_ms", m.get("note_ms"))
             fma = (f", float32-FMA bound {m['bound_fma_ms']:.4f}"
                    if "bound_fma_ms" in m else "")
