@@ -100,6 +100,33 @@ when the port's sources are not beside this file.  Phases:
      device ms; then the self-draft (drafter = target) per strategy:
      specinfer and single reach 0.9 L, spectr its bound for JAX's
      row-0 semantics (``phase_rs_self_draft``);
+  kv: phase 3's workload through ``cache_mode="kv"`` (the host-driven
+     round: L drafter sweeps fetching the drafts, one stacked verify
+     chunk, per-request verification, the rollback gather, the catch-up
+     only for slots that accepted every draft; the kernel routes on):
+     per-uid streams equal to phase 3's, ``draft_syncs == L x rounds``,
+     ``host_syncs`` and ``gls_row_race`` launches equal to the requests'
+     blocks (one verification per advanced request a round), decode
+     launches between L and L + 1 sweeps a round, flash launches as in
+     phase 3; a shorter quant workload (4 requests x 16 tokens) through
+     kv and kv_fused in turn, equal streams; then per-request admission
+     (the dense ``prefill``, no flash launch) against bucketed under kv,
+     4 requests x 16 tokens, equal streams.  tok/s, round wall and TTFT
+     of each pair are logged side by side;
+  dense: smollm-360m's dense serving calls (``prefill`` of 90 tokens,
+     ``decode_step``, a 10-token ``verify_step``) against one dense
+     ``forward`` (1e-3), and ``forward`` over 2,560 tokens with chunked
+     attention against the dense path (1e-4);
+  diverse: heterogeneous drafters in the reference engine, the
+     smollm-360m target through ``cache_mode="reprefill"``, K = 2, L = 5,
+     target temperature 2.0, 4 requests x 8 tokens: gls and specinfer
+     with draft temperatures (0.5, 1.0) and (1.0, 0.5), and gls with two
+     distinct drafters (4 layers seed 1, 2 layers seed 2): K drafter
+     forwards a draft step, ``gls_row_race`` launched once per request a
+     block for gls and never for specinfer, block efficiency per request
+     logged; then drafter invariance (the drafter against itself scaled
+     by 1 + 1e-4, GLS, the same keys): equal outputs in at least 8 of 10
+     generations;
   granite: granite-8b at its published widths (36 layers, d_model 4096,
      32 heads over 8 KV heads of head dim 128, d_ff 14,336; a 4-layer
      drafter of the same widths; weights from seeds 0 and 1; float32):
@@ -117,7 +144,9 @@ when the port's sources are not beside this file.  Phases:
      layers; the phase 3
      server and its quant twin with 4 requests of 32 new tokens
      (completion, token range, the sync gates, the D = 128 instances'
-     and the row race's launches); phase 4's self-draft (>= 0.9 L) and
+     and the row race's launches), and the float32 serve again through
+     ``cache_mode="kv"`` with phase kv's gates and streams equal to the
+     kv_fused serve's; phase 4's self-draft (>= 0.9 L) and
      phase 4q's two quant rates (the int8 arenas' held within 0.2 of
      float32's, the served quant path's logged).  The pair
      is freed before phase 5;
@@ -158,13 +187,16 @@ when the port's sources are not beside this file.  Phases:
      self-draft check (drafter = the 48-layer target, acceptance >=
      0.9 L).
 
-Each of the paths of phases 3, 3q, rs, granite, 5, 6 and 7 is driven
-with the launch counts set to 0 just before it and read just after; the
-``kernels`` line reports each kernel's launches from its own paths
-(``gls_row_race``: the sum over the float32 kv_fused serves of smollm-360m
-and granite-8b and the reprefill serve; ``decode_attention`` and
-``flash_attention``: phase 3 plus the three rejection-sampling serves;
-the D = 128 instances: granite's float32 and quant serves).  The line before the last is a JSON object ``{"kernels":
+Each of the paths of phases 3, 3q, rs, kv, diverse, granite, 5, 6 and 7
+is driven with the launch counts set to 0 just before it and read just
+after; the ``kernels`` line reports each kernel's launches from its own
+paths (``gls_row_race``: the sum over the float32 kv_fused serves of
+smollm-360m and granite-8b, the kv serves, the gls serves of phase
+diverse and the reprefill serve; ``decode_attention`` and
+``flash_attention``: phase 3, the three rejection-sampling serves and
+the float32 kv serves; their int8 instances: phase 3q and the quant
+serves of phase kv; the D = 128 instances: granite's float32, quant and
+kv serves).  The line before the last is a JSON object ``{"kernels":
 [...]}``; the last line is ``{"ok": true, "device": {...}}``.  Every
 phase failure is an exception, so the script exits non-zero after any
 failure.
@@ -202,6 +234,12 @@ N_REQUESTS, MAX_NEW = 8, 64
 # strategy; the self-draft runs 4 requests at once.
 RS_REQUESTS, RS_MAX_NEW, RS_SELF_REQUESTS = 4, 32, 4
 RS_STRATEGIES = ("specinfer", "spectr", "single")
+# Phase kv: the quant workload through kv and kv_fused, per-request
+# against bucketed admission; phase diverse: the reprefill serves of
+# heterogeneous drafters.
+KV_QUANT_REQUESTS, KV_QUANT_MAX_NEW = 4, 16
+PR_REQUESTS, PR_MAX_NEW = 4, 16
+DIVERSE_REQUESTS, DIVERSE_MAX_NEW = 4, 8
 PROMPT_MIN, PROMPT_MAX = 16, 300
 SEED = 0
 
@@ -1048,7 +1086,7 @@ def phase_reference(torch, dev, target):
 
 
 def make_server(torch, dev, target, drafter, max_batch, quant=False,
-                strategy="gls"):
+                strategy="gls", cache_mode="kv_fused", admission="bucketed"):
     from repro_torch.specdec import CachedSpecDecEngine, SpecDecConfig
     from repro_torch.specdec import SpecDecServer
     k = 1 if strategy in ("single", "daliri") else K_DRAFTS
@@ -1058,24 +1096,33 @@ def make_server(torch, dev, target, drafter, max_batch, quant=False,
                         prefill_kernel=True, quant=quant)
     engine = CachedSpecDecEngine(target, drafter, cfg, pool_slots=S_SLOTS,
                                  device=dev)
-    return engine, SpecDecServer(engine, max_batch=max_batch)
+    return engine, SpecDecServer(engine, max_batch=max_batch,
+                                 cache_mode=cache_mode, admission=admission)
 
 
 def phase_serve(torch, dev, target, drafter, quant=False,
                 requests: int = N_REQUESTS, max_new: int = MAX_NEW,
-                label: str = "serve"):
+                label: str = "serve", cache_mode: str = "kv_fused",
+                admission: str = "bucketed"):
     """Phase 3 (float32 arenas) or 3q (``quant``: int8 arenas, W8A8
     verify; the attention kernels' int8 instances count under their own
     names), ``requests`` requests of ``max_new`` new tokens; the attention
     instances are those of the target's head dim (``launch_name``), and
-    no other attention instance may launch."""
+    no other attention instance may launch.  ``cache_mode="kv"`` serves
+    the same workload through the host-driven round, whose gates are
+    its own: L draft fetches a round, one verify fetch and one
+    ``gls_row_race`` launch per request a round, a catch-up sweep only
+    in rounds where a slot accepted every draft; per-request admission
+    prefills through the dense ``prefill`` (no flash launch, two
+    dispatches a request).  The stats carry the per-uid streams."""
     from repro_torch import random as R
     from repro_torch.kernels.mode import (launch_counts, launch_name,
                                           reset_launch_counts)
     from repro_torch.launch.serve import draw_prompts
     vocab = target[1].vocab_size
     engine, server = make_server(torch, dev, target, drafter, S_SLOTS,
-                                 quant=quant)
+                                 quant=quant, cache_mode=cache_mode,
+                                 admission=admission)
     prompts = draw_prompts(requests, vocab, PROMPT_MIN, PROMPT_MAX, SEED)
     # One prompt longer than the largest admission bucket (256 at this
     # buffer length), so admission chunks.
@@ -1101,11 +1148,8 @@ def phase_serve(torch, dev, target, drafter, quant=False,
         out = np.asarray(r.output)
         assert len(out) == max_new, f"uid {r.uid}: {len(out)} tokens"
         assert out.min() >= 0 and out.max() < vocab, f"uid {r.uid} range"
-    # The host's waits on the card as the engine saw them (SyncCounter):
-    # none while rounds and admissions are queued, one fetch per round.
-    assert m.draft_syncs == 0, f"draft_syncs {m.draft_syncs}"
-    assert m.host_syncs == m.rounds, (m.host_syncs, m.rounds)
     layers = target[1].num_layers + drafter[1].num_layers
+    d_layers = drafter[1].num_layers
     dispatches = engine.num_prefill_dispatches
     d = target[1].resolved_head_dim
     decode, flash = (launch_name(kernel, d, quant)
@@ -1113,11 +1157,30 @@ def phase_serve(torch, dev, target, drafter, quant=False,
     other = {launch_name(kernel, dd, qq)
              for kernel in ("decode_attention", "flash_attention")
              for dd in (64, 128) for qq in (False, True)} - {decode, flash}
-    assert counts.get("gls_row_race", 0) >= m.rounds, counts
-    assert counts.get(decode, 0) >= \
-        (L_DRAFT + 1) * drafter[1].num_layers * m.rounds, counts
-    assert counts.get(flash, 0) == layers * dispatches // 2, \
-        (counts, dispatches)
+    # The host's waits on the card as the engine saw them (SyncCounter).
+    if cache_mode == "kv_fused":
+        # None while rounds and admissions are queued, one fetch a round.
+        assert m.draft_syncs == 0, f"draft_syncs {m.draft_syncs}"
+        assert m.host_syncs == m.rounds, (m.host_syncs, m.rounds)
+        assert counts.get("gls_row_race", 0) >= m.rounds, counts
+        assert counts.get(decode, 0) >= \
+            (L_DRAFT + 1) * d_layers * m.rounds, counts
+    else:
+        # L draft fetches a round; one verify fetch and one row race per
+        # request a round (the requests' blocks).
+        assert m.draft_syncs == L_DRAFT * m.rounds, (m.draft_syncs,
+                                                     m.rounds)
+        assert m.host_syncs == m.total_blocks, (m.host_syncs,
+                                                m.total_blocks)
+        assert counts.get("gls_row_race", 0) == m.total_blocks, counts
+        assert L_DRAFT * d_layers * m.rounds <= counts.get(decode, 0) <= \
+            (L_DRAFT + 1) * d_layers * m.rounds, counts
+    if admission == "bucketed":
+        assert counts.get(flash, 0) == layers * dispatches // 2, \
+            (counts, dispatches)
+    else:
+        assert flash not in counts and dispatches == 2 * requests, \
+            (counts, dispatches)
     assert not other & set(counts), counts
     be = m.mean_block_efficiency
     ttft = float(np.mean([r.ttft_ms for r in done]))
@@ -1133,7 +1196,218 @@ def phase_serve(torch, dev, target, drafter, quant=False,
                     "rounds": m.rounds, "block_efficiency": be,
                     "tok_s": m.total_tokens / wall,
                     "round_ms": wall / m.rounds * 1e3, "ttft_ms": ttft,
-                    "peak_gib": peak, "arena_mib": arena_mib}
+                    "peak_gib": peak, "arena_mib": arena_mib,
+                    "streams": {r.uid: list(r.output) for r in done}}
+
+
+def same_streams(want: dict, got: dict, what: str) -> None:
+    """Per-uid token streams must be equal; on a flip log and fail on
+    the first diverging (uid, token)."""
+    assert sorted(want) == sorted(got), (what, sorted(want), sorted(got))
+    for uid in sorted(want):
+        if want[uid] != got[uid]:
+            i = next(i for i, (a, b) in enumerate(zip(want[uid], got[uid]))
+                     if a != b)
+            log(f"{what}: uid {uid} diverges at token {i}: "
+                f"{want[uid][max(0, i - 2):i + 3]} vs "
+                f"{got[uid][max(0, i - 2):i + 3]}")
+            raise AssertionError(f"{what}: uid {uid} diverges at token {i}")
+    log(f"{what}: {len(want)} streams equal "
+        f"({sum(len(v) for v in want.values())} tokens)")
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def compare_serves(a: dict, b: dict, what: str, smi: str) -> None:
+    log(f"{what} [{smi}]: "
+        + ", ".join(f"{k} {a[k]:.4g} vs {b[k]:.4g}"
+                    for k in ("tok_s", "round_ms", "ttft_ms", "rounds",
+                              "block_efficiency")))
+
+
+def phase_kv(torch, dev, target, drafter, fused_stats: dict, smi: str):
+    """Phase kv: phase 3's workload through ``cache_mode="kv"`` (the
+    host-driven round, bucketed admission, the kernel routes), its
+    streams equal to phase 3's; a shorter quant workload through kv and
+    kv_fused in turn, equal streams; per-request admission against
+    bucketed under kv on a short float32 workload, equal streams.
+    Returns the launch counts of the kv serves."""
+    counts = {}
+    c, kv = phase_serve(torch, dev, target, drafter, label="kv serve",
+                        cache_mode="kv")
+    add_counts(counts, c)
+    same_streams(fused_stats["streams"], kv["streams"],
+                 "kv vs kv_fused (phase 3's workload)")
+    compare_serves(kv, fused_stats, "kv vs kv_fused serve", smi)
+    gc_collect(torch)
+    c, q_kv = phase_serve(torch, dev, target, drafter, quant=True,
+                          requests=KV_QUANT_REQUESTS,
+                          max_new=KV_QUANT_MAX_NEW, label="kv serve",
+                          cache_mode="kv")
+    add_counts(counts, c)
+    gc_collect(torch)
+    c, q_fused = phase_serve(torch, dev, target, drafter, quant=True,
+                             requests=KV_QUANT_REQUESTS,
+                             max_new=KV_QUANT_MAX_NEW,
+                             label="kv_fused serve")
+    add_counts(counts, c)
+    same_streams(q_fused["streams"], q_kv["streams"], "quant kv vs kv_fused")
+    compare_serves(q_kv, q_fused, "quant kv vs kv_fused serve", smi)
+    gc_collect(torch)
+    c, per_request = phase_serve(torch, dev, target, drafter,
+                                 requests=PR_REQUESTS, max_new=PR_MAX_NEW,
+                                 label="per-request kv serve",
+                                 cache_mode="kv", admission="per_request")
+    add_counts(counts, c)
+    c, bucketed = phase_serve(torch, dev, target, drafter,
+                              requests=PR_REQUESTS, max_new=PR_MAX_NEW,
+                              label="bucketed kv serve", cache_mode="kv")
+    add_counts(counts, c)
+    same_streams(bucketed["streams"], per_request["streams"],
+                 "per-request vs bucketed admission")
+    compare_serves(per_request, bucketed,
+                   "per-request vs bucketed admission (kv)", smi)
+    gc_collect(torch)
+    return counts
+
+
+def phase_dense_calls(torch, dev, target):
+    """The dense serving calls at full width: ``prefill`` of 90 tokens,
+    one ``decode_step`` and a 10-token ``verify_step`` against one dense
+    ``forward`` over all 100 (logits within 1e-3, as phase 2b); then
+    ``forward`` over 2,560 tokens, chunked attention (the default past
+    2,048) against the dense path (1e-4)."""
+    from repro_torch.models import decode_step, forward, init_cache, prefill
+    from repro_torch.models.transformer import verify_step
+    params, cfg = target
+    rng = np.random.default_rng(SEED + 9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 100)).astype(
+        np.int32)).to(dev)
+    ref = forward(params, cfg, {"tokens": toks})[:, 89:]
+    cache = init_cache(cfg, 2, 128, dev)
+    lp, cache = prefill(params, cfg, {"tokens": toks[:, :90]}, cache)
+    ld, cache = decode_step(params, cfg, toks[:, 90:91], cache)
+    lv, cache = verify_step(params, cfg, toks[:, 91:], cache)
+    got = torch.cat([lp[:, None], ld[:, None], lv], dim=1)
+    err = float((got - ref).abs().max())
+    assert cache["pos"] == 100 and bool(torch.isfinite(got).all())
+    long = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 2560)).astype(
+        np.int32)).to(dev)
+    chunked = forward(params, cfg, {"tokens": long})
+    dense = forward(params, cfg, {"tokens": long}, chunked=False)
+    err_long = float((chunked - dense).abs().max())
+    log(f"dense calls, {cfg.num_layers} layers: prefill + decode_step + "
+        f"verify_step vs forward max abs logit err {err:.3g} (tolerance "
+        f"1e-3); forward at 2560 tokens, chunked vs dense attention "
+        f"{err_long:.3g} (tolerance 1e-4)")
+    assert err <= 1e-3, err
+    assert bool(torch.isfinite(chunked).all()) and err_long <= 1e-4, err_long
+    del ref, got, chunked, dense
+    gc_collect(torch)
+
+
+def _scaled(tree, factor: float):
+    if isinstance(tree, dict):
+        return {k: _scaled(v, factor) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_scaled(v, factor) for v in tree]
+    return tree * factor
+
+
+def phase_diverse(torch, dev, target, drafter, smi: str) -> dict:
+    """Heterogeneous drafters in the reference engine at full width: the
+    smollm-360m target through ``SpecDecServer(cache_mode="reprefill")``,
+    K = 2, L = 5, target temperature 2.0, top-k 50, the kernel verifier,
+    ``DIVERSE_REQUESTS`` requests of ``DIVERSE_MAX_NEW`` tokens.  Serves:
+    gls and specinfer with phase 3's drafter at temperatures (0.5, 1.0)
+    and (1.0, 0.5), and gls with two distinct drafters (phase 3's 4-layer
+    drafter, seed 1, and a 2-layer one, seed 2).  Checks: K drafter
+    forwards a draft step, ``gls_row_race`` launches equal to the
+    requests' blocks for gls and none for specinfer; then drafter
+    invariance: the drafter against itself scaled by 1 + 1e-4, GLS on
+    the same keys, equal outputs in at least 8 of 10 generations
+    (``test_specdec.py::test_engine_conditional_invariance``).  Returns
+    the serves' launch counts."""
+    from repro_torch import random as R
+    from repro_torch.kernels.mode import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import draw_prompts
+    from repro_torch.models import init_params
+    from repro_torch.specdec import SpecDecConfig, SpecDecEngine
+    from repro_torch.specdec import SpecDecServer
+    k, l_draft = 2, 5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    small_cfg = drafter[1].replace(name=drafter[1].name + "-2",
+                                   num_layers=2)
+    small = (init_params(gen, small_cfg, dev), small_cfg)
+    vocab = target[1].vocab_size
+    prompts = draw_prompts(DIVERSE_REQUESTS, vocab, PROMPT_MIN, 64, SEED + 4)
+    counts = {}
+    for strategy, temps, drafters in (
+            ("gls", (0.5, 1.0), [drafter]), ("gls", (1.0, 0.5), [drafter]),
+            ("specinfer", (0.5, 1.0), [drafter]),
+            ("specinfer", (1.0, 0.5), [drafter]),
+            ("gls", (0.5, 1.0), [drafter, small])):
+        cfg = SpecDecConfig(num_drafts=k, draft_len=l_draft,
+                            strategy=strategy, target_temp=2.0,
+                            draft_temps=temps, top_k=50,
+                            verifier_backend="kernel")
+        engine = SpecDecEngine(target, drafters, cfg, device=dev)
+        server = SpecDecServer(engine, max_batch=DIVERSE_REQUESTS,
+                               cache_mode="reprefill")
+        for p in prompts:
+            server.submit(p, max_new=DIVERSE_MAX_NEW)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        done = server.run(R.PRNGKey(SEED))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = dict(launch_counts)
+        add_counts(counts, c)
+        m = server.metrics
+        assert len(done) == DIVERSE_REQUESTS and all(
+            len(r.output) == DIVERSE_MAX_NEW for r in done), strategy
+        assert all(0 <= t < vocab for r in done for t in r.output)
+        assert engine.num_draft_forwards == \
+            k * l_draft * engine.num_target_forwards, (
+                engine.num_draft_forwards, engine.num_target_forwards)
+        races = c.get("gls_row_race", 0)
+        assert races == (m.total_blocks if strategy == "gls" else 0), (
+            strategy, c, m.total_blocks)
+        names = "+".join(f"{d[1].num_layers}L" for d in drafters)
+        log(f"diverse drafts [{smi}] {strategy} temps {temps} drafters "
+            f"{names}: {len(done)} requests x {DIVERSE_MAX_NEW} tokens in "
+            f"{wall:.3f}s, rounds {m.rounds}, block efficiency per request "
+            f"{[round(r.block_efficiency, 3) for r in done]} (mean "
+            f"{m.mean_block_efficiency:.3f}; random weights), "
+            f"accepted per block "
+            f"{sum(r.accepted for r in done) / m.total_blocks:.3f}, "
+            f"draft forwards {engine.num_draft_forwards} = K x L x "
+            f"{engine.num_target_forwards} target forwards, launches {c}")
+        del engine, server
+    twin = (_scaled(drafter[0], 1.0 + 1e-4), drafter[1])
+    cfg = SpecDecConfig(num_drafts=k, draft_len=l_draft, strategy="gls",
+                        top_k=0, verifier_backend="kernel")
+    e1 = SpecDecEngine(target, [drafter], cfg, device=dev)
+    e2 = SpecDecEngine(target, [twin], cfg, device=dev)
+    matched = 0
+    for i in range(10):
+        o1 = e1.generate(R.PRNGKey(100 + i), prompts[i % len(prompts)][:16],
+                         max_new=6)
+        o2 = e2.generate(R.PRNGKey(100 + i), prompts[i % len(prompts)][:16],
+                         max_new=6)
+        matched += int(np.array_equal(o1.output, o2.output))
+    log(f"diverse drafts: drafter invariance (drafter vs drafter x "
+        f"(1 + 1e-4), GLS, same keys): {matched}/10 generations equal "
+        f"(need >= 8)")
+    assert matched >= 8, matched
+    del twin, small, e1, e2
+    gc_collect(torch)
+    return counts
 
 
 def self_draft_units(arch: str) -> int:
@@ -1491,7 +1765,9 @@ def phase_granite(torch, dev, smi: str, buf_len: int):
     int8) against their plain versions at its serve shapes, the cached
     kernel path against a dense forward, the phase 3 server and its
     quant twin with ``RS_REQUESTS`` requests of ``RS_MAX_NEW`` tokens,
-    and the self-draft checks of phases 4 and 4q.  Frees the pair before
+    the float32 serve again through ``cache_mode="kv"`` (streams equal
+    to the kv_fused serve's), and the self-draft checks of phases 4 and
+    4q.  Frees the pair before
     it returns (kernel records, the float32 and quant serves' launch
     counts)."""
     from repro_torch.launch.serve import build_pair
@@ -1516,6 +1792,16 @@ def phase_granite(torch, dev, smi: str, buf_len: int):
     counts, stats = phase_serve(torch, dev, target, drafter,
                                 requests=RS_REQUESTS, max_new=RS_MAX_NEW,
                                 label="granite serve")
+    gc_collect(torch)
+    kv_counts, kv_stats = phase_serve(torch, dev, target, drafter,
+                                      requests=RS_REQUESTS,
+                                      max_new=RS_MAX_NEW,
+                                      label="granite kv serve",
+                                      cache_mode="kv")
+    same_streams(stats["streams"], kv_stats["streams"],
+                 "granite kv vs kv_fused")
+    compare_serves(kv_stats, stats, "granite kv vs kv_fused serve", smi)
+    add_counts(counts, kv_counts)
     gc_collect(torch)
     q_counts, q_stats = phase_serve(torch, dev, target, drafter, quant=True,
                                     requests=RS_REQUESTS, max_new=RS_MAX_NEW,
@@ -1971,15 +2257,33 @@ def main() -> int:
         phase_rs_self_draft(torch, dev, target, strategy)
     log(f"phase rs: {time.perf_counter() - t0:.1f}s")
 
+    # Phase kv: the host-driven round and per-request admission.
+    t0 = time.perf_counter()
+    kv_counts = phase_kv(torch, dev, target, drafter, serve_stats, smi)
+    log(f"phase kv: {time.perf_counter() - t0:.1f}s")
+
+    # Phase dense: the dense serving calls and chunked attention.
+    t0 = time.perf_counter()
+    phase_dense_calls(torch, dev, target)
+    log(f"phase dense: {time.perf_counter() - t0:.1f}s")
+
+    # Phase diverse: heterogeneous drafters in the reference engine.
+    t0 = time.perf_counter()
+    diverse_counts = phase_diverse(torch, dev, target, drafter, smi)
+    log(f"phase diverse: {time.perf_counter() - t0:.1f}s")
+    log("launches of phases kv and diverse (added to the kernels line): "
+        f"kv {kv_counts}, diverse {diverse_counts}")
+    add_counts(counts, kv_counts)
+    add_counts(counts, diverse_counts)
+
     # Phase granite: granite-8b (head dim 128) through kv_fused.
     t0 = time.perf_counter()
     g_kernels, g_counts = phase_granite(torch, dev, smi, buf_len)
     kernels[5:5] = g_kernels
     for kr in g_kernels:
         counts[kr["name"]] = g_counts.get(kr["name"], 0)
-    log(f"gls_row_race launches: smollm kv_fused serve "
-        f"{counts['gls_row_race']}, granite kv_fused serve "
-        f"{g_counts.get('gls_row_race', 0)}")
+    log(f"gls_row_race launches: smollm serves {counts['gls_row_race']}, "
+        f"granite kv_fused and kv serves {g_counts.get('gls_row_race', 0)}")
     counts["gls_row_race"] += g_counts.get("gls_row_race", 0)
     log(f"phase granite: {time.perf_counter() - t0:.1f}s")
 

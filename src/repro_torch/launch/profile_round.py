@@ -1,7 +1,8 @@
-"""Where a fused serving round spends its time on the card.
+"""Where a fused (or host-driven kv) serving round spends its time on
+the card.
 
   python -m repro_torch.launch.profile_round [--arch smollm-360m] \
-      [--rounds 6] [--quant] [--strategy gls] \
+      [--rounds 6] [--quant] [--strategy gls] [--cache-mode kv_fused] \
       [--trace build/profile_round_trace.json]
 
 Serves a dense model (``--arch``: smollm-360m by default, or granite-8b)
@@ -10,14 +11,17 @@ at its published widths with the serving geometry of ``chip_smoke.py``
 8 drafts x 4 draft tokens, the kernel verifier and both attention
 kernels, float32; ``--strategy``: the verification strategy, GLS by default, one
 draft for single and daliri; ``--quant``: int8 KV arenas and the W8A8
-verify chunk of ``SpecDecConfig(quant=True)``), fills all four slots,
+verify chunk of ``SpecDecConfig(quant=True)``; ``--cache-mode kv``: the
+host-driven round, whose phases carry the same ``round/<phase>``
+names), fills all four slots,
 warms up, then
 steps ``--rounds`` rounds
 with no admission inside the window under ``torch.profiler`` (CPU and
 CUDA activities).  From the exported Chrome trace it prints, per round:
 
-* wall time on the host clock (each round ends in its packed fetch, so
-  the device has finished the round's work);
+* wall time on the host clock (each round ends in its packed fetch, or
+  in the kv round's last verification fetch, so the device has finished
+  the round's work up to the rollback and the catch-up);
 * device busy time (union of kernel / memcpy / memset intervals) and
   the device's idle share of the wall time;
 * kernel launches, and the host's synchronising runtime calls inside
@@ -134,6 +138,9 @@ def main(argv=None):
     ap.add_argument("--strategy", default="gls", choices=STRATEGIES)
     ap.add_argument("--quant", action="store_true",
                     help="int8 KV arenas and W8A8 verify")
+    ap.add_argument("--cache-mode", default="kv_fused",
+                    choices=("kv_fused", "kv"),
+                    help="the fused round or the host-driven one")
     ap.add_argument("--trace", default=os.path.join(
         "build", "profile_round_trace.json"))
     args = ap.parse_args(argv)
@@ -151,7 +158,7 @@ def main(argv=None):
                         quant=args.quant)
     engine = CachedSpecDecEngine(target, drafter, cfg, pool_slots=4,
                                  device=dev)
-    server = SpecDecServer(engine, max_batch=4)
+    server = SpecDecServer(engine, max_batch=4, cache_mode=args.cache_mode)
     rng = np.random.default_rng(args.seed)
     budget = (args.warmup + args.rounds + 2) * (cfg.draft_len + 1)
     for n in (64, 128, 200, 300):
@@ -180,8 +187,10 @@ def main(argv=None):
     res.update(wall_ms_per_round=wall, wall_ms_rounds=walls,
                device_idle_share=1.0 - res["device_busy_ms_per_round"] / wall,
                quant=args.quant, strategy=args.strategy, arch=args.arch,
+               cache_mode=args.cache_mode,
                device=torch.cuda.get_device_name(0))
     print(f"arch={args.arch} strategy={args.strategy} quant={args.quant} "
+          f"cache_mode={args.cache_mode} "
           f"rounds={args.rounds} wall={wall:.2f} ms/round "
           f"device_busy={res['device_busy_ms_per_round']:.2f} ms/round "
           f"idle_share={res['device_idle_share']:.3f} "

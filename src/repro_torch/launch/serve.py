@@ -1,25 +1,31 @@
 """Serving launcher of the port: multi-draft speculative decoding over
 a target/drafter pair at a registered architecture's published widths,
 driven by the FIFO scheduler, with fused rounds over KV caches
-(``--cache-mode kv_fused``, dense models) or through the reference
-engine that re-scores the whole prefix every block (``--cache-mode
-reprefill``, required for the SSM family, batched over live requests).
+(``--cache-mode kv_fused``, dense models), host-driven rounds over the
+same caches (``--cache-mode kv``), or through the reference engine that
+re-scores the whole prefix every block (``--cache-mode reprefill``,
+required for the SSM family, batched over live requests).
 
   python -m repro_torch.launch.serve --arch smollm-360m --draft-layers 4 \
       --requests 8 --drafts 8 --draft-len 4 --seed 0 [--device cpu]
   python -m repro_torch.launch.serve --arch mamba2-370m \
       --cache-mode reprefill --draft-layers 4 --requests 4 --max-new 32
+  python -m repro_torch.launch.serve --cache-mode kv \
+      --admission per_request
 
 Both models are initialised from ``--seed`` with the port's own
 generator (no checkpoint is read).  The drafter has the target's widths
 and ``--draft-layers`` layers; ``--target-layers`` cuts the target's
 depth (widths stay).  Prompts of 16..128 tokens are drawn from the
 seed.  Any of the six verification strategies at top-k 50 (single and
-daliri with one draft); under kv_fused the decode and prefill attention
-kernels are on, under reprefill an SSM model's forwards run the
-``ssd_chunk`` kernel.  ``--backend legacy`` (the per-token host loop)
-runs under reprefill only.  Runs on the card unless ``--device cpu``.
-Prints the JAX launcher's summary fields.
+daliri with one draft); under kv and kv_fused the decode and prefill
+attention kernels are on (per-request admission prefills through the
+dense ``prefill``, as JAX's does), under reprefill an SSM model's
+forwards run the ``ssd_chunk`` kernel.  ``--admission`` picks the
+cached engine's prefill path (bucketed waves, or per request).
+``--backend legacy`` (the per-token host loop) runs under reprefill and
+kv.  Runs on the card unless ``--device cpu``.  Prints the JAX
+launcher's summary fields.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ from repro_torch.specdec import (
     SpecDecEngine,
     SpecDecServer,
 )
-from repro_torch.specdec.scheduler import CACHE_MODES
+from repro_torch.specdec.scheduler import ADMISSION_MODES, CACHE_MODES
 
 
 def build_pair(arch: str, draft_layers: int, seed: int, device,
@@ -76,10 +82,10 @@ def check_cache_mode(arch: str, cache_mode: str) -> None:
     """The cached engine serves the dense family only (as in JAX, whose
     ``engine_cached.py`` asserts it); other families need reprefill."""
     family = get_config(arch).family
-    if cache_mode == "kv_fused" and family != "dense":
+    if cache_mode != "reprefill" and family != "dense":
         raise ValueError(
-            f"--arch {arch} is a {family} model: the kv_fused engine serves "
-            "dense models only; use --cache-mode reprefill")
+            f"--arch {arch} is a {family} model: the {cache_mode} engine "
+            "serves dense models only; use --cache-mode reprefill")
 
 
 def summary(args, server, done, engine) -> str:
@@ -90,7 +96,8 @@ def summary(args, server, done, engine) -> str:
     return (f"strategy={args.strategy} K={engine.cfg.num_drafts} "
             f"L={args.draft_len} backend={args.backend} "
             f"cache_mode={args.cache_mode} "
-            f"admission=bucketed BE={be:.2f} tok/s={m.tokens_per_s:.1f} "
+            f"admission={args.admission} BE={be:.2f} "
+            f"tok/s={m.tokens_per_s:.1f} "
             f"mean-ttft={ttft:.1f}ms "
             f"prefill-dispatches={dispatches} "
             f"rounds={m.rounds} target-forwards={m.target_forwards} "
@@ -103,8 +110,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="smollm-360m", choices=ARCH_NAMES)
     ap.add_argument("--cache-mode", default="kv_fused", choices=CACHE_MODES,
                     help="kv_fused: fused rounds over KV caches (dense); "
+                         "kv: host-driven rounds over the same caches; "
                          "reprefill: the reference engine, batched "
                          "(required for ssm)")
+    ap.add_argument("--admission", default="bucketed",
+                    choices=ADMISSION_MODES,
+                    help="cached-engine prefill: bucketed waves of "
+                         "stacked slot prefills, or per_request dense "
+                         "prefills (kv and kv_fused)")
     ap.add_argument("--draft-layers", type=int, default=4)
     ap.add_argument("--target-layers", type=int, default=None,
                     help="cut the target's depth (default: published)")
@@ -117,7 +130,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default="kernel", choices=BACKENDS,
                     help="block-verification backend (kernel: the "
                          "gls_row_race CUDA kernel for the race family; "
-                         "legacy: the per-token host loop, reprefill only)")
+                         "legacy: the per-token host loop, reprefill or "
+                         "kv)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' runs the plain path")
@@ -131,17 +145,19 @@ def serve(args):
     target, drafter = build_pair(args.arch, args.draft_layers, args.seed,
                                  device, args.target_layers)
     k = 1 if args.strategy in ("single", "daliri") else args.drafts
-    fused = args.cache_mode == "kv_fused"
+    cached = args.cache_mode != "reprefill"
     cfg = SpecDecConfig(num_drafts=k, draft_len=args.draft_len,
                         strategy=args.strategy, top_k=50,
                         max_new_tokens=args.max_new,
                         verifier_backend=args.backend,
-                        decode_kernel=fused, prefill_kernel=fused)
-    if fused:
+                        decode_kernel=cached, prefill_kernel=cached)
+    if cached:
         engine = CachedSpecDecEngine(target, drafter, cfg,
                                      pool_slots=args.max_batch,
                                      device=device)
-        server = SpecDecServer(engine, max_batch=args.max_batch)
+        server = SpecDecServer(engine, max_batch=args.max_batch,
+                               cache_mode=args.cache_mode,
+                               admission=args.admission)
     else:
         engine = SpecDecEngine(target, drafter, cfg, device=device)
         server = SpecDecServer(engine, max_batch=args.max_batch,

@@ -13,7 +13,10 @@ arena.  A request owns one slot = ``rows_per_slot`` consecutive rows
   touch one device element, and the round hands back its advanced
   positions (``adopt_round_device``), refreshed on the host from the
   round's packed fetch (``refresh_pos_host``);
-* ``ensure_buf`` grows every arena's time axis (zero tail).
+* ``ensure_buf`` grows every arena's time axis (zero tail);
+* the host-driven kv round installs a per-request dense prefill
+  (``write_prefill``, quantized on install into an int8 pool) and rolls
+  a round back by row replication (``rollback_rows``).
 
 int8 arenas (``quant=True``, ``cache_pool.py:107-117``) hold four
 leaves: int8 ``k``/``v`` and float32 per-KV-vector scales ``k_s``/``v_s``
@@ -60,7 +63,8 @@ class CachePool:
     def _init_arena(self, cfg: ModelConfig, buf_len: int) -> dict:
         rows = self.num_slots * self.rows_per_slot
         if not self.quant:
-            return init_cache(cfg, rows, buf_len, self.device)
+            c = init_cache(cfg, rows, buf_len, self.device)
+            return {"k": c["k"], "v": c["v"]}   # positions live host-side
         shape = (cfg.num_layers, rows, cfg.kv_heads, buf_len,
                  cfg.resolved_head_dim)
         arena = {kk: torch.zeros(shape, dtype=torch.int8, device=self.device)
@@ -71,6 +75,10 @@ class CachePool:
         return arena
 
     # -- slot lifecycle ----------------------------------------------------
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
     def alloc(self) -> int:
         if not self._free:
             raise RuntimeError(
@@ -108,6 +116,48 @@ class CachePool:
                 fresh[kk][:, :, :, :old.shape[3]].copy_(old)
             self.caches[name] = fresh
         self.buf_len = buf_len
+
+    # -- cache content ops (the host-driven kv round) -----------------------
+    def write_prefill(self, name: str, slot: int, cache: dict,
+                      pos: int) -> None:
+        """Install a dense prefill cache of ``rows_per_slot`` rows, built
+        at the pool's ``buf_len`` (``registry.init_cache``/``prefill``),
+        into ``slot``'s rows of arena ``name``; ``pos`` is the number of
+        prefilled tokens.  An int8 pool quantizes it on install
+        (``cache_pool.py:187-205``)."""
+        arena = self.caches[name]
+        assert cache["k"].shape[3] == self.buf_len, \
+            "prefill cache buffer != pool buffer"
+        cache = {"k": cache["k"], "v": cache["v"]}
+        if self.quant:
+            from repro_torch.serving.quant import quantize_kv
+            kq, ks = quantize_kv(cache["k"])
+            vq, vs = quantize_kv(cache["v"])
+            cache = {"k": kq, "v": vq, "k_s": ks, "v_s": vs}
+        rows = slice(slot * self.rows_per_slot,
+                     (slot + 1) * self.rows_per_slot)
+        for kk, leaf in arena.items():
+            leaf[:, rows].copy_(cache[kk])
+        self.set_pos(slot, pos)
+
+    def rollback_rows(self, row_src: np.ndarray) -> None:
+        """Arena-wide row replication: row i of every leaf becomes row
+        ``row_src[i]`` (``cache_pool.py:212``).  The gather goes through a
+        temporary: in place, row i could read a row ``row_src[i]`` that a
+        lower row's copy had already overwritten."""
+        assert row_src.shape == (self.num_slots * self.rows_per_slot,)
+        idx = to_device(np.asarray(row_src, np.int64), self.device)
+        for arena in self.caches.values():
+            for leaf in arena.values():
+                leaf.copy_(leaf.index_select(1, idx))
+
+    def row_positions(self, default: int = 0) -> np.ndarray:
+        """(num_slots * rows_per_slot,) per-row positions for the slot
+        calls; free slots get ``default``."""
+        per_slot = self.pos.copy()
+        for s in self._free:
+            per_slot[s] = default
+        return np.repeat(per_slot, self.rows_per_slot).astype(np.int32)
 
     # -- fused-round device state ------------------------------------------
     def pos_device(self) -> torch.Tensor:

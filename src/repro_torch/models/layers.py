@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -162,6 +163,57 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     w = torch.nan_to_num(w, nan=0.0)
     out = torch.einsum("bhgst,bhtd->bhgsd", w.to(v.dtype), v)
     return out.reshape(b, h, s, d).to(out_dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, q_offset: int = 0,
+                      kv_block: int = 1024) -> torch.Tensor:
+    """Online-softmax GQA attention streaming K/V in blocks of
+    ``kv_block`` keys (``layers.py:252-320``): q (B, H, S, D), k/v
+    (B, Hkv, T, D) -> (B, H, S, D), memory O(S * kv_block) instead of
+    O(S * T).  A ragged last block is zero-padded and its pad keys
+    masked; query i sits at position ``q_offset + i``.  Rows with no key
+    yet (every score -inf) are guarded, and a row masked throughout
+    comes out zero, as ``attention``'s does.  Plain PyTorch, on the card
+    too: JAX runs it outside any Pallas kernel.  ``window`` (sliding
+    attention) comes with the families that have it (ROADMAP queue 1,
+    item 15)."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = h // hkv
+    pad = -t % kv_block
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    qr = q.reshape(b, hkv, g, s, d)
+    scale = np.float32(1.0) / np.sqrt(np.float32(d))
+    q_pos = q_offset + torch.arange(s, device=q.device)
+    m = torch.full((b, hkv, g, s), float("-inf"), device=q.device)
+    l = torch.zeros((b, hkv, g, s), device=q.device)
+    acc = torch.zeros((b, hkv, g, s, d), device=q.device)
+    zero = torch.zeros((), device=q.device)
+    for start in range(0, t + pad, kv_block):
+        kb = k[:, :, start:start + kv_block]
+        vb = v[:, :, start:start + kv_block]
+        scores = torch.einsum("bhgsd,bhtd->bhgst", qr.float(),
+                              kb.float()) * float(scale)
+        k_pos = start + torch.arange(kv_block, device=q.device)
+        mask = (k_pos < t)[None, :].expand(s, kv_block)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        scores = scores.masked_fill(~mask, float("-inf"))
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        # Rows masked so far keep m = -inf: shift them by 0 instead.
+        m_safe = torch.where(torch.isfinite(m_new), m_new, zero)
+        p = torch.exp(scores - m_safe[..., None])
+        p = torch.where(torch.isfinite(scores), p, zero)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), zero)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgst,bhtd->bhgsd", p, vb.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, h, s, d).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

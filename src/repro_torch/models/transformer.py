@@ -1,15 +1,19 @@
 """Dense llama-family decoder (GQA + RoPE + SwiGLU + RMSNorm) -- the
-port's counterpart of ``repro/models/transformer.py`` (``init_params``,
-``init_cache``, the full-sequence ``forward`` of the reference engine,
-and the serving calls ``prefill_slots``, ``decode_step_slots``,
+port's counterpart of ``repro/models/transformer.py``: ``init_params``,
+the full-sequence ``forward`` (chunked attention above 2,048 tokens),
+the dense serving calls of the registry (``init_cache``, ``prefill``,
+``decode_step``, ``verify_step``: one cache position shared by every
+row, the host-driven kv round's per-request admission) and the slot
+calls of the cache arenas (``prefill_slots``, ``decode_step_slots``,
 ``verify_step_slots``).
 
 A Python loop over layers replaces ``scan_blocks``.  Parameters are a
 dict ``{"embed", "layers": [per-layer dict, ...], "final_norm",
-"lm_head"}``; a KV arena is ``{"k", "v"}`` of shape
-``(layers, rows, kv_heads, T, head_dim)``.
+"lm_head"}``; a KV cache is ``{"k", "v"}`` of shape
+``(layers, rows, kv_heads, T, head_dim)``, plus the shared position
+``"pos"`` (a host int) for the dense calls.
 
-The slots calls UPDATE THE ARENA IN PLACE and return it: the port's
+The serving calls UPDATE THE CACHE IN PLACE and return it: the port's
 stand-in for the JAX package's donated, functionally updated arenas.
 Two JAX semantics are copied exactly because the serving path relies on
 them:
@@ -26,7 +30,8 @@ An int8 arena (``CachePool(quant=True)``) adds f32 scale leaves
 calls quantize the fresh keys and values per KV vector on write
 (``_maybe_quantize_kv``, ``transformer.py:206-216``), write the scales
 through the same index plan as the int8 leaves, and pass them to the
-attention, which dequantizes as it reads.
+attention, which dequantizes as it reads.  The dense calls keep float
+caches, as JAX's do (``CachePool.write_prefill`` quantizes on install).
 """
 
 from __future__ import annotations
@@ -66,12 +71,21 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     }
 
 
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Time slots of a cache for ``max_len`` tokens (``transformer.py:
+    113``): all of them at full attention, the only kind the port's
+    configs have."""
+    return max_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    """A zeroed full-attention KV arena (non-ring)."""
-    shape = (cfg.num_layers, batch, cfg.kv_heads, max_len,
+    """A zeroed full-attention KV cache at position 0
+    (``transformer.py:117``)."""
+    shape = (cfg.num_layers, batch, cfg.kv_heads, cache_len(cfg, max_len),
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "pos": 0}
 
 
 def _rowwise_cache_write(cache_k, cache_v, k, v, starts) -> None:
@@ -140,29 +154,118 @@ def _logits(params, cfg, x):
     return L.dense(x, params["lm_head"])
 
 
-# Above this length JAX's ``forward`` switches to ``chunked_attention``.
+def _self_attention(p, cfg, x, positions, chunked: bool):
+    """One block's full-sequence causal self-attention
+    (``transformer.py:60``): (projected output, k, v)."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    attend = L.chunked_attention if chunked else L.attention
+    return L.project_out(p["attn"], attend(q, k, v, causal=True)), k, v
+
+
+# Above this length ``forward`` and ``prefill`` stream the attention
+# through ``chunked_attention`` (``transformer.py:96,157``).
 MAX_DENSE_FORWARD = 2048
 
 
-def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Full-sequence causal pass (``transformer.py:91``, its
-    ``chunked=False`` branch): tokens (B, S) -> logits (B, S, Vpad),
-    dense attention.  The reprefill engine scores its token buffers with
-    it."""
+def _full_positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None, None, :].expand(b, 1, s)
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict, *,
+            chunked: Optional[bool] = None) -> torch.Tensor:
+    """Full-sequence causal pass (``transformer.py:91``): tokens (B, S)
+    -> logits (B, S, Vpad).  ``chunked`` (default: S > 2,048) streams the
+    attention through ``chunked_attention``.  The reference engine
+    scores its token buffers with it."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    if s > MAX_DENSE_FORWARD:
-        raise NotImplementedError(
-            f"forward over {s} > {MAX_DENSE_FORWARD} tokens needs "
-            "chunked attention, not ported (ROADMAP queue 1, item 11)")
-    positions = torch.arange(s, device=tokens.device)[None, None, :].expand(
-        b, 1, s)
+    if chunked is None:
+        chunked = s > MAX_DENSE_FORWARD
+    positions = _full_positions(b, s, tokens.device)
     x = _embed(params, tokens)
     for p in params["layers"]:
-        q, k, v = _qkv(p, cfg, x, positions)
-        x = x + L.project_out(p["attn"], L.attention(q, k, v, causal=True))
-        x = _mlp_residual(p, cfg, x)
+        h, _, _ = _self_attention(p, cfg, x, positions, chunked)
+        x = _mlp_residual(p, cfg, x + h)
     return _logits(params, cfg, x)
+
+
+def _install_prefill(leaf: torch.Tensor, new: torch.Tensor) -> None:
+    """In place: a layer's (B, H, S, hd) prefill keys into its (B, H, T,
+    hd) cache (``transformer.py:140-151``): at time 0 when S < T, else
+    the last T positions at their ring slots (position p at p % T)."""
+    t, s = leaf.shape[2], new.shape[2]
+    if s < t:
+        leaf[:, :, :s].copy_(new)
+    else:
+        leaf.copy_(torch.roll(new[:, :, s - t:], s % t, dims=2))
+
+
+def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict):
+    """Dense prefill (``transformer.py:155``): tokens (B, S) from
+    position 0 -> (last logits (B, Vpad), the cache with their keys and
+    values and ``pos`` = S).  Chunked attention above 2,048 tokens."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = _full_positions(b, s, tokens.device)
+    x = _embed(params, tokens)
+    for li, p in enumerate(params["layers"]):
+        h, k, v = _self_attention(p, cfg, x, positions,
+                                  s > MAX_DENSE_FORWARD)
+        x = _mlp_residual(p, cfg, x + h)
+        _install_prefill(cache["k"][li], k)
+        _install_prefill(cache["v"][li], v)
+    logits = _logits(params, cfg, x[:, -1:])[:, 0]
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": s}
+
+
+def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: dict):
+    """One token per row at the cache's shared position
+    (``transformer.py:192``): tokens (B, 1) -> (logits (B, Vpad), the
+    cache one position on).  The key lands at ``pos % T``; the attention
+    reads the first ``min(pos + 1, T)`` keys."""
+    pos = int(cache["pos"])
+    t = cache["k"].shape[3]
+    slot = pos % t
+    positions = torch.full((tokens.shape[0], 1, 1), pos,
+                           device=tokens.device)
+    x = _embed(params, tokens)
+    for li, p in enumerate(params["layers"]):
+        q, k, v = _qkv(p, cfg, x, positions)
+        ck, cv = cache["k"][li], cache["v"][li]
+        ck[:, :, slot:slot + 1].copy_(k)
+        cv[:, :, slot:slot + 1].copy_(v)
+        out = L.attention(q, ck, cv, causal=False, kv_len=min(pos + 1, t))
+        x = _mlp_residual(p, cfg, x + L.project_out(p["attn"], out))
+    return (_logits(params, cfg, x)[:, 0],
+            {"k": cache["k"], "v": cache["v"], "pos": pos + 1})
+
+
+def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: dict):
+    """The verify chunk at the cache's shared position
+    (``transformer.py:407``): tokens (B, m), the pending token and m - 1
+    drafts -> (logits (B, m, Vpad), the cache m positions on), column j
+    scoring the continuation after ``tokens[:, :j+1]``.  A quantized
+    tree (``serving.quant.quantize_params``) runs its matmuls W8A8
+    (``serving.quant.verify_step_q``)."""
+    pos = int(cache["pos"])
+    b, m = tokens.shape
+    t = cache["k"].shape[3]
+    start = min(max(pos, 0), t - m)      # dynamic_update_slice's clamp
+    positions = (pos + torch.arange(m, device=tokens.device))[
+        None, None, :].expand(b, 1, m)
+    x = _embed(params, tokens)
+    for li, p in enumerate(params["layers"]):
+        q, k, v = _qkv(p, cfg, x, positions)
+        ck, cv = cache["k"][li], cache["v"][li]
+        ck[:, :, start:start + m].copy_(k)
+        cv[:, :, start:start + m].copy_(v)
+        out = L.attention(q, ck, cv, causal=True, q_offset=pos,
+                          kv_len=pos + m)
+        x = _mlp_residual(p, cfg, x + L.project_out(p["attn"], out))
+    return (_logits(params, cfg, x),
+            {"k": cache["k"], "v": cache["v"], "pos": pos + m})
 
 
 def prefill_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

@@ -9,7 +9,9 @@ from repro_torch.serving.quant import (
     quantize_kv,
     quantize_params,
     quantize_weight,
+    verify_step_q,
 )
 
 __all__ = ["GuardViolation", "dequantize_kv", "qdot", "quantize_kv",
-           "quantize_params", "quantize_weight", "validate_wz_batch"]
+           "quantize_params", "quantize_weight", "validate_wz_batch",
+           "verify_step_q"]

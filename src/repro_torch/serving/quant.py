@@ -122,3 +122,14 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
                   dtype=torch.float32) -> torch.Tensor:
     """Inverse of ``quantize_kv``: int8 (..., D) * f32 (..., 1)."""
     return (q.float() * scale).to(dtype)
+
+
+def verify_step_q(params_q: dict, cfg, tokens: torch.Tensor, cache: dict):
+    """The int8 twin of ``transformer.verify_step`` (``quant.py:151``):
+    the verify chunk with ``quantize_params``' tree, every quantized
+    matmul a ``qdot``.  JAX spells out its block with ``_dense``,
+    ``_project_qkv_q`` and ``_swiglu_q``; the port's layers dispatch on
+    the weight (``layers.dense``), so ``verify_step`` runs the same
+    products in the same order."""
+    from repro_torch.models.transformer import verify_step
+    return verify_step(params_q, cfg, tokens, cache)

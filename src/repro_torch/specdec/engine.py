@@ -7,8 +7,11 @@ reference engine ``SpecDecEngine`` and ``autoregressive_reference``.
 target scoring re-runs the registry's full-sequence ``forward`` over
 fixed-size token buffers (causal models make the trailing buffer
 harmless), the K drafts riding in the batch, R co-scheduled requests
-stacked into (R*K, T) forwards.  It serves any family the registry has,
-so it is the port's serving path for Mamba-2 (the scheduler's
+stacked into (R*K, T) forwards.  Its K drafts may come from K distinct
+drafters at per-drafter temperatures (``SpecDecConfig.draft_temps``, the
+paper's diverse-drafts setup): each draft step then runs one forward per
+drafter over its column of the buffers.  It serves any family the
+registry has, so it is the port's serving path for Mamba-2 (the scheduler's
 ``cache_mode="reprefill"``): each forward of an SSM model launches the
 ``ssd_chunk`` kernel once per layer on the card.  Verification is the
 fused block verifier (``block_verify.run_block_verify``), one host fetch
@@ -136,13 +139,12 @@ def _check_device(params: dict, device: torch.device) -> None:
 
 
 class SpecDecEngine:
-    """Speculative decoding over one target and K drafts of ONE drafter
-    (``engine.py:186``), both ``(params, ModelConfig)`` pairs on
-    ``device`` (``None`` = the card).  ``drafters`` is one pair, or a
-    list of one pair or of K times the same pair: the homogeneous case
-    of the JAX engine.  Distinct drafters with per-drafter temperatures
-    (the paper's diverse-drafts experiment) are not ported (ROADMAP
-    queue 1, item 20)."""
+    """Speculative decoding over one target and K (possibly distinct)
+    drafters sharing the target's vocabulary (``engine.py:186``), all
+    ``(params, ModelConfig)`` pairs on ``device`` (``None`` = the card).
+    ``drafters`` is one pair, or a list of one pair (drafting all K
+    lanes) or of K pairs.  One pair at one temperature is the
+    homogeneous case: a single forward a draft step over all R*K rows."""
 
     def __init__(self, target: tuple, drafters, cfg: SpecDecConfig,
                  device=None):
@@ -151,16 +153,15 @@ class SpecDecEngine:
         if isinstance(drafters, tuple):
             drafters = [drafters]
         drafters = list(drafters)
-        if len(drafters) not in (1, cfg.num_drafts):
+        if len(drafters) == 1:
+            drafters = drafters * cfg.num_drafts
+        if len(drafters) != cfg.num_drafts:
             raise ValueError(f"{len(drafters)} drafters for "
                              f"num_drafts={cfg.num_drafts}")
-        if (any(d is not drafters[0] for d in drafters)
-                or len(set(cfg.temps)) > 1):
-            raise NotImplementedError(
-                "heterogeneous drafters (per-drafter models and "
-                "temperatures) are not ported (ROADMAP queue 1, item 20)")
-        self.drafter = drafters[0]
-        for params in (self.t_params, self.drafter[0]):
+        self.drafters = drafters
+        self._homogeneous = (all(d is drafters[0] for d in drafters)
+                             and len(set(cfg.temps)) == 1)
+        for params in [self.t_params] + [d[0] for d in drafters]:
             _check_device(params, self.device)
         self.cfg = cfg
         self.vocab = self.t_cfg.vocab_size
@@ -180,7 +181,9 @@ class SpecDecEngine:
         """Autoregressive draft loop over R stacked requests
         (``engine.py:258-309``).  log_u_all: (R, L+1, K, N) device; bufs:
         (R, K, T) host buffers (mutated in place); p0s: (R,) prefix
-        lengths.  One drafter forward per step covers all R*K rows.
+        lengths.  One drafter forward per step covers all R*K rows when
+        the drafters are homogeneous; else one per drafter over its
+        column of R rows, at its temperature (``engine.py:285-292``).
         Returns (draft_tokens (R, K, L) on the host, the drafter's step
         distributions (R, K, L, N) on the device for the
         rejection-sampling strategies, else None)."""
@@ -191,16 +194,27 @@ class SpecDecEngine:
         d_tokens = np.zeros((r_n, k_n, l_n), np.int32)
         prob_steps = []
         rows = np.arange(k_n)
-        params, mcfg = self.drafter
         row_idx = torch.arange(r_n * k_n, device=self.device)
         for j in range(l_n):
             pos = p0s + j - 1                                   # (R,)
-            logits = self._buffer_forward(params, mcfg,
-                                          bufs.reshape(r_n * k_n, t_n))
-            self.num_draft_forwards += 1
-            sel = logits[row_idx, to_device(np.repeat(pos, k_n),
-                                            self.device)]
-            p_all = probs_from_logits(sel, cfg.temps[0], cfg.top_k, n)
+            if self._homogeneous:
+                params, mcfg = self.drafters[0]
+                logits = self._buffer_forward(params, mcfg,
+                                              bufs.reshape(r_n * k_n, t_n))
+                self.num_draft_forwards += 1
+                sel = logits[row_idx, to_device(np.repeat(pos, k_n),
+                                                self.device)]
+                p_all = probs_from_logits(sel, cfg.temps[0], cfg.top_k, n)
+            else:
+                cols = []
+                for k, (params, mcfg) in enumerate(self.drafters):
+                    logits = self._buffer_forward(params, mcfg, bufs[:, k])
+                    self.num_draft_forwards += 1
+                    sel = logits[row_idx[:r_n], to_device(pos,
+                                                          self.device)]
+                    cols.append(probs_from_logits(sel, cfg.temps[k],
+                                                  cfg.top_k, n))
+                p_all = torch.stack(cols, dim=1).reshape(r_n * k_n, n)
             toks = V.draft_token_from_uniforms(
                 log_u_all[:, j].reshape(r_n * k_n, n), p_all)
             tk = toks.cpu().numpy().reshape(r_n, k_n)   # 1 transfer / step

@@ -26,15 +26,28 @@ Admission (§9): ``admit_batch`` drains a wave into power-of-two length
 buckets and issues one stacked ``prefill_slots`` per (chunk round,
 bucket) per model; ``round_with_admission`` queues those prefills after
 the round and before its packed fetch, so they overlap the round.
+``admit`` is the per-request path (``admission="per_request"``): the
+dense ``prefill`` of the prompt into a temporary K-row cache, installed
+by ``CachePool.write_prefill``.
+
+``gen_blocks(..., fused=False)`` (the scheduler's ``cache_mode="kv"``)
+runs the host-driven round instead (``_block_cached``,
+``engine_cached.py:884-1041``): L drafter sweeps over the arena, each
+fetching the live rows' drafted tokens to the host; one stacked verify
+chunk; block verification per request with the config's backend
+(``legacy`` included), one fetch each; the rollback gather; and a
+catch-up sweep only when some slot accepted all L drafts.  It gives the
+fused round's tokens.  On the card its waits are counted as they
+happen: L in the sweeps (``num_draft_syncs``), and each request's
+verification (its ``verify_syncs``).
 
 Quantized serving (``SpecDecConfig.quant``, ``engine_cached.py:384-392``):
 the pool holds int8 arenas (quantize-on-write, dequantize-in-kernel
-reads) and the round's verify chunk runs the target's W8A8 tree
+reads) and both rounds' verify chunk runs the target's W8A8 tree
 (``serving.quant.quantize_params``, quantized once here); admission
 prefill keeps the float32 target tree and the drafter stays float32.
 
-Only the ``kv_fused`` cache mode is ported; the host-driven ``kv`` path,
-paged arenas and tensor parallelism are later slices (ROADMAP).
+Paged arenas and tensor parallelism are later slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -48,12 +61,19 @@ from torch.profiler import record_function
 
 from repro_torch import random as R
 from repro_torch.device import SyncCounter, resolve_device, to_device
-from repro_torch.models import CachePool, decode_step_slots, prefill_slots
-from repro_torch.models import verify_step_slots
+from repro_torch.models import (
+    CachePool,
+    decode_step_slots,
+    init_cache,
+    prefill,
+    prefill_slots,
+    verify_step_slots,
+)
 from repro_torch.specdec import verify as V
 from repro_torch.specdec.block_verify import (
     RS_STRATEGIES,
     block_verify_batched,
+    run_block_verify,
 )
 from repro_torch.specdec.engine import (
     BlockOutcome,
@@ -123,6 +143,22 @@ def _bucket_plan(n: int, max_bucket: int) -> list:
             bucket *= 2
         chunks.append((off, rem, bucket))
     return chunks
+
+
+def _select_rollback_row(active: np.ndarray, num_accepted: int) -> int:
+    """The surviving draft row of a host-verified block
+    (``engine_cached.py:143``): row 0 when no draft was accepted (every
+    row holds the shared pending token), else the first active row; an
+    accepted draft with no active row is a verifier fault and raises."""
+    active = np.asarray(active)
+    if num_accepted <= 0:
+        return 0
+    hits = np.flatnonzero(active)
+    if hits.size == 0:
+        raise AssertionError(
+            f"rollback invariant violated: num_accepted={num_accepted} "
+            "but no draft row is active")
+    return int(hits[0])
 
 
 def build_round_core(cfg: SpecDecConfig, t_cfg, d_cfg, vocab: int,
@@ -253,7 +289,8 @@ class CachedSpecDecEngine:
     pairs whose tensors live on ``device`` (``None`` = the card)."""
 
     def __init__(self, target: tuple, drafter: tuple, cfg: SpecDecConfig,
-                 pool_slots: int = 1, device=None):
+                 pool_slots: int = 1, batched_admission: bool = True,
+                 device=None):
         self.device = resolve_device(device)
         self.t_params, self.t_cfg = target
         self.d_params, self.d_cfg = drafter
@@ -262,10 +299,6 @@ class CachedSpecDecEngine:
                 raise ValueError(
                     f"parameters live on {params['embed'].device}, the "
                     f"engine on {self.device}")
-        if cfg.verifier_backend == "legacy":
-            raise ValueError(
-                "fused rounds need a device verifier backend ('torch' or "
-                "'kernel'); the 'legacy' host loop cannot run in-program")
         # One drafter and one draft temperature: the sweep scores every
         # lane with cfg.temps[0] (``engine_cached.py:347-351``).
         assert len(set(cfg.temps)) == 1, (
@@ -273,20 +306,25 @@ class CachedSpecDecEngine:
             "use the reference SpecDecEngine for the diverse-drafts setup")
         self.cfg = cfg
         self.vocab = self.t_cfg.vocab_size
-        # The W8A8 target tree feeds only the fused round's verify chunk.
+        # The W8A8 target tree feeds only the rounds' verify chunk.
         self._t_verify_params = self.t_params
         if cfg.quant:
             from repro_torch.serving.quant import quantize_params
             self._t_verify_params = quantize_params(self.t_params)
         self.pool_slots = pool_slots
+        # The default admission path: bucketed waves, or per-request
+        # ``admit`` (the scheduler passes its own per call).
+        self.batched_admission = batched_admission
         self.pool: Optional[CachePool] = None
         self._sessions: dict = {}
         self._round = None
         # Serving instrumentation (read by the scheduler / chip_smoke).
         self.num_target_forwards = 0
+        self.num_draft_forwards = 0
         self.num_prefill_dispatches = 0
-        # Host waits on the card seen while a round and its admissions
-        # are queued (before the packed fetch); 0 on the CPU.
+        # Host waits for draft tokens: on the card those seen while a
+        # fused round and its admissions are queued (0) or in the kv
+        # round's sweeps (L); on the CPU the kv round's fetches.
         self.num_draft_syncs = 0
 
     # -- pool / session lifecycle ------------------------------------------
@@ -305,6 +343,31 @@ class CachedSpecDecEngine:
     def release(self, uid) -> None:
         sess = self._sessions.pop(uid)
         self.pool.release(sess.slot)
+
+    def admit(self, uid, prompt: np.ndarray, buf_len: int) -> int:
+        """Per-request admission (``engine_cached.py:757``): a slot, and
+        both models' dense ``prefill`` of the prompt minus its last token
+        (the first pending token) into a temporary K-row cache, installed
+        by ``CachePool.write_prefill``."""
+        assert uid not in self._sessions
+        prompt = np.asarray(prompt, np.int32)
+        assert len(prompt) >= 1
+        pool = self._ensure_pool(buf_len)
+        slot = pool.alloc()
+        k = self.cfg.num_drafts
+        toks = to_device(np.repeat(prompt[None, :-1], k, axis=0),
+                         self.device)
+        with record_function("admission/prefill"):
+            for name, params, mcfg in (
+                    ("target", self.t_params, self.t_cfg),
+                    ("drafter", self.d_params, self.d_cfg)):
+                cache = init_cache(mcfg, k, pool.buf_len, self.device)
+                _, cache = prefill(params, mcfg, {"tokens": toks}, cache)
+                pool.write_prefill(name, slot, cache, pos=len(prompt) - 1)
+                self.num_prefill_dispatches += 1
+        self._sessions[uid] = _Session(uid=uid, slot=slot,
+                                       pending=int(prompt[-1]))
+        return slot
 
     def admit_batch(self, pairs, buf_len: int) -> None:
         """Bucketed batched admission (``engine_cached.py:783``): each
@@ -359,6 +422,140 @@ class CachedSpecDecEngine:
                                   use_kernel=self.cfg.prefill_kernel)
                     self.num_prefill_dispatches += 1
 
+    # -- the host-driven round ----------------------------------------------
+    def _block_cached(self, subs: Sequence[torch.Tensor],
+                      uids: Sequence) -> list:
+        """Advance every listed session one block, host-driven
+        (``engine_cached.py:884``): L drafter sweeps over the arena (one
+        fetch of the live rows' tokens a step), ONE stacked verify chunk,
+        block verification per request (one fetch each), the rollback
+        gather, and the catch-up sweep for slots that accepted all L
+        drafts.  Host arrays go up through ``to_device``: a blocking copy
+        would make the host wait for the queued round."""
+        cfg, pool, dev = self.cfg, self.pool, self.device
+        K, L, N = cfg.num_drafts, cfg.draft_len, self.vocab
+        S = pool.num_slots
+        sessions = [self._sessions[u] for u in uids]
+        r_n = len(sessions)
+        need_probs = cfg.strategy in RS_STRATEGIES
+        on_card = dev.type == "cuda"
+
+        keys = np.stack([np.asarray(s.cpu(), np.int64) for s in subs])
+        with record_function("round/randomness"):
+            log_u_all, strat = block_randomness(to_device(keys, dev), L, K,
+                                                N)     # (R, L+1, K, N)
+        live_rows = np.concatenate([pool.rows_of(s.slot) for s in sessions])
+        live_dev = to_device(live_rows.astype(np.int64), dev)
+        base_pos = pool.pos.copy()
+        row_pos0 = to_device(pool.row_positions().astype(np.int64), dev)
+        # The verify chunk writes [pos, pos + L] into non-ring arenas.
+        hi = max(base_pos[s.slot] for s in sessions) + L + 1
+        assert hi <= pool.buf_len, (
+            f"speculative block would write through position {hi - 1} but "
+            f"the cache arena holds {pool.buf_len}; pass a larger buf_len")
+
+        cur = np.zeros((S * K, 1), np.int64)
+        for sess in sessions:
+            cur[pool.rows_of(sess.slot)] = sess.pending
+        d_tokens = np.zeros((r_n, K, L), np.int64)
+        tok_steps, prob_steps = [], []
+        with SyncCounter(dev) as drafting, \
+                record_function("round/draft_sweep"):
+            for j in range(L):
+                logits = decode_step_slots(
+                    self.d_params, self.d_cfg, to_device(cur, dev),
+                    pool.caches["drafter"], row_pos0 + j,
+                    use_kernel=cfg.decode_kernel)
+                self.num_draft_forwards += 1
+                p_all = probs_from_logits(logits[live_dev], cfg.temps[0],
+                                          cfg.top_k, N)
+                tok = V.draft_token_from_uniforms(
+                    log_u_all[:, j].reshape(r_n * K, N), p_all)
+                tk = tok.cpu().numpy().reshape(r_n, K)   # 1 fetch a step
+                d_tokens[:, :, j] = tk
+                cur = np.zeros((S * K, 1), np.int64)
+                for r, sess in enumerate(sessions):
+                    cur[pool.rows_of(sess.slot), 0] = tk[r]
+                tok_steps.append(tok)
+                if need_probs:
+                    prob_steps.append(p_all)
+        self.num_draft_syncs += drafting.count if on_card else L
+        # The drafts stay on the device too, so the device verifiers
+        # take them without an upload.
+        d_tok_dev = torch.stack(tok_steps, dim=1).reshape(r_n, K, L)
+        d_probs = (torch.stack(prob_steps, dim=1).reshape(r_n, K, L, N)
+                   if need_probs else None)
+
+        with SyncCounter(dev) as rest:
+            with record_function("round/verify_chunk"):
+                chunk = np.zeros((S * K, L + 1), np.int64)
+                for r, sess in enumerate(sessions):
+                    chunk[pool.rows_of(sess.slot), 0] = sess.pending
+                    chunk[pool.rows_of(sess.slot), 1:] = d_tokens[r]
+                t_logits = verify_step_slots(
+                    self._t_verify_params, self.t_cfg, to_device(chunk, dev),
+                    pool.caches["target"], row_pos0)
+                self.num_target_forwards += 1
+                q = probs_from_logits(t_logits[live_dev], cfg.target_temp,
+                                      cfg.top_k, N).reshape(r_n, K, L + 1, N)
+
+            outs = []
+            row_src = np.arange(S * K)
+            full_slots = {}          # slot -> Y_L, for the catch-up
+            with record_function("round/block_verify"):
+                for r, sess in enumerate(sessions):
+                    drafts = (d_tokens[r] if cfg.verifier_backend == "legacy"
+                              else d_tok_dev[r])
+                    with SyncCounter(dev) as fetch:
+                        hb = run_block_verify(
+                            log_u_all[r], drafts,
+                            None if d_probs is None else d_probs[r], q[r],
+                            strat[r], strategy=cfg.strategy,
+                            backend=cfg.verifier_backend)
+                    a = hb.num_accepted
+                    rows = pool.rows_of(sess.slot)
+                    row_src[rows] = rows[0] + _select_rollback_row(
+                        hb.active, a)
+                    pool.set_pos(sess.slot, base_pos[sess.slot] + 1 + a)
+                    if a == L:
+                        # The drafter consumed [pending, d_1..d_{L-1}]:
+                        # Y_L goes in at base_pos + L in the catch-up.
+                        full_slots[sess.slot] = hb.new_tokens[L - 1]
+                    sess.pending = hb.new_tokens[-1]
+                    outs.append(BlockOutcome(
+                        new_tokens=hb.new_tokens, accepted=a,
+                        verify_syncs=fetch.count if on_card
+                        else hb.host_syncs,
+                        active=hb.active))
+
+            with record_function("round/rollback"):
+                pool.rollback_rows(row_src)
+
+            if full_slots:
+                # Every other row decodes a dummy token at its
+                # post-rollback position, where the next sweep writes its
+                # pending token before anything attends it.
+                with record_function("round/catch_up"):
+                    extra_tok = np.zeros((S * K, 1), np.int64)
+                    extra_pos = pool.row_positions().astype(np.int64)
+                    for slot, y_l in full_slots.items():
+                        rows = pool.rows_of(slot)
+                        extra_tok[rows, 0] = y_l
+                        extra_pos[rows] = base_pos[slot] + L
+                    decode_step_slots(self.d_params, self.d_cfg,
+                                      to_device(extra_tok, dev),
+                                      pool.caches["drafter"],
+                                      to_device(extra_pos, dev),
+                                      use_kernel=cfg.decode_kernel,
+                                      return_logits=False)
+                    self.num_draft_forwards += 1
+        if rest.count:
+            # Waits outside the per-request fetches (none are expected)
+            # are charged to the round's first outcome.
+            outs[0] = outs[0]._replace(
+                verify_syncs=outs[0].verify_syncs + rest.count)
+        return outs
+
     # -- the fused round -----------------------------------------------------
     def _block_fused(self, subs: Sequence[torch.Tensor], uids: Sequence,
                      admits: Sequence = ()) -> list:
@@ -410,6 +607,11 @@ class CachedSpecDecEngine:
             pending[sess.slot] = sess.pending
             sub_rows[sess.slot] = np.asarray(sub.cpu(), np.int64)
         if self._round is None:
+            if cfg.verifier_backend == "legacy":
+                raise ValueError(
+                    "fused rounds need a device verifier backend ('torch' "
+                    "or 'kernel'); the 'legacy' host loop cannot run "
+                    "in-program")
             self._round = build_round_core(cfg, self.t_cfg, self.d_cfg,
                                            self.vocab, S)
         pos_dev, packed = self._round(
@@ -418,6 +620,7 @@ class CachedSpecDecEngine:
             to_device(pending, self.device), to_device(live, self.device),
             to_device(sub_rows, self.device))
         self.num_target_forwards += 1
+        self.num_draft_forwards += L + 1
         pool.adopt_round_device(pos_dev)
         if admits:
             self.admit_batch(admits, pool.buf_len)
@@ -444,22 +647,82 @@ class CachedSpecDecEngine:
             return []
         return self._block_fused(subs, uids, admits=admits)
 
+    def _admit_wave(self, pairs, buf_len: int,
+                    admission: Optional[str] = None) -> None:
+        """Admit unseen sessions (``engine_cached.py:1189``): one
+        bucketed wave, or per-request ``admit``; ``admission`` overrides
+        the engine's ``batched_admission`` default for this call."""
+        if admission is None:
+            admission = ("bucketed" if self.batched_admission
+                         else "per_request")
+        if admission == "bucketed":
+            self.admit_batch(pairs, buf_len)
+        else:
+            for uid, prompt in pairs:
+                self.admit(uid, prompt, buf_len)
+
+    def gen_blocks(self, subs: Sequence[torch.Tensor],
+                   prefixes: Sequence[np.ndarray], buf_len: int,
+                   uids: Optional[Sequence] = None, fused: bool = False,
+                   admission: Optional[str] = None) -> list:
+        """Advance R requests one block each (``engine_cached.py:1230``),
+        the reference engine's scheduler contract.  With ``uids`` the
+        sessions persist in pool slots: unseen uids are admitted from
+        their prefixes, known ones continue from their cached state and
+        ``prefixes[i]`` must end in the session's pending token.  Without
+        ``uids`` each call admits and releases ephemeral sessions.
+        ``fused`` runs the fused round, else the host-driven one."""
+        block = self._block_fused if fused else self._block_cached
+        if uids is None:
+            ephemeral = [object() for _ in prefixes]
+            try:
+                self._admit_wave(list(zip(ephemeral, prefixes)), buf_len,
+                                 admission)
+                return block(subs, ephemeral)
+            finally:
+                for uid in ephemeral:
+                    if uid in self._sessions:
+                        self.release(uid)
+        self._ensure_pool(buf_len)
+        new = []
+        for uid, pre in zip(uids, prefixes):
+            pre = np.asarray(pre, np.int32)
+            if uid not in self._sessions:
+                new.append((uid, pre))
+            else:
+                sess = self._sessions[uid]
+                assert int(pre[-1]) == sess.pending, (
+                    f"uid {uid}: prefix tail {int(pre[-1])} != cached "
+                    f"pending {sess.pending}")
+        self._admit_wave(new, buf_len, admission)
+        return block(subs, uids)
+
+    def gen_block(self, key: torch.Tensor, prefix: np.ndarray, buf_len: int,
+                  uid=None, fused: bool = False) -> BlockOutcome:
+        """The R = 1 case of ``gen_blocks``."""
+        uids = None if uid is None else [uid]
+        return self.gen_blocks([key], [np.asarray(prefix, np.int32)],
+                               buf_len, uids=uids, fused=fused)[0]
+
     def generate(self, key: torch.Tensor, prompt: np.ndarray,
-                 max_new: Optional[int] = None) -> GenerationStats:
-        """Single-request generation through fused rounds, with the JAX
-        engine's key derivation (``key, sub = split(key)`` per block)."""
+                 max_new: Optional[int] = None,
+                 fused: bool = False) -> GenerationStats:
+        """Single-request generation (``engine_cached.py:1280``) through
+        host-driven or (``fused``) fused rounds, with the JAX engine's
+        key derivation (``key, sub = split(key)`` per block)."""
         cfg = self.cfg
         max_new = max_new or cfg.max_new_tokens
         prompt = np.asarray(prompt, np.int32)
         buf = len(prompt) + max_new + cfg.draft_len + 2
         uid = object()
-        self.admit_batch([(uid, prompt)], buf)
+        self._admit_wave([(uid, prompt)], buf)
+        block = self._block_fused if fused else self._block_cached
         out, blocks, accepted, syncs = [], 0, 0, 0
         key = key.cpu()
         try:
             while len(out) < max_new:
                 key, sub = R.split(key)
-                o = self._block_fused([sub], [uid])[0]
+                o = block([sub], [uid])[0]
                 out.extend(o.new_tokens)
                 accepted += o.accepted
                 syncs += o.verify_syncs

@@ -1,17 +1,25 @@
 """Batched request scheduler for speculative-decoding serving -- the port's
 counterpart of ``repro/specdec/scheduler.py`` with the FIFO policy and
-two cache modes:
+three cache modes:
 
 * ``cache_mode="kv_fused"`` (default here) over a ``CachedSpecDecEngine``:
-  fused rounds and bucketed admission.  Requests admitted in a step only
-  prefill (overlapped with the round advancing the earlier ones) and
-  emit from the next step on;
+  fused rounds.  Under bucketed admission (the default) requests
+  admitted in a step only prefill (overlapped with the round advancing
+  the earlier ones) and emit from the next step on;
+* ``cache_mode="kv"``: the same engine and pool with the host-driven
+  round (``gen_blocks(..., fused=False)``);
 * ``cache_mode="reprefill"`` over the reference ``SpecDecEngine``: every
   block re-scores the whole prefix, so admitted requests advance in the
   step that admits them; ``batched=True`` (the default) stacks all live
   requests into (R*K, T) forwards (``gen_blocks``), ``batched=False``
   runs one block per request, as JAX's default does.  This is how an SSM target (Mamba-2) is served, as in
   JAX, where the cached engine is dense-only.
+
+``admission`` picks the cached engine's prefill path: ``"bucketed"``
+waves of stacked ``prefill_slots`` or ``"per_request"`` dense prefills
+(``CachedSpecDecEngine.admit``); only kv_fused with bucketed admission
+overlaps admission with the round, so under ``kv`` (and per-request
+kv_fused) requests admitted in a step advance in that step.
 
 Up to ``max_batch`` live requests advance one speculative block per
 round.  Per-request randomness is
@@ -24,9 +32,8 @@ Buffer lengths grow monotonically to the largest live requirement
 (``_required_buf``, as JAX's), so a request's buffer -- and therefore
 its tokens -- never depend on the mode that ran it.
 
-The v2 policy (eviction, preemption, priorities), the ``kv`` cache mode,
-per-request admission and the fault/journal layers are later slices
-(ROADMAP).
+The v2 policy (eviction, preemption, priorities) and the fault/journal
+layers are later slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -104,8 +111,11 @@ class ServerMetrics:
     # kv_fused: host waits on the card, counted by ``device.SyncCounter``:
     # in the rounds' packed fetches (one per round; the CPU counts the
     # fetch as one), and while rounds and admissions are queued (0 when
-    # fused).  reprefill: the engine's fetches, verification's (one per
-    # request per block) and the draft tokens' (one per draft step).
+    # fused).  kv: on the card the waits counted the same way, in each
+    # request's verification and in the sweeps' draft fetches (L per
+    # round); on the CPU the fetches, as JAX counts them.  reprefill: the
+    # engine's fetches, verification's (one per request per block) and
+    # the draft tokens' (one per draft step).
     host_syncs: int = 0
     draft_syncs: int = 0
     wall_s: float = 0.0
@@ -119,24 +129,28 @@ class ServerMetrics:
         return self.total_tokens / max(self.total_blocks, 1)
 
 
-CACHE_MODES = ("reprefill", "kv_fused")
+CACHE_MODES = ("reprefill", "kv", "kv_fused")
+ADMISSION_MODES = ("bucketed", "per_request")
 
 
 class SpecDecServer:
     """FIFO block scheduler: over a ``CachedSpecDecEngine`` with fused
-    rounds and bucketed, overlapped admission (``cache_mode="kv_fused"``,
-    the JAX server's ``admission="bucketed"``, ``policy="fifo"``), or
-    over a reference ``SpecDecEngine`` (``cache_mode="reprefill"``,
-    sequential or ``batched``)."""
+    rounds (``cache_mode="kv_fused"``, the JAX server's
+    ``policy="fifo"``) or host-driven ones (``"kv"``), admitting through
+    bucketed waves or per request (``admission``), or over a reference
+    ``SpecDecEngine`` (``cache_mode="reprefill"``, sequential or
+    ``batched``)."""
 
     def __init__(self, engine, max_batch: int = 8, batched: bool = True,
-                 cache_mode: str = "kv_fused"):
+                 cache_mode: str = "kv_fused", admission: str = "bucketed"):
         if cache_mode not in CACHE_MODES:
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
-        if cache_mode == "kv_fused":
-            if not hasattr(engine, "round_with_admission"):
+        if admission not in ADMISSION_MODES:
+            raise ValueError(f"unknown admission mode {admission!r}")
+        if cache_mode in ("kv", "kv_fused"):
+            if not hasattr(engine, "admit"):
                 raise TypeError(
-                    "cache_mode='kv_fused' needs a CachedSpecDecEngine")
+                    f"cache_mode={cache_mode!r} needs a CachedSpecDecEngine")
             if engine.pool_slots < max_batch:
                 raise ValueError(
                     f"engine pool has {engine.pool_slots} slots < "
@@ -147,6 +161,7 @@ class SpecDecServer:
         self.max_batch = max_batch
         self.batched = batched
         self.cache_mode = cache_mode
+        self.admission = admission
         self.queue: deque = deque()
         self.live: list = []
         self._uid = 0
@@ -182,7 +197,8 @@ class SpecDecServer:
                 return []
             self._buf_len = max([self._buf_len]
                                 + [self._required_buf(r) for r in self.live])
-            overlap = self.cache_mode == "kv_fused"
+            overlap = (self.cache_mode == "kv_fused"
+                       and self.admission == "bucketed")
             new_ids = {id(r) for r in newly}
             advancing = [r for r in self.live if id(r) not in new_ids] \
                 if overlap else list(self.live)
@@ -214,6 +230,12 @@ class SpecDecServer:
         prefixes = [np.concatenate([r.prompt,
                                     np.asarray(r.output, np.int32)])
                     for r in advancing]
+        if self.cache_mode in ("kv", "kv_fused"):
+            return self.engine.gen_blocks(
+                subs, prefixes, self._buf_len,
+                uids=[r.uid for r in advancing],
+                fused=self.cache_mode == "kv_fused",
+                admission=self.admission)
         if self.batched:
             return self.engine.gen_blocks(subs, prefixes, self._buf_len)
         return [self.engine.gen_block(sub, prefix, self._buf_len)
@@ -234,7 +256,7 @@ class SpecDecServer:
                 finished.append(req)
         for req in finished:
             self.live.remove(req)
-            if self.cache_mode == "kv_fused":
+            if self.cache_mode in ("kv", "kv_fused"):
                 self.engine.release(req.uid)
             self.metrics.completed += 1
             self.metrics.total_tokens += len(req.output)

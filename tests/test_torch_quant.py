@@ -378,7 +378,7 @@ def test_quant_engine_streams_match_jax(pair, strategy):
     for seed in (11, 12):
         jo = je.generate(jax.random.PRNGKey(seed), prompt, max_new=24,
                          fused=True)
-        to = te.generate(R.PRNGKey(seed), prompt, max_new=24)
+        to = te.generate(R.PRNGKey(seed), prompt, max_new=24, fused=True)
         np.testing.assert_array_equal(jo.output, to.output)
         assert jo.blocks == to.blocks
         assert jo.accepted_drafts == to.accepted_drafts
@@ -395,7 +395,8 @@ def _acceptance(pair, quant: bool, strategy: str, seeds=(11, 12, 13),
     prompt = np.arange(1, 9, dtype=np.int32)
     acc = blocks = 0
     for seed in seeds:
-        st = eng.generate(R.PRNGKey(seed), prompt, max_new=max_new)
+        st = eng.generate(R.PRNGKey(seed), prompt, max_new=max_new,
+                          fused=True)
         acc += st.accepted_drafts
         blocks += st.blocks
     return acc / (blocks * cfg.draft_len)

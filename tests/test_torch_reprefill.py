@@ -148,15 +148,23 @@ def test_server_rejects_wrong_engine(models):
     _, te = _engines(models, "dense", "gls", "torch")
     with pytest.raises(TypeError, match="CachedSpecDecEngine"):
         SpecDecServer(te, max_batch=2, cache_mode="kv_fused")
-    with pytest.raises(ValueError, match="cache_mode"):
+    with pytest.raises(TypeError, match="CachedSpecDecEngine"):
         SpecDecServer(te, max_batch=2, cache_mode="kv")
+    with pytest.raises(ValueError, match="cache_mode"):
+        SpecDecServer(te, max_batch=2, cache_mode="paged")
 
 
 def test_heterogeneous_drafters_raise(models):
+    """Two distinct drafters make a heterogeneous engine (one forward per
+    drafter a draft step, ``tests/test_torch_diverse_drafts.py``); a
+    drafter count other than 1 or K raises."""
     (_, tt), (_, td) = models["target"], models["dense"]
     other = (dict(td[0]), td[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpecDecEngine(tt, [td, other], SpecDecConfig(num_drafts=2),
+    eng = SpecDecEngine(tt, [td, other], SpecDecConfig(num_drafts=2),
+                        device="cpu")
+    assert not eng._homogeneous
+    with pytest.raises(ValueError, match="3 drafters"):
+        SpecDecEngine(tt, [td, other, td], SpecDecConfig(num_drafts=2),
                       device="cpu")
 
 

@@ -156,8 +156,8 @@ def test_probs_and_bucket_plan_match():
 def test_strategies_and_backends_mirror_jax(pair):
     """The port's strategy tuples are JAX's, its backends are JAX's with
     "torch"/"kernel" for "xla"/"pallas", every JAX strategy builds a
-    config, and the cached engine refuses the legacy host loop as JAX's
-    fused round does."""
+    config, and the cached engine's fused round refuses the legacy host
+    loop as JAX's does (its host-driven round takes it)."""
     assert STRATEGIES == J_STRATEGIES
     assert RS_STRATEGIES == J_RS_STRATEGIES
     twin = {"legacy": "legacy", "xla": "torch", "pallas": "kernel"}
@@ -168,11 +168,13 @@ def test_strategies_and_backends_mirror_jax(pair):
     with pytest.raises(ValueError, match="unknown strategy"):
         SpecDecConfig(strategy="medusa")
     (ttp, tt), (tdp, td) = pair["torch"]
+    eng = CachedSpecDecEngine((ttp, tt), (tdp, td),
+                              SpecDecConfig(strategy="specinfer",
+                                            verifier_backend="legacy"),
+                              device="cpu")
     with pytest.raises(ValueError, match="legacy"):
-        CachedSpecDecEngine((ttp, tt), (tdp, td),
-                            SpecDecConfig(strategy="specinfer",
-                                          verifier_backend="legacy"),
-                            device="cpu")
+        eng.generate(R.PRNGKey(0), np.array([1, 2, 3], np.int32), max_new=4,
+                     fused=True)
 
 
 @pytest.mark.parametrize("temps", [None, (0.7, 0.7, 0.7, 0.7),
@@ -180,22 +182,21 @@ def test_strategies_and_backends_mirror_jax(pair):
 def test_config_draft_temps_match_jax(pair, temps):
     """The same keyword arguments build both configs (``draft_temps``,
     the JAX field) and give equal ``.temps``; distinct temperatures are
-    refused by both engines (the reference engine names ROADMAP item
-    20, the cached engine asserts as JAX's does)."""
+    taken by the reference engine (heterogeneous drafting) and refused
+    by the cached engine, which asserts as JAX's does."""
     kw = dict(num_drafts=4, draft_len=3, strategy="gls", target_temp=1.0,
               draft_temps=temps, top_k=50, max_new_tokens=8)
     jc, tc = JConfig(**kw), SpecDecConfig(**kw)
     assert tc.temps == jc.temps
     assert len(tc.temps) == 4
     (ttp, tt), (tdp, td) = pair["torch"]
-    if temps is None or len(set(temps)) == 1:
+    ref = SpecDecEngine((ttp, tt), (tdp, td), tc, device="cpu")
+    assert ref._homogeneous == (temps is None or len(set(temps)) == 1)
+    if ref._homogeneous:
         CachedSpecDecEngine((ttp, tt), (tdp, td), tc, device="cpu")
-        SpecDecEngine((ttp, tt), (tdp, td), tc, device="cpu")
         return
     with pytest.raises(AssertionError, match="homogeneous"):
         CachedSpecDecEngine((ttp, tt), (tdp, td), tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        SpecDecEngine((ttp, tt), (tdp, td), tc, device="cpu")
 
 
 @pytest.mark.parametrize("strategy", J_STRATEGIES)
@@ -217,7 +218,7 @@ def test_engine_generate_matches_jax(pair, strategy):
                                            max_new_tokens=12,
                                            verifier_backend="kernel"),
                              device="cpu")
-    to = te.generate(R.PRNGKey(5), prompt)
+    to = te.generate(R.PRNGKey(5), prompt, fused=True)
     np.testing.assert_array_equal(jo.output, to.output)
     assert jo.blocks == to.blocks and to.host_syncs == to.blocks
     assert te.num_draft_syncs == 0

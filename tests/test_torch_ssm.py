@@ -239,18 +239,26 @@ def test_config_families():
 
 
 def test_dense_serving_calls_raise_in_registry():
+    """The registry's dense ``prefill``/``decode_step`` (they raised
+    before the kv cache mode was ported) give ``forward``'s logits, and
+    ``forward`` past 2,048 tokens takes the chunked attention, equal to
+    the dense path (``tests/test_torch_kv_mode.py`` holds them to JAX)."""
     cfg = ModelConfig(name="d", family="dense", num_layers=1, d_model=16,
                       num_heads=2, d_ff=16, vocab_size=10, dtype="float32")
     params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-    toks = torch.zeros((1, 3), dtype=torch.int64)
-    assert tuple(forward(params, cfg, {"tokens": toks}).shape) == (1, 3, 256)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        prefill(params, cfg, {"tokens": toks}, init_cache(cfg, 1, 8, "cpu"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        decode_step(params, cfg, toks[:, :1], {})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        forward(params, cfg, {"tokens": torch.zeros((1, 2049),
-                                                    dtype=torch.int64)})
+    toks = torch.tensor([[1, 4, 2, 7]])
+    full = forward(params, cfg, {"tokens": toks})
+    assert tuple(full.shape) == (1, 4, 256)
+    logits, cache = prefill(params, cfg, {"tokens": toks[:, :3]},
+                            init_cache(cfg, 1, 8, "cpu"))
+    torch.testing.assert_close(logits, full[:, 2], atol=1e-6, rtol=0)
+    logits, cache = decode_step(params, cfg, toks[:, 3:], cache)
+    torch.testing.assert_close(logits, full[:, 3], atol=1e-6, rtol=0)
+    assert cache["pos"] == 4
+    long = {"tokens": torch.arange(2049).reshape(1, -1) % 10}
+    torch.testing.assert_close(forward(params, cfg, long),
+                               forward(params, cfg, long, chunked=False),
+                               atol=1e-5, rtol=0)
 
 
 # ---------------------------------------------------------------------------
