@@ -113,6 +113,31 @@ when the port's sources are not beside this file.  Phases:
      (the dense ``prefill``, no flash launch) against bucketed under kv,
      4 requests x 16 tokens, equal streams.  tok/s, round wall and TTFT
      of each pair are logged side by side;
+  paged: the paged KV arena and the v2 policy, every buffer pinned
+     (``min_buf_len``) to the trace's largest requirement on every side
+     of every comparison (the buffer sets the decode split plan, so the
+     summation order).  First the paged decode and flash entry points
+     against the contiguous kernels on the gathered view, bit for bit,
+     at the serve's shapes (32 rows, T = 338, 256-query chunks), float32
+     and int8, pages of PAGE_SIZE = 64 with some chains cut short; then
+     phase 3's prompts, 8 requests x 32 tokens, on 4 slots: (a) the
+     oracle, contiguous kv_fused FIFO; (b) paged kv_fused under v2 with
+     ``preempt_tokens`` 8 over a fixed budget of twice the largest
+     request's lifetime pages (page pressure, not slots, limits the live
+     set): streams equal to (a), ``preemptions > 0``, ``draft_syncs ==
+     0``, ``host_syncs == rounds``; (c) paged kv under v2 with JAX's
+     eviction pattern (four requests run two steps, then a priority-5
+     arrival evicts one, suspended into a handle and resumed): streams
+     equal to (a), ``evictions >= 1``, ``evicted_s > 0``, ``draft_syncs
+     == L x rounds``, ``host_syncs`` and ``gls_row_race`` launches = the
+     requests' blocks, decode launches L x 4 drafter layers x rounds plus
+     the catch-up sweeps; (d) quant, 4 x 16, paged kv_fused v2 (int8
+     pages) against contiguous quant kv_fused: equal streams.  After
+     each paged serve every slot and page is free.  tok/s, round wall
+     and TTFT of (b) and (c) are logged against (a), with the peak
+     device memory and the pool's pages x bytes a page against the
+     contiguous arenas' bytes.  (e), granite-8b's, runs in phase
+     granite;
   dense: smollm-360m's dense serving calls (``prefill`` of 90 tokens,
      ``decode_step``, a 10-token ``verify_step``) against one dense
      ``forward`` (1e-3), and ``forward`` over 2,560 tokens with chunked
@@ -146,7 +171,10 @@ when the port's sources are not beside this file.  Phases:
      (completion, token range, the sync gates, the D = 128 instances'
      and the row race's launches), and the float32 serve again through
      ``cache_mode="kv"`` with phase kv's gates and streams equal to the
-     kv_fused serve's; phase 4's self-draft (>= 0.9 L) and
+     kv_fused serve's; phase paged's (e): the paged entry points against
+     the contiguous D = 128 kernels (bit for bit) and that kv workload
+     again, paged, under v2, its buffer pinned to the one the contiguous
+     kv serve reached, streams equal to it; phase 4's self-draft (>= 0.9 L) and
      phase 4q's two quant rates (the int8 arenas' held within 0.2 of
      float32's, the served quant path's logged).  The pair
      is freed before phase 5;
@@ -187,16 +215,16 @@ when the port's sources are not beside this file.  Phases:
      self-draft check (drafter = the 48-layer target, acceptance >=
      0.9 L).
 
-Each of the paths of phases 3, 3q, rs, kv, diverse, granite, 5, 6 and 7
-is driven with the launch counts set to 0 just before it and read just
-after; the ``kernels`` line reports each kernel's launches from its own
-paths (``gls_row_race``: the sum over the float32 kv_fused serves of
-smollm-360m and granite-8b, the kv serves, the gls serves of phase
-diverse and the reprefill serve; ``decode_attention`` and
-``flash_attention``: phase 3, the three rejection-sampling serves and
-the float32 kv serves; their int8 instances: phase 3q and the quant
-serves of phase kv; the D = 128 instances: granite's float32, quant and
-kv serves).  The line before the last is a JSON object ``{"kernels":
+Each of the paths of phases 3, 3q, rs, kv, paged, diverse, granite, 5, 6
+and 7 is driven with the launch counts set to 0 just before it and read
+just after; the ``kernels`` line reports each kernel's launches from its
+own paths (``gls_row_race``: the sum over the float32 kv_fused serves of
+smollm-360m and granite-8b, the kv serves, the paged serves, the gls
+serves of phase diverse and the reprefill serve; ``decode_attention``
+and ``flash_attention``: phase 3, the three rejection-sampling serves,
+the float32 kv serves and paged (a)-(c); their int8 instances: phase
+3q, the quant serves of phase kv and paged (d); the D = 128 instances:
+granite's float32, quant, kv and paged kv serves).  The line before the last is a JSON object ``{"kernels":
 [...]}``; the last line is ``{"ok": true, "device": {...}}``.  Every
 phase failure is an exception, so the script exits non-zero after any
 failure.
@@ -239,6 +267,11 @@ RS_STRATEGIES = ("specinfer", "spectr", "single")
 # heterogeneous drafters.
 KV_QUANT_REQUESTS, KV_QUANT_MAX_NEW = 4, 16
 PR_REQUESTS, PR_MAX_NEW = 4, 16
+# Phase paged: phase 3's prompts, 8 x 32 (a)-(c) and 4 x 16 quant (d), in
+# pages of 64 tokens, preempt_tokens 8 under v2.
+PAGED_REQUESTS, PAGED_MAX_NEW = 8, 32
+PAGED_QUANT_REQUESTS, PAGED_QUANT_MAX_NEW = 4, 16
+PAGE_SIZE, PAGED_PREEMPT = 64, 8
 DIVERSE_REQUESTS, DIVERSE_MAX_NEW = 4, 8
 PROMPT_MIN, PROMPT_MAX = 16, 300
 SEED = 0
@@ -1197,6 +1230,7 @@ def phase_serve(torch, dev, target, drafter, quant=False,
                     "tok_s": m.total_tokens / wall,
                     "round_ms": wall / m.rounds * 1e3, "ttft_ms": ttft,
                     "peak_gib": peak, "arena_mib": arena_mib,
+                    "buf_len": server._buf_len,
                     "streams": {r.uid: list(r.output) for r in done}}
 
 
@@ -1270,6 +1304,326 @@ def phase_kv(torch, dev, target, drafter, fused_stats: dict, smi: str):
                  "per-request vs bucketed admission")
     compare_serves(per_request, bucketed,
                    "per-request vs bucketed admission (kv)", smi)
+    gc_collect(torch)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase paged: the paged KV arena and the v2 policy
+# ---------------------------------------------------------------------------
+
+
+def check_paged_kernels(torch, dev, cfg, buf_len: int, smi: str) -> None:
+    """The paged decode and flash entry points against the contiguous
+    kernels on the gathered view, bit for bit, at the serve's shapes
+    (S x K rows, the model's heads, ``buf_len`` keys, a 256-query
+    prefill chunk), float32 and int8, in pages of PAGE_SIZE with three
+    rows' chains cut short (unmapped tails)."""
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_paged)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_paged)
+    from repro_torch.kernels.paged import gather_kv_pages
+    from repro_torch.serving.quant import quantize_kv
+    b, h, hkv = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads
+    d = cfg.resolved_head_dim
+    n_lp = -(-buf_len // PAGE_SIZE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 23)
+    table = (torch.randperm(b * n_lp, generator=g, device=dev) + 1).reshape(
+        b, n_lp)
+    kv_len = serve_kv_len(torch, dev, b, buf_len, SEED + 23)
+    kv_len[0] = 1
+    for r in (2, 5, 9):
+        cut = -(-int(kv_len[r]) // PAGE_SIZE)
+        table[r, cut:] = 0
+    shape = (b * n_lp + 1, hkv, PAGE_SIZE, d)
+    pools = [torch.randn(shape, generator=g, device=dev) for _ in range(2)]
+    for pool in pools:
+        pool[0].zero_()
+    q_dec = torch.randn((b, h, d), generator=g, device=dev)
+    s = 256
+    q_fl = torch.randn((b, h, s, d), generator=g, device=dev)
+    off = torch.clamp(kv_len - s, min=0).to(torch.int32)
+    for int8 in (False, True):
+        if int8:
+            (k8, ks), (v8, vs) = (quantize_kv(p) for p in pools)
+            args = (k8, v8, ks, vs)
+        else:
+            args = (pools[0], pools[1], None, None)
+        view = [None if x is None else gather_kv_pages(x, table, buf_len)
+                for x in args]
+        got = decode_attention_paged(q_dec, args[0], args[1], table, kv_len,
+                                     args[2], args[3], buf_len=buf_len)
+        want = decode_attention(q_dec, view[0], view[1], kv_len, view[2],
+                                view[3])
+        err_d = float((got - want).abs().max())
+        assert torch.equal(got, want), ("paged decode", d, int8, err_d)
+        got = flash_attention_paged(q_fl, args[0], args[1], table, off,
+                                    kv_len, args[2], args[3],
+                                    buf_len=buf_len)
+        want = flash_attention(q_fl, view[0], view[1], off, kv_len, view[2],
+                               view[3])
+        err_f = float((got - want).abs().max())
+        assert torch.equal(got, want), ("paged flash", d, int8, err_f)
+        log(f"paged entry points [{smi}]: head dim {d} "
+            f"{'int8' if int8 else 'float32'}, {b} rows x {n_lp} pages of "
+            f"{PAGE_SIZE}, T = {buf_len}: decode and flash ({s} queries) "
+            f"equal to the contiguous kernels on the gathered view bit for "
+            f"bit (max abs diff {err_d}, {err_f})")
+
+
+def paged_trace(vocab: int, n: int):
+    """Phase 3's prompts: ``n`` of 16-300 tokens from the seed, the first
+    of PROMPT_MAX tokens (past the largest admission bucket)."""
+    from repro_torch.launch.serve import draw_prompts
+    prompts = draw_prompts(n, vocab, PROMPT_MIN, PROMPT_MAX, SEED)
+    prompts[0] = np.random.default_rng(SEED + 7).integers(
+        0, vocab, PROMPT_MAX).astype(np.int32)
+    return prompts
+
+
+def page_bytes(pool) -> int:
+    """Bytes of one physical page over every model and leaf."""
+    return sum(leaf[:, 1].numel() * leaf.element_size()
+               for pages in pool.pages.values() for leaf in pages.values())
+
+
+def serve_run(torch, dev, target, drafter, prompts, max_new: int, label: str,
+              *, quant=False, paged=False, cache_mode="kv_fused",
+              policy="fifo", preempt=None, pool_pages=None, min_buf=0,
+              pattern=None, max_batch=S_SLOTS):
+    """Serve ``prompts`` (``max_new`` tokens each) through the cached
+    engine on S_SLOTS slots (``max_batch`` of them live at once), GLS,
+    K_DRAFTS x L_DRAFT, the kernel routes
+    on, the buffer pinned to ``min_buf``; ``pattern(server, key)`` drives
+    the submissions and returns the finished requests (default: submit
+    all, run).  Checks completion and token range; returns the engine,
+    the server and the stats (launch counts, streams, metrics, timing)."""
+    from repro_torch import random as R
+    from repro_torch.kernels.mode import launch_counts, reset_launch_counts
+    from repro_torch.specdec import (CachedSpecDecEngine, SpecDecConfig,
+                                     SpecDecServer)
+    vocab = target[1].vocab_size
+    cfg = SpecDecConfig(num_drafts=K_DRAFTS, draft_len=L_DRAFT,
+                        strategy="gls", top_k=50, max_new_tokens=max_new,
+                        verifier_backend="kernel", decode_kernel=True,
+                        prefill_kernel=True, quant=quant, paged=paged,
+                        page_size=PAGE_SIZE)
+    engine = CachedSpecDecEngine(target, drafter, cfg, pool_slots=S_SLOTS,
+                                 pool_pages=pool_pages, device=dev)
+    server = SpecDecServer(engine, max_batch=max_batch, cache_mode=cache_mode,
+                           policy=policy, preempt_tokens=preempt,
+                           min_buf_len=min_buf)
+    key = R.PRNGKey(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    if pattern is None:
+        for p in prompts:
+            server.submit(p, max_new=max_new)
+        done = server.run(key)
+    else:
+        done = pattern(server, key)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    m = server.metrics
+    assert len(done) == len(prompts), f"{label}: {len(done)} finished"
+    for r in done:
+        out = np.asarray(r.output)
+        assert len(out) == max_new, f"{label}: uid {r.uid}: {len(out)}"
+        assert out.min() >= 0 and out.max() < vocab, f"{label}: uid range"
+    st = {"wall_s": wall, "tok_s": m.total_tokens / wall,
+          "round_ms": wall / m.rounds * 1e3, "rounds": m.rounds,
+          "ttft_ms": float(np.mean([r.ttft_ms for r in done])),
+          "block_efficiency": m.mean_block_efficiency,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "counts": counts, "buf_len": server._buf_len,
+          "streams": {r.uid: list(r.output) for r in done},
+          "evicted_s": max(r.evicted_s for r in done)}
+    log(f"{label}: {len(done)} requests x {max_new} tokens in {wall:.3f}s "
+        f"-> {st['tok_s']:.1f} tok/s; rounds={m.rounds} round wall "
+        f"{st['round_ms']:.1f} ms mean_ttft_ms={st['ttft_ms']:.1f} "
+        f"block_efficiency={st['block_efficiency']:.3f} "
+        f"host_syncs={m.host_syncs} draft_syncs={m.draft_syncs} "
+        f"evictions={m.evictions} preemptions={m.preemptions} "
+        f"max evicted_s={st['evicted_s']:.3f} buf_len={server._buf_len} "
+        f"peak device memory {st['peak_gib']:.2f} GiB launches={counts}")
+    return engine, server, st
+
+
+def check_paged_end(engine, label: str) -> None:
+    """Every slot and every page free once the trace has drained."""
+    pool = engine.pool
+    st = engine.page_state()
+    assert pool.num_free == pool.num_slots, (label, pool.num_free)
+    assert st["free"] == st["total"], (label, st)
+    assert not pool.page_table.any(), label
+    log(f"{label}: all {pool.num_slots} slots and {st['total']} pages free "
+        f"at the end; view gathers {engine.num_view_gathers}, slot syncs "
+        f"{engine.num_view_syncs}, refreshes {engine.num_view_refreshes}")
+
+
+def eviction_pattern(n_first: int):
+    """JAX's eviction pattern (``tests/test_scheduler.py:228-258``):
+    the first ``n_first`` prompts run two steps, then the next arrives
+    at priority 5, then the rest; returns the finished requests."""
+    def pattern(server, key, prompts, max_new):
+        for p in prompts[:n_first]:
+            server.submit(p, max_new=max_new)
+        done = server.step(key) + server.step(key)
+        server.submit(prompts[n_first], max_new=max_new, priority=5)
+        for p in prompts[n_first + 1:]:
+            server.submit(p, max_new=max_new)
+        return done + server.run(key)
+    return pattern
+
+
+def count_calls(obj, name: str) -> list:
+    """Record the first argument of every call of ``obj.name``."""
+    seen, orig = [], getattr(obj, name)
+
+    def wrapped(*a, **kw):
+        seen.append(a[0])
+        return orig(*a, **kw)
+    setattr(obj, name, wrapped)
+    return seen
+
+
+def phase_paged(torch, dev, target, drafter, smi: str):
+    """Phase paged (module docstring).  Returns the launch counts of its
+    serves."""
+    vocab, d_layers = target[1].vocab_size, drafter[1].num_layers
+    layers = target[1].num_layers + d_layers
+    check_paged_kernels(torch, dev, target[1],
+                        PROMPT_MAX + PAGED_MAX_NEW + L_DRAFT + 2, smi)
+    prompts = paged_trace(vocab, PAGED_REQUESTS)
+    min_buf = max(len(p) for p in prompts) + PAGED_MAX_NEW + L_DRAFT + 2
+    counts = {}
+    # (a) the oracle: contiguous kv_fused FIFO.
+    eng_a, _, a = serve_run(torch, dev, target, drafter, prompts,
+                            PAGED_MAX_NEW, "paged (a) contiguous kv_fused "
+                            "fifo", min_buf=min_buf)
+    arena_bytes = sum(leaf.numel() * leaf.element_size()
+                      for arena in eng_a.pool.caches.values()
+                      for leaf in arena.values())
+    add_counts(counts, a["counts"])
+    del eng_a
+    gc_collect(torch)
+    # (b) paged kv_fused v2 over a fixed budget of twice the largest
+    # request's lifetime pages: page pressure, not slots, limits the set.
+    need = max(-(-(len(p) + PAGED_MAX_NEW + L_DRAFT + 1) // PAGE_SIZE)
+               for p in prompts) * K_DRAFTS
+    budget = 2 * need
+    eng_b, srv_b, b = serve_run(
+        torch, dev, target, drafter, prompts, PAGED_MAX_NEW,
+        "paged (b) paged kv_fused v2", paged=True, policy="v2",
+        preempt=PAGED_PREEMPT, pool_pages=budget, min_buf=min_buf)
+    same_streams(a["streams"], b["streams"], "paged (b) vs (a)")
+    assert need == max(eng_b.request_pages(len(p) + PAGED_MAX_NEW)
+                       for p in prompts)
+    m = srv_b.metrics
+    assert m.preemptions > 0, "paged (b): no preemption"
+    assert m.draft_syncs == 0, f"paged (b): draft_syncs {m.draft_syncs}"
+    assert m.host_syncs == m.rounds, (m.host_syncs, m.rounds)
+    check_paged_end(eng_b, "paged (b)")
+    pb = page_bytes(eng_b.pool)
+    log(f"paged (b) memory [{smi}]: {eng_b.pool.num_pages} pages x {pb} "
+        f"bytes = {eng_b.pool.num_pages * pb / 2 ** 20:.1f} MiB (storage "
+        f"{(eng_b.pool.num_pages + 2) * pb / 2 ** 20:.1f} MiB with the zero "
+        f"and trash pages; the largest request holds {need} pages) against "
+        f"the contiguous arenas' {arena_bytes / 2 ** 20:.1f} MiB; peak "
+        f"device memory {b['peak_gib']:.2f} vs {a['peak_gib']:.2f} GiB")
+    add_counts(counts, b["counts"])
+    del eng_b, srv_b
+    gc_collect(torch)
+    # (c) paged kv v2: two steps, then a priority-5 arrival evicts.
+    pattern = eviction_pattern(S_SLOTS)
+    holder = {}
+
+    def drive(server, key):
+        holder["suspends"] = count_calls(server.engine, "suspend")
+        holder["resumes"] = count_calls(server.engine, "resume")
+        return pattern(server, key, prompts, PAGED_MAX_NEW)
+    eng_c, srv_c, c = serve_run(
+        torch, dev, target, drafter, prompts, PAGED_MAX_NEW,
+        "paged (c) paged kv v2 with a priority-5 arrival", paged=True,
+        cache_mode="kv", policy="v2", min_buf=min_buf, pattern=drive)
+    same_streams(a["streams"], c["streams"], "paged (c) vs (a)")
+    m = srv_c.metrics
+    assert m.evictions >= 1 and c["evicted_s"] > 0, (m.evictions,
+                                                     c["evicted_s"])
+    assert holder["suspends"] and set(holder["suspends"]) <= set(
+        holder["resumes"]), holder
+    assert m.draft_syncs == L_DRAFT * m.rounds, (m.draft_syncs, m.rounds)
+    assert m.host_syncs == m.total_blocks, (m.host_syncs, m.total_blocks)
+    from repro_torch.kernels.mode import launch_name
+    d = target[1].resolved_head_dim
+    dec = c["counts"].get(launch_name("decode_attention", d), 0)
+    sweeps = L_DRAFT * d_layers * m.rounds
+    # One launch a drafter layer a sweep: L sweeps a round plus a
+    # catch-up sweep in rounds where a slot accepted every draft.
+    assert dec == d_layers * eng_c.num_draft_forwards, (dec, sweeps)
+    assert sweeps <= dec <= sweeps + d_layers * m.rounds, (dec, sweeps)
+    assert c["counts"].get(launch_name("flash_attention", d), 0) == \
+        layers * eng_c.num_prefill_dispatches // 2, c["counts"]
+    assert c["counts"].get("gls_row_race", 0) == m.total_blocks
+    log(f"paged (c): suspended uids {holder['suspends']}, resumed "
+        f"{holder['resumes']}; decode launches {dec} = L x {d_layers} "
+        f"drafter layers x {m.rounds} rounds + {(dec - sweeps) // d_layers} "
+        f"catch-up sweeps")
+    check_paged_end(eng_c, "paged (c)")
+    add_counts(counts, c["counts"])
+    del eng_c, srv_c
+    gc_collect(torch)
+    for what, st in (("(b) paged kv_fused v2", b), ("(c) paged kv v2", c)):
+        compare_serves(st, a, f"paged {what} vs (a) contiguous kv_fused "
+                       "fifo", smi)
+    # (d) quant: int8 pages through kv_fused v2 against contiguous quant,
+    # two of the four requests live at a time, rotating by suspend and
+    # resume every PAGED_PREEMPT tokens (the pages grow on demand, so no
+    # handle is stripped): streams equal.
+    q_prompts = prompts[:PAGED_QUANT_REQUESTS]
+    q_buf = max(len(p) for p in q_prompts) + PAGED_QUANT_MAX_NEW + \
+        L_DRAFT + 2
+    _, _, qa = serve_run(torch, dev, target, drafter, q_prompts,
+                         PAGED_QUANT_MAX_NEW, "paged (d) contiguous quant "
+                         "kv_fused fifo", quant=True, min_buf=q_buf)
+    add_counts(counts, qa["counts"])
+    gc_collect(torch)
+    eng_d, srv_d, qb = serve_run(
+        torch, dev, target, drafter, q_prompts, PAGED_QUANT_MAX_NEW,
+        "paged (d) paged quant kv_fused v2, 2 live, rotating", quant=True,
+        paged=True, policy="v2", preempt=PAGED_PREEMPT, min_buf=q_buf,
+        max_batch=2)
+    same_streams(qa["streams"], qb["streams"], "paged (d) quant vs contiguous")
+    assert srv_d.metrics.preemptions > 0 and eng_d.num_view_refreshes > 0, \
+        "paged (d): no suspend and resume"
+    check_paged_end(eng_d, "paged (d)")
+    add_counts(counts, qb["counts"])
+    del eng_d, srv_d
+    gc_collect(torch)
+    # (d') the same over (b)'s fixed budget: page pressure strips suspend
+    # handles, so requests re-prefill prompt + output through the flash
+    # kernel and re-quantize.  The int8 rounding of K/V that the verify
+    # chunk and the decode kernel built is not the re-prefill's (ROADMAP
+    # queue 3, item 6), so the streams are logged, not held equal.
+    eng_q, srv_q, qc = serve_run(
+        torch, dev, target, drafter, q_prompts, PAGED_QUANT_MAX_NEW,
+        "paged (d') paged quant kv_fused v2 over a fixed budget",
+        quant=True, paged=True, policy="v2", preempt=PAGED_PREEMPT,
+        pool_pages=budget, min_buf=q_buf)
+    flips = {uid: next((i for i, (x, y) in enumerate(zip(qa["streams"][uid],
+                                                         qc["streams"][uid]))
+                        if x != y), None) for uid in qa["streams"]}
+    log(f"paged (d'): {srv_q.metrics.evictions} evictions (stripped "
+        f"handles re-prefill), {eng_q.num_view_refreshes} resumes; first "
+        f"token differing from contiguous quant per uid: {flips}")
+    check_paged_end(eng_q, "paged (d')")
+    add_counts(counts, qc["counts"])
+    del eng_q, srv_q
     gc_collect(torch)
     return counts
 
@@ -1803,6 +2157,29 @@ def phase_granite(torch, dev, smi: str, buf_len: int):
     compare_serves(kv_stats, stats, "granite kv vs kv_fused serve", smi)
     add_counts(counts, kv_counts)
     gc_collect(torch)
+    # (e) of phase paged: the kv workload paged (the head-dim-128 decode
+    # and flash through the page table), its buffer pinned to the one the
+    # contiguous kv serve reached.
+    check_paged_kernels(torch, dev, cfg, buf_len, smi)
+    eng_e, srv_e, e = serve_run(
+        torch, dev, target, drafter,
+        paged_trace(cfg.vocab_size, RS_REQUESTS), RS_MAX_NEW,
+        "paged (e) granite paged kv v2", paged=True, cache_mode="kv",
+        policy="v2", min_buf=kv_stats["buf_len"])
+    same_streams(kv_stats["streams"], e["streams"],
+                 "paged (e) granite paged kv vs contiguous kv")
+    m = srv_e.metrics
+    assert m.draft_syncs == L_DRAFT * m.rounds, (m.draft_syncs, m.rounds)
+    assert m.host_syncs == m.total_blocks, (m.host_syncs, m.total_blocks)
+    assert e["counts"].get("decode_attention_d128", 0) >= \
+        L_DRAFT * drafter[1].num_layers * m.rounds, e["counts"]
+    assert e["counts"].get("flash_attention_d128", 0) > 0, e["counts"]
+    check_paged_end(eng_e, "paged (e)")
+    compare_serves(e, kv_stats, "paged (e) granite paged kv vs contiguous "
+                   "kv", smi)
+    add_counts(counts, e["counts"])
+    del eng_e, srv_e
+    gc_collect(torch)
     q_counts, q_stats = phase_serve(torch, dev, target, drafter, quant=True,
                                     requests=RS_REQUESTS, max_new=RS_MAX_NEW,
                                     label="granite serve")
@@ -2262,6 +2639,11 @@ def main() -> int:
     kv_counts = phase_kv(torch, dev, target, drafter, serve_stats, smi)
     log(f"phase kv: {time.perf_counter() - t0:.1f}s")
 
+    # Phase paged: the paged arena and the v2 policy.
+    t0 = time.perf_counter()
+    paged_counts = phase_paged(torch, dev, target, drafter, smi)
+    log(f"phase paged: {time.perf_counter() - t0:.1f}s")
+
     # Phase dense: the dense serving calls and chunked attention.
     t0 = time.perf_counter()
     phase_dense_calls(torch, dev, target)
@@ -2271,10 +2653,12 @@ def main() -> int:
     t0 = time.perf_counter()
     diverse_counts = phase_diverse(torch, dev, target, drafter, smi)
     log(f"phase diverse: {time.perf_counter() - t0:.1f}s")
-    log("launches of phases kv and diverse (added to the kernels line): "
-        f"kv {kv_counts}, diverse {diverse_counts}")
+    log("launches of phases kv, paged and diverse (added to the kernels "
+        f"line): kv {kv_counts}, paged {paged_counts}, diverse "
+        f"{diverse_counts}")
     add_counts(counts, kv_counts)
     add_counts(counts, diverse_counts)
+    add_counts(counts, paged_counts)
 
     # Phase granite: granite-8b (head dim 128) through kv_fused.
     t0 = time.perf_counter()

@@ -110,3 +110,26 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                         chunk)
     launch_counts[launch_name("decode_attention", d, int8)] += 1
     return out
+
+
+def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, table: torch.Tensor,
+                           kv_len: torch.Tensor,
+                           k_scale_pages: Optional[torch.Tensor] = None,
+                           v_scale_pages: Optional[torch.Tensor] = None, *,
+                           buf_len: int) -> torch.Tensor:
+    """Decode attention over a paged KV pool
+    (``decode_attention/ops.py:24``): ``k_pages``/``v_pages`` (P, Hkv,
+    page, D), the scales' pools (P, Hkv, page, 1) for int8, ``table``
+    (B, n_lp) (0 = unmapped).  The table is resolved into a (B, Hkv,
+    buf_len, D) view (``kernels/paged.py``) and ``decode_attention`` runs
+    on it unchanged: on a CUDA tensor the kernel, launched and counted
+    as on a contiguous arena."""
+    from repro_torch.kernels.paged import gather_kv_pages
+    k = gather_kv_pages(k_pages, table, buf_len)
+    v = gather_kv_pages(v_pages, table, buf_len)
+    ks = vs = None
+    if k_scale_pages is not None:
+        ks = gather_kv_pages(k_scale_pages, table, buf_len)
+        vs = gather_kv_pages(v_scale_pages, table, buf_len)
+    return decode_attention(q, k, v, kv_len, ks, vs)

@@ -52,3 +52,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch_counts[launch_name("flash_attention", q.shape[-1],
                               k_scale is not None)] += 1
     return out
+
+
+def flash_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, table: torch.Tensor,
+                          q_offset: Optional[torch.Tensor] = None,
+                          kv_len: Optional[torch.Tensor] = None,
+                          k_scale_pages: Optional[torch.Tensor] = None,
+                          v_scale_pages: Optional[torch.Tensor] = None, *,
+                          buf_len: int, causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
+    """Flash attention over a paged KV pool
+    (``flash_attention/ops.py:29``): the pools and ``table`` as in
+    ``decode_attention_paged``; the table is resolved into a (B, Hkv,
+    buf_len, D) view and ``flash_attention`` runs on it unchanged."""
+    from repro_torch.kernels.paged import gather_kv_pages
+    k = gather_kv_pages(k_pages, table, buf_len)
+    v = gather_kv_pages(v_pages, table, buf_len)
+    ks = vs = None
+    if k_scale_pages is not None:
+        ks = gather_kv_pages(k_scale_pages, table, buf_len)
+        vs = gather_kv_pages(v_scale_pages, table, buf_len)
+    return flash_attention(q, k, v, q_offset, kv_len, ks, vs, causal=causal,
+                           window=window)

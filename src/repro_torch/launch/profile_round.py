@@ -3,7 +3,7 @@ the card.
 
   python -m repro_torch.launch.profile_round [--arch smollm-360m] \
       [--rounds 6] [--quant] [--strategy gls] [--cache-mode kv_fused] \
-      [--trace build/profile_round_trace.json]
+      [--paged] [--trace build/profile_round_trace.json]
 
 Serves a dense model (``--arch``: smollm-360m by default, or granite-8b)
 at its published widths with the serving geometry of ``chip_smoke.py``
@@ -13,7 +13,10 @@ kernels, float32; ``--strategy``: the verification strategy, GLS by default, one
 draft for single and daliri; ``--quant``: int8 KV arenas and the W8A8
 verify chunk of ``SpecDecConfig(quant=True)``; ``--cache-mode kv``: the
 host-driven round, whose phases carry the same ``round/<phase>``
-names), fills all four slots,
+names; ``--paged``: the paged KV arena, pages of 64 tokens, where the
+kv_fused round runs on its persistent contiguous view and the kv round
+gathers and scatters each layer's view around every model call inside
+the same phases), fills all four slots,
 warms up, then
 steps ``--rounds`` rounds
 with no admission inside the window under ``torch.profiler`` (CPU and
@@ -141,6 +144,8 @@ def main(argv=None):
     ap.add_argument("--cache-mode", default="kv_fused",
                     choices=("kv_fused", "kv"),
                     help="the fused round or the host-driven one")
+    ap.add_argument("--paged", action="store_true",
+                    help="the paged KV arena (SpecDecConfig.paged)")
     ap.add_argument("--trace", default=os.path.join(
         "build", "profile_round_trace.json"))
     args = ap.parse_args(argv)
@@ -155,7 +160,7 @@ def main(argv=None):
     cfg = SpecDecConfig(num_drafts=k, draft_len=4, strategy=args.strategy,
                         top_k=50, verifier_backend="kernel",
                         decode_kernel=True, prefill_kernel=True,
-                        quant=args.quant)
+                        quant=args.quant, paged=args.paged)
     engine = CachedSpecDecEngine(target, drafter, cfg, pool_slots=4,
                                  device=dev)
     server = SpecDecServer(engine, max_batch=4, cache_mode=args.cache_mode)
@@ -187,10 +192,10 @@ def main(argv=None):
     res.update(wall_ms_per_round=wall, wall_ms_rounds=walls,
                device_idle_share=1.0 - res["device_busy_ms_per_round"] / wall,
                quant=args.quant, strategy=args.strategy, arch=args.arch,
-               cache_mode=args.cache_mode,
+               cache_mode=args.cache_mode, paged=args.paged,
                device=torch.cuda.get_device_name(0))
     print(f"arch={args.arch} strategy={args.strategy} quant={args.quant} "
-          f"cache_mode={args.cache_mode} "
+          f"cache_mode={args.cache_mode} paged={args.paged} "
           f"rounds={args.rounds} wall={wall:.2f} ms/round "
           f"device_busy={res['device_busy_ms_per_round']:.2f} ms/round "
           f"idle_share={res['device_idle_share']:.3f} "

@@ -12,6 +12,8 @@ required for the SSM family, batched over live requests).
       --cache-mode reprefill --draft-layers 4 --requests 4 --max-new 32
   python -m repro_torch.launch.serve --cache-mode kv \
       --admission per_request
+  python -m repro_torch.launch.serve --paged --policy v2 \
+      --preempt-tokens 8 [--cache-mode kv]
 
 Both models are initialised from ``--seed`` with the port's own
 generator (no checkpoint is read).  The drafter has the target's widths
@@ -23,6 +25,9 @@ attention kernels are on (per-request admission prefills through the
 dense ``prefill``, as JAX's does), under reprefill an SSM model's
 forwards run the ``ssd_chunk`` kernel.  ``--admission`` picks the
 cached engine's prefill path (bucketed waves, or per request).
+``--paged`` serves from the paged KV arena (pages of 64 tokens, grown on
+demand) and ``--policy v2`` schedules with priorities, eviction and
+``--preempt-tokens`` rotation (both kv and kv_fused only).
 ``--backend legacy`` (the per-token host loop) runs under reprefill and
 kv.  Runs on the card unless ``--device cpu``.  Prints the JAX
 launcher's summary fields.
@@ -48,7 +53,8 @@ from repro_torch.specdec import (
     SpecDecEngine,
     SpecDecServer,
 )
-from repro_torch.specdec.scheduler import ADMISSION_MODES, CACHE_MODES
+from repro_torch.specdec.scheduler import (ADMISSION_MODES, CACHE_MODES,
+                                          POLICIES)
 
 
 def build_pair(arch: str, draft_layers: int, seed: int, device,
@@ -102,7 +108,8 @@ def summary(args, server, done, engine) -> str:
             f"prefill-dispatches={dispatches} "
             f"rounds={m.rounds} target-forwards={m.target_forwards} "
             f"verify-syncs={m.host_syncs} draft-syncs={m.draft_syncs} "
-            f"evictions=0 preemptions=0 over {len(done)} requests")
+            f"evictions={m.evictions} preemptions={m.preemptions} "
+            f"over {len(done)} requests")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -118,6 +125,16 @@ def parser() -> argparse.ArgumentParser:
                     help="cached-engine prefill: bucketed waves of "
                          "stacked slot prefills, or per_request dense "
                          "prefills (kv and kv_fused)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV arena: fixed-size time pages behind a "
+                         "page table; preemption parks pages instead of "
+                         "discarding KV (kv/kv_fused only)")
+    ap.add_argument("--policy", default="fifo", choices=POLICIES,
+                    help="v2: priority-ordered admission with eviction, "
+                         "re-admission and preemption (kv/kv_fused only)")
+    ap.add_argument("--preempt-tokens", type=int, default=None,
+                    help="rotation quantum: suspend a request after this "
+                         "many new tokens while others wait (policy v2)")
     ap.add_argument("--draft-layers", type=int, default=4)
     ap.add_argument("--target-layers", type=int, default=None,
                     help="cut the target's depth (default: published)")
@@ -150,14 +167,17 @@ def serve(args):
                         strategy=args.strategy, top_k=50,
                         max_new_tokens=args.max_new,
                         verifier_backend=args.backend,
-                        decode_kernel=cached, prefill_kernel=cached)
+                        decode_kernel=cached, prefill_kernel=cached,
+                        paged=args.paged)
     if cached:
         engine = CachedSpecDecEngine(target, drafter, cfg,
                                      pool_slots=args.max_batch,
                                      device=device)
         server = SpecDecServer(engine, max_batch=args.max_batch,
                                cache_mode=args.cache_mode,
-                               admission=args.admission)
+                               admission=args.admission,
+                               policy=args.policy,
+                               preempt_tokens=args.preempt_tokens)
     else:
         engine = SpecDecEngine(target, drafter, cfg, device=device)
         server = SpecDecServer(engine, max_batch=args.max_batch,
@@ -175,6 +195,9 @@ def main(argv=None):
     if args.cache_mode == "kv_fused" and args.backend == "legacy":
         ap.error("--cache-mode kv_fused needs a device verifier backend "
                  "(torch or kernel)")
+    if (args.paged or args.policy == "v2") and \
+            args.cache_mode not in ("kv", "kv_fused"):
+        ap.error("--paged / --policy v2 need --cache-mode kv or kv_fused")
     server, done, engine = serve(args)
     print(summary(args, server, done, engine))
 

@@ -1,9 +1,14 @@
 """Model code of the port: the dense family (``transformer.py``), Mamba-2
 (``mamba2.py``) and the family registry (``registry.py``), whose
 dispatching ``init_params``/``forward``/``init_cache``/``prefill``/
-``decode_step`` are this package's."""
+``decode_step`` are this package's, the slot arenas (``cache_pool.py``,
+contiguous and paged) and the paged storage (``paged.py``)."""
 
-from repro_torch.models.cache_pool import CachePool
+from repro_torch.models.cache_pool import (
+    CachePool,
+    PagedCachePool,
+    PagePoolExhausted,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.registry import (
@@ -15,20 +20,28 @@ from repro_torch.models.registry import (
 )
 from repro_torch.models.transformer import (
     decode_step_slots,
+    decode_step_slots_paged,
     prefill_slots,
+    prefill_slots_paged,
     verify_step_slots,
+    verify_step_slots_paged,
 )
 
 __all__ = [
     "CachePool",
     "ModelConfig",
+    "PagePoolExhausted",
+    "PagedCachePool",
     "decode_step",
     "decode_step_slots",
+    "decode_step_slots_paged",
     "forward",
     "init_cache",
     "init_params",
     "params_from_jax",
     "prefill",
     "prefill_slots",
+    "prefill_slots_paged",
     "verify_step_slots",
+    "verify_step_slots_paged",
 ]

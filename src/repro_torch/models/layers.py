@@ -165,6 +165,30 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, h, s, d).to(out_dtype)
 
 
+def attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, table: torch.Tensor, *,
+                    buf_len: int, causal: bool = True, q_offset=0,
+                    kv_len=None, k_scale_pages=None, v_scale_pages=None,
+                    use_kernel: bool = False) -> torch.Tensor:
+    """``attention`` over a paged KV pool (``layers.py:215``,
+    ``gqa_attention_paged``): k/v pools (P, Hkv, page, D), the int8
+    scales' pools (P, Hkv, page, 1), ``table`` (B, n_lp) (0 = unmapped).
+    The table is resolved into a contiguous (B, Hkv, buf_len, D) view
+    (``kernels/paged.py``) and ``attention`` runs on it unchanged, the
+    kernel routes included: unmapped pages read zeros beyond ``kv_len``,
+    masked like any dead position."""
+    from repro_torch.kernels.paged import gather_kv_pages
+    k = gather_kv_pages(k_pages, table, buf_len)
+    v = gather_kv_pages(v_pages, table, buf_len)
+    ks = vs = None
+    if k_scale_pages is not None:
+        ks = gather_kv_pages(k_scale_pages, table, buf_len)
+        vs = gather_kv_pages(v_scale_pages, table, buf_len)
+    return attention(q, k, v, causal=causal, q_offset=q_offset,
+                     kv_len=kv_len, k_scale=ks, v_scale=vs,
+                     use_kernel=use_kernel)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, q_offset: int = 0,
                       kv_block: int = 1024) -> torch.Tensor:

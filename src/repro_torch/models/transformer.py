@@ -5,7 +5,9 @@ the dense serving calls of the registry (``init_cache``, ``prefill``,
 ``decode_step``, ``verify_step``: one cache position shared by every
 row, the host-driven kv round's per-request admission) and the slot
 calls of the cache arenas (``prefill_slots``, ``decode_step_slots``,
-``verify_step_slots``).
+``verify_step_slots``) and their paged twins (``*_slots_paged``: the
+same layer code on each layer's view gathered through a page table,
+``models/paged.py``).
 
 A Python loop over layers replaces ``scan_blocks``.  Parameters are a
 dict ``{"embed", "layers": [per-layer dict, ...], "final_norm",
@@ -36,6 +38,7 @@ caches, as JAX's do (``CachePool.write_prefill`` quantizes on install).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -111,13 +114,6 @@ def _maybe_quantize_kv(cache: dict, k: torch.Tensor, v: torch.Tensor):
     kq, ks = quantize_kv(k)
     vq, vs = quantize_kv(v)
     return kq, vq, ks, vs
-
-
-def _layer_scales(cache: dict, li: int):
-    """Layer ``li``'s scale leaves of an int8 arena, or (None, None)."""
-    if "k_s" not in cache:
-        return None, None
-    return cache["k_s"][li], cache["v_s"][li]
 
 
 def _masked_write_index(pos: np.ndarray, write: np.ndarray, m: int, t: int,
@@ -268,6 +264,95 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             {"k": cache["k"], "v": cache["v"], "pos": pos + m})
 
 
+
+
+# ---------------------------------------------------------------------------
+# Slot calls of the cache arenas, contiguous and paged
+# ---------------------------------------------------------------------------
+#
+# Each slot call's per-layer body is one function of (layer params, x,
+# the layer's cache leaves) that writes the leaves in place, shared by
+# the contiguous call (the leaves are views of the arena's layer) and
+# the paged one (``models/paged.py::paged_block``: the layer's view is
+# gathered through the page table, the same body runs on it, and the
+# leaves are scattered back), as JAX's ``_block_*_slots`` are shared
+# through ``paged_block`` (``transformer.py:481-551``).
+
+
+def _run_layers(params: dict, block, x: torch.Tensor, cache: dict,
+                paged=None) -> torch.Tensor:
+    """``block(params_l, x, cache_l) -> x`` over the layers.  ``paged``
+    = (table, buf_len) runs it on paged storage ``cache`` = {leaf:
+    (layers, P + 2, H, page, d)}."""
+    if paged is not None:
+        from repro_torch.models.paged import paged_block
+        block = paged_block(block, *paged)
+    for li, p in enumerate(params["layers"]):
+        x = block(p, x, {kk: leaf[li] for kk, leaf in cache.items()
+                         if kk != "pos"})
+    return x
+
+
+def _attend(p, cfg, x, q, cache_l, **kw):
+    """The block's attention over its (written) layer cache, then the
+    output projection and the MLP residual."""
+    out = L.attention(q, cache_l["k"], cache_l["v"],
+                      k_scale=cache_l.get("k_s"), v_scale=cache_l.get("v_s"),
+                      **kw)
+    x = x + L.project_out(p["attn"], out)
+    return _mlp_residual(p, cfg, x)
+
+
+def _prefill_block(p, x, cache_l, *, cfg, positions, pos_d, m, plan,
+                   use_kernel):
+    rows, cols, times = plan
+    q, k, v = _qkv(p, cfg, x, positions)
+    k, v, ks, vs = _maybe_quantize_kv(cache_l, k, v)
+    for kk, new in (("k", k), ("v", v), ("k_s", ks), ("v_s", vs)):
+        if new is not None:
+            cache_l[kk].transpose(1, 2).index_put_(
+                (rows, times), new.transpose(1, 2)[rows, cols])
+    return _attend(p, cfg, x, q, cache_l, causal=True, q_offset=pos_d,
+                   kv_len=pos_d + m, use_kernel=use_kernel)
+
+
+def _decode_block(p, x, cache_l, *, cfg, pos, kv_len, t, use_kernel):
+    q, k, v = _qkv(p, cfg, x, pos[:, None, None])
+    k, v, ks, vs = _maybe_quantize_kv(cache_l, k, v)
+    _rowwise_cache_write(cache_l["k"], cache_l["v"], k, v, pos % t)
+    if ks is not None:
+        _rowwise_cache_write(cache_l["k_s"], cache_l["v_s"], ks, vs, pos % t)
+    return _attend(p, cfg, x, q, cache_l, causal=False, kv_len=kv_len,
+                   use_kernel=use_kernel)
+
+
+def _verify_block(p, x, cache_l, *, cfg, pos, m):
+    positions = pos[:, None, None] + torch.arange(m, device=pos.device)
+    q, k, v = _qkv(p, cfg, x, positions)
+    k, v, ks, vs = _maybe_quantize_kv(cache_l, k, v)
+    _rowwise_cache_write(cache_l["k"], cache_l["v"], k, v, pos)
+    if ks is not None:
+        _rowwise_cache_write(cache_l["k_s"], cache_l["v_s"], ks, vs, pos)
+    return _attend(p, cfg, x, q, cache_l, causal=True, q_offset=pos,
+                   kv_len=pos + m)
+
+
+def _prefill_slots(params, cfg, tokens, cache, pos, write, t, use_kernel,
+                   paged=None) -> None:
+    b, m = tokens.shape
+    pos = np.asarray(pos, np.int64)
+    write = (np.ones(b, bool) if write is None
+             else np.asarray(write, bool))
+    dev = tokens.device
+    pos_d = to_device(pos, dev)
+    block = functools.partial(
+        _prefill_block, cfg=cfg,
+        positions=pos_d[:, None, None] + torch.arange(m, device=dev),
+        pos_d=pos_d, m=m, plan=_masked_write_index(pos, write, m, t, dev),
+        use_kernel=use_kernel)
+    _run_layers(params, block, _embed(params, tokens), cache, paged)
+
+
 def prefill_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   cache: dict, pos: np.ndarray,
                   write: Optional[np.ndarray] = None, *,
@@ -278,31 +363,36 @@ def prefill_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     admission plan (numpy), so the masked scatter needs no device sync.
     No logits are computed.  ``use_kernel`` routes the chunk attention
     through ``kernels/flash_attention``."""
-    b, m = tokens.shape
-    pos = np.asarray(pos, np.int64)
-    write = (np.ones(b, bool) if write is None
-             else np.asarray(write, bool))
-    dev = tokens.device
-    t = cache["k"].shape[3]
-    rows, cols, times = _masked_write_index(pos, write, m, t, dev)
-    pos_d = to_device(pos, dev)
-    positions = pos_d[:, None, None] + torch.arange(m, device=dev)
-    x = _embed(params, tokens)
-    for li, p in enumerate(params["layers"]):
-        q, k, v = _qkv(p, cfg, x, positions)
-        k, v, ks, vs = _maybe_quantize_kv(cache, k, v)
-        ck, cv = cache["k"][li], cache["v"][li]
-        cks, cvs = _layer_scales(cache, li)
-        for leaf, new in ((ck, k), (cv, v), (cks, ks), (cvs, vs)):
-            if leaf is not None:
-                leaf.transpose(1, 2).index_put_(
-                    (rows, times), new.transpose(1, 2)[rows, cols])
-        out = L.attention(q, ck, cv, causal=True, q_offset=pos_d,
-                          kv_len=pos_d + m, k_scale=cks, v_scale=cvs,
-                          use_kernel=use_kernel)
-        x = x + L.project_out(p["attn"], out)
-        x = _mlp_residual(p, cfg, x)
+    _prefill_slots(params, cfg, tokens, cache, pos, write,
+                   cache["k"].shape[3], use_kernel)
     return cache
+
+
+def prefill_slots_paged(params: dict, cfg: ModelConfig,
+                        tokens: torch.Tensor, pages: dict,
+                        table: torch.Tensor, pos: np.ndarray,
+                        write: Optional[np.ndarray] = None, *, buf_len: int,
+                        use_kernel: bool = False) -> dict:
+    """``prefill_slots`` against paged storage (``transformer.py:495``):
+    pages {leaf: (layers, P + 2, H, page, d)} written in place through
+    ``table`` (rows, n_lp) at view length ``buf_len``.  Written rows'
+    pages must be reserved through ``pos + m``; masked rows' and
+    unmapped positions' writes are dropped."""
+    _prefill_slots(params, cfg, tokens, pages, pos, write, buf_len,
+                   use_kernel, paged=(table, buf_len))
+    return pages
+
+
+def _decode_step_slots(params, cfg, tokens, cache, pos, t, use_kernel,
+                       return_logits, paged=None):
+    pos = pos.to(torch.int64)
+    block = functools.partial(_decode_block, cfg=cfg, pos=pos,
+                              kv_len=torch.clamp(pos + 1, max=t), t=t,
+                              use_kernel=use_kernel)
+    x = _run_layers(params, block, _embed(params, tokens), cache, paged)
+    if not return_logits:
+        return None
+    return _logits(params, cfg, x)[:, 0]
 
 
 def decode_step_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -315,26 +405,28 @@ def decode_step_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     ``pos[b] % T`` and attends the first ``min(pos[b] + 1, T)`` keys.
     ``use_kernel`` streams the attention through
     ``kernels/decode_attention``."""
-    t = cache["k"].shape[3]
-    pos = pos.to(torch.int64)
-    positions = pos[:, None, None]                     # (B, 1, 1)
-    kv_len = torch.clamp(pos + 1, max=t)
-    x = _embed(params, tokens)
-    for li, p in enumerate(params["layers"]):
-        q, k, v = _qkv(p, cfg, x, positions)
-        k, v, ks, vs = _maybe_quantize_kv(cache, k, v)
-        ck, cv = cache["k"][li], cache["v"][li]
-        cks, cvs = _layer_scales(cache, li)
-        _rowwise_cache_write(ck, cv, k, v, pos % t)
-        if ks is not None:
-            _rowwise_cache_write(cks, cvs, ks, vs, pos % t)
-        out = L.attention(q, ck, cv, causal=False, kv_len=kv_len,
-                          k_scale=cks, v_scale=cvs, use_kernel=use_kernel)
-        x = x + L.project_out(p["attn"], out)
-        x = _mlp_residual(p, cfg, x)
-    if not return_logits:
-        return None
-    return _logits(params, cfg, x)[:, 0]
+    return _decode_step_slots(params, cfg, tokens, cache, pos,
+                              cache["k"].shape[3], use_kernel, return_logits)
+
+
+def decode_step_slots_paged(params: dict, cfg: ModelConfig,
+                            tokens: torch.Tensor, pages: dict,
+                            table: torch.Tensor, pos: torch.Tensor, *,
+                            buf_len: int, use_kernel: bool = False,
+                            return_logits: bool = True):
+    """``decode_step_slots`` against paged storage
+    (``transformer.py:517``), the pages written in place; the kernel
+    route runs on each layer's gathered view."""
+    return _decode_step_slots(params, cfg, tokens, pages, pos, buf_len,
+                              use_kernel, return_logits,
+                              paged=(table, buf_len))
+
+
+def _verify_step_slots(params, cfg, tokens, cache, pos, paged=None):
+    block = functools.partial(_verify_block, cfg=cfg,
+                              pos=pos.to(torch.int64), m=tokens.shape[1])
+    x = _run_layers(params, block, _embed(params, tokens), cache, paged)
+    return _logits(params, cfg, x)
 
 
 def verify_step_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -345,20 +437,14 @@ def verify_step_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     The attention is the dense path, as in the JAX package (which
     passes no ``use_kernel`` here).  A quantized parameter tree
     (``serving.quant.quantize_params``) runs its matmuls W8A8."""
-    m = tokens.shape[1]
-    pos = pos.to(torch.int64)
-    positions = pos[:, None, None] + torch.arange(m, device=pos.device)
-    x = _embed(params, tokens)
-    for li, p in enumerate(params["layers"]):
-        q, k, v = _qkv(p, cfg, x, positions)
-        k, v, ks, vs = _maybe_quantize_kv(cache, k, v)
-        ck, cv = cache["k"][li], cache["v"][li]
-        cks, cvs = _layer_scales(cache, li)
-        _rowwise_cache_write(ck, cv, k, v, pos)
-        if ks is not None:
-            _rowwise_cache_write(cks, cvs, ks, vs, pos)
-        out = L.attention(q, ck, cv, causal=True, q_offset=pos,
-                          kv_len=pos + m, k_scale=cks, v_scale=cvs)
-        x = x + L.project_out(p["attn"], out)
-        x = _mlp_residual(p, cfg, x)
-    return _logits(params, cfg, x)
+    return _verify_step_slots(params, cfg, tokens, cache, pos)
+
+
+def verify_step_slots_paged(params: dict, cfg: ModelConfig,
+                            tokens: torch.Tensor, pages: dict,
+                            table: torch.Tensor, pos: torch.Tensor, *,
+                            buf_len: int) -> torch.Tensor:
+    """``verify_step_slots`` against paged storage
+    (``transformer.py:535``), the pages written in place."""
+    return _verify_step_slots(params, cfg, tokens, pages, pos,
+                              paged=(table, buf_len))

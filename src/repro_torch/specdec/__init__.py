@@ -1,7 +1,8 @@
 """Speculative-decoding serving of the port: the six step verifiers,
 fused block verification and the legacy host loop, the KV-cached
-engine's fused rounds, the reference engine and the FIFO scheduler
-(``cache_mode="kv_fused"`` and ``"reprefill"``)."""
+engine's fused and host-driven rounds over contiguous or paged arenas,
+the reference engine and the scheduler (FIFO and v2 policies;
+``cache_mode`` "kv_fused", "kv" and "reprefill")."""
 
 from repro_torch.specdec.block_verify import (
     BACKENDS,

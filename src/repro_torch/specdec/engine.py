@@ -67,6 +67,14 @@ class SpecDecConfig:
     # fused round's verify chunk.  Logits move within quantization
     # tolerance, so its gate is the acceptance rate, not the tokens.
     quant: bool = False
+    # Paged KV arena (the cached engine only, ``engine.py:83-91``): the
+    # pool stores KV in fixed-size pages behind a page table
+    # (``models/paged.py``), so buffer growth widens the table, freed
+    # requests return their pages, and the scheduler's v2 policy can
+    # hold more requests than a fixed page budget covers at once.  The
+    # contiguous pool is its token-stream oracle.
+    paged: bool = False
+    page_size: int = 64
 
     def __post_init__(self):
         if self.strategy not in STRATEGIES:

@@ -47,7 +47,21 @@ reads) and both rounds' verify chunk runs the target's W8A8 tree
 (``serving.quant.quantize_params``, quantized once here); admission
 prefill keeps the float32 target tree and the drafter stays float32.
 
-Paged arenas and tensor parallelism are later slices (ROADMAP).
+Paged arenas (``SpecDecConfig.paged``, DESIGN.md §12): the pool is a
+``PagedCachePool`` (``pool_pages``: a fixed page budget, or None to
+grow on demand).  The fused round runs the unchanged contiguous program
+on a persistent contiguous VIEW of the pages (``_fused_view``): gathered
+once, mutated in place by every later round, written back to the pages
+per slot only at events (a suspend, a switch to the host-driven round,
+buffer growth), so the steady-state round pays no paging cost.  The
+host-driven round and admission without a view run the ``*_slots_paged``
+calls, which gather each layer's view through the table and scatter it
+back around the layer.  The v2 scheduler's capacity oracle
+(``page_state``, ``request_pages``, ``held_pages``) and its eviction
+calls (``evict``, ``suspend``/``resume``: a request's pages detach into
+a handle and re-attach to any free slot, no KV copy) live here.
+
+Tensor parallelism is a later slice (ROADMAP).
 """
 
 from __future__ import annotations
@@ -63,12 +77,17 @@ from repro_torch import random as R
 from repro_torch.device import SyncCounter, resolve_device, to_device
 from repro_torch.models import (
     CachePool,
+    PagedCachePool,
     decode_step_slots,
+    decode_step_slots_paged,
     init_cache,
     prefill,
     prefill_slots,
+    prefill_slots_paged,
     verify_step_slots,
+    verify_step_slots_paged,
 )
+from repro_torch.models import paged as paged_kv
 from repro_torch.specdec import verify as V
 from repro_torch.specdec.block_verify import (
     RS_STRATEGIES,
@@ -290,7 +309,7 @@ class CachedSpecDecEngine:
 
     def __init__(self, target: tuple, drafter: tuple, cfg: SpecDecConfig,
                  pool_slots: int = 1, batched_admission: bool = True,
-                 device=None):
+                 pool_pages: Optional[int] = None, device=None):
         self.device = resolve_device(device)
         self.t_params, self.t_cfg = target
         self.d_params, self.d_cfg = drafter
@@ -312,6 +331,14 @@ class CachedSpecDecEngine:
             from repro_torch.serving.quant import quantize_params
             self._t_verify_params = quantize_params(self.t_params)
         self.pool_slots = pool_slots
+        # A paged pool's page budget: None grows on demand, an int is a
+        # hard budget the v2 scheduler accounts against (``page_state``).
+        self.pool_pages = pool_pages
+        # The paged kv_fused round's persistent contiguous view of the
+        # pages ({model: {leaf: (layers, rows, H, buf_len, d)}}), and the
+        # slots whose view rows are newer than their pages.
+        self._fused_view: Optional[dict] = None
+        self._view_dirty: set = set()
         # The default admission path: bucketed waves, or per-request
         # ``admit`` (the scheduler passes its own per call).
         self.batched_admission = batched_admission
@@ -326,23 +353,207 @@ class CachedSpecDecEngine:
         # fused round and its admissions are queued (0) or in the kv
         # round's sweeps (L); on the CPU the kv round's fetches.
         self.num_draft_syncs = 0
+        # Paged fused view events: whole-view gathers, and slots written
+        # back to the pages (``_view_sync``) or refreshed from them.
+        self.num_view_gathers = 0
+        self.num_view_syncs = 0
+        self.num_view_refreshes = 0
 
     # -- pool / session lifecycle ------------------------------------------
     def _ensure_pool(self, buf_len: int) -> CachePool:
         if self.pool is None:
-            self.pool = CachePool({"target": self.t_cfg,
-                                   "drafter": self.d_cfg},
-                                  num_slots=self.pool_slots,
-                                  rows_per_slot=self.cfg.num_drafts,
-                                  buf_len=buf_len, device=self.device,
-                                  quant=self.cfg.quant)
+            cfgs = {"target": self.t_cfg, "drafter": self.d_cfg}
+            kw = dict(num_slots=self.pool_slots,
+                      rows_per_slot=self.cfg.num_drafts, buf_len=buf_len,
+                      device=self.device, quant=self.cfg.quant)
+            if self.cfg.paged:
+                self.pool = PagedCachePool(cfgs, page_size=self.cfg.page_size,
+                                           num_pages=self.pool_pages, **kw)
+            else:
+                self.pool = CachePool(cfgs, **kw)
         else:
+            if buf_len > self.pool.buf_len:
+                # The paged view has the old length: write it back first.
+                self._view_commit()
             self.pool.ensure_buf(buf_len)
         return self.pool
 
+    @property
+    def _paged(self) -> bool:
+        return isinstance(self.pool, PagedCachePool)
+
     def release(self, uid) -> None:
         sess = self._sessions.pop(uid)
+        self._view_dirty.discard(sess.slot)
         self.pool.release(sess.slot)
+
+    # -- the model calls on the pool's storage -------------------------------
+    # ``engine_cached.py:337-366``'s paged jits as plain calls: the paged
+    # pool's pages and device table, or the contiguous arenas; all write
+    # in place.
+
+    def _d_step(self, tokens: torch.Tensor, pos: torch.Tensor,
+                return_logits: bool = True):
+        pool, uk = self.pool, self.cfg.decode_kernel
+        if self._paged:
+            return decode_step_slots_paged(
+                self.d_params, self.d_cfg, tokens, pool.pages["drafter"],
+                pool.pt_device(), pos, buf_len=pool.buf_len, use_kernel=uk,
+                return_logits=return_logits)
+        return decode_step_slots(self.d_params, self.d_cfg, tokens,
+                                 pool.caches["drafter"], pos, use_kernel=uk,
+                                 return_logits=return_logits)
+
+    def _t_verify(self, tokens: torch.Tensor, pos: torch.Tensor):
+        pool = self.pool
+        if self._paged:
+            return verify_step_slots_paged(
+                self._t_verify_params, self.t_cfg, tokens,
+                pool.pages["target"], pool.pt_device(), pos,
+                buf_len=pool.buf_len)
+        return verify_step_slots(self._t_verify_params, self.t_cfg, tokens,
+                                 pool.caches["target"], pos)
+
+    def _slot_prefill(self, name: str, tokens: torch.Tensor, pos, write,
+                      use_view: bool) -> None:
+        """One stacked admission prefill of model ``name``: into the
+        paged view when it is live, through the page table otherwise, or
+        into the contiguous arena."""
+        pool = self.pool
+        params, mcfg = ((self.t_params, self.t_cfg) if name == "target"
+                        else (self.d_params, self.d_cfg))
+        uk = self.cfg.prefill_kernel
+        if use_view:
+            prefill_slots(params, mcfg, tokens, self._fused_view[name], pos,
+                          write, use_kernel=uk)
+        elif self._paged:
+            prefill_slots_paged(params, mcfg, tokens, pool.pages[name],
+                                pool.pt_device(), pos, write,
+                                buf_len=pool.buf_len, use_kernel=uk)
+        else:
+            prefill_slots(params, mcfg, tokens, pool.caches[name], pos, write,
+                          use_kernel=uk)
+
+    # -- the paged fused view (``engine_cached.py:368-423``) -----------------
+    # The fused round never pays a per-round gather or scatter: the first
+    # paged fused round gathers ONE contiguous working set, and every
+    # later round runs the contiguous program on it.  The pages must be
+    # current only when something other than the fused round reads them
+    # (a suspend detaching a slot's chains, the host-driven round, buffer
+    # growth), so they are written per slot, at those events.
+
+    def _view_sync(self, slots) -> None:
+        """Write the listed dirty slots' view rows into the pages through
+        their table rows (other slots' pages stay untouched)."""
+        if self._fused_view is None:
+            return
+        pool = self.pool
+        for slot in sorted(set(slots) & self._view_dirty):
+            rows = slice(slot * pool.rows_per_slot,
+                         (slot + 1) * pool.rows_per_slot)
+            for name, view in self._fused_view.items():
+                paged_kv.scatter_arena(
+                    pool.pages[name], pool.slot_table(slot),
+                    {kk: leaf[:, rows] for kk, leaf in view.items()})
+            self._view_dirty.discard(slot)
+            self.num_view_syncs += 1
+
+    def _view_refresh(self, slots) -> None:
+        """Gather the listed slots' rows from the pages into the view
+        (after a prefill or a resumed handle wrote pages behind it)."""
+        if self._fused_view is None:
+            return
+        pool = self.pool
+        for slot in sorted(set(slots)):
+            rows = slice(slot * pool.rows_per_slot,
+                         (slot + 1) * pool.rows_per_slot)
+            for name, view in self._fused_view.items():
+                sub = paged_kv.gather_arena(pool.pages[name],
+                                            pool.slot_table(slot),
+                                            pool.buf_len)
+                for kk, leaf in view.items():
+                    leaf[:, rows].copy_(sub[kk])
+            self._view_dirty.discard(slot)
+            self.num_view_refreshes += 1
+
+    def _view_commit(self) -> None:
+        """Write every dirty slot back to the pages and drop the view."""
+        if self._fused_view is not None:
+            self._view_sync(set(self._view_dirty))
+            self._fused_view = None
+        self._view_dirty.clear()
+
+    # -- the v2 scheduler's capacity oracle (``engine_cached.py:564-614``) --
+    def has_session(self, uid) -> bool:
+        return uid in self._sessions
+
+    def evict(self, uid) -> None:
+        """Drop a live session mid-generation and return its slot (and
+        pages).  The caller re-admits it later with its whole prompt +
+        output prefix: per-request randomness depends only on (uid,
+        blocks), so the stream continues as if uninterrupted."""
+        self.release(uid)
+
+    def can_suspend(self) -> bool:
+        """Whether preemption can keep the KV resident (paged pools)."""
+        return bool(self.cfg.paged)
+
+    def suspend(self, uid) -> dict:
+        """Preempt without forfeiting the KV: pop the session and detach
+        its chains into a handle (the slot frees; ``resume`` re-binds the
+        same pages to any free slot).  Under the fused view the slot's
+        pages may be stale, so its view rows are written back first."""
+        sess = self._sessions.pop(uid)
+        self._view_sync({sess.slot})
+        handle = self.pool.detach(sess.slot)
+        handle["pending"] = sess.pending
+        return handle
+
+    def resume(self, uid, handle: dict) -> int:
+        """Re-admit a suspended request from its handle."""
+        assert uid not in self._sessions
+        slot = self.pool.alloc()
+        self.pool.attach(slot, handle)
+        self._view_refresh({slot})
+        self._sessions[uid] = _Session(uid=uid, slot=slot,
+                                       pending=int(handle["pending"]))
+        return slot
+
+    def handle_pages(self, handle: dict) -> int:
+        """Physical pages a suspend handle holds."""
+        return int(handle["chain_len"]) * self.pool.rows_per_slot
+
+    def drop_handle(self, handle: dict) -> None:
+        """Forfeit a handle's pages (its request re-admits through a
+        re-prefill, like an evicted one)."""
+        self.pool.release_handle(handle)
+
+    def page_state(self) -> Optional[dict]:
+        """{free, total, fixed} page accounting, None when not paged;
+        before the pool exists the whole budget is free."""
+        if not self.cfg.paged:
+            return None
+        if self.pool is not None:
+            return {"free": self.pool.free_pages,
+                    "total": self.pool.num_pages,
+                    "fixed": self.pool.fixed_budget}
+        if self.pool_pages is None:
+            return {"free": None, "total": None, "fixed": False}
+        return {"free": self.pool_pages, "total": self.pool_pages,
+                "fixed": True}
+
+    def request_pages(self, prefix_len: int) -> int:
+        """Pages a request at prefix length ``prefix_len`` holds after
+        its next round: every round reserves ``pos + L + 1`` positions
+        across its K lanes."""
+        per_row = -(-(prefix_len + self.cfg.draft_len + 1)
+                    // self.cfg.page_size)
+        return per_row * self.cfg.num_drafts
+
+    def held_pages(self, uid) -> int:
+        if self.pool is None or uid not in self._sessions:
+            return 0
+        return self.pool.held_pages(self._sessions[uid].slot)
 
     def admit(self, uid, prompt: np.ndarray, buf_len: int) -> int:
         """Per-request admission (``engine_cached.py:757``): a slot, and
@@ -365,6 +576,7 @@ class CachedSpecDecEngine:
                 _, cache = prefill(params, mcfg, {"tokens": toks}, cache)
                 pool.write_prefill(name, slot, cache, pos=len(prompt) - 1)
                 self.num_prefill_dispatches += 1
+        self._view_refresh({slot})
         self._sessions[uid] = _Session(uid=uid, slot=slot,
                                        pending=int(prompt[-1]))
         return slot
@@ -374,7 +586,10 @@ class CachedSpecDecEngine:
         ``(uid, prompt)`` gets a slot; prompts minus their last token
         (which becomes the pending token) prefill straight into the
         arenas, one stacked ``prefill_slots`` per (chunk round, bucket)
-        per model, rows outside the group write-masked."""
+        per model, rows outside the group write-masked.  A paged pool
+        reserves each prompt's chains first; its prefills go into the
+        fused view when one is live (the admitted slots become dirty),
+        else through the page table."""
         pairs = [(uid, np.asarray(p, np.int32)) for uid, p in pairs]
         if not pairs:
             return
@@ -388,18 +603,21 @@ class CachedSpecDecEngine:
             slot = pool.alloc()
             self._sessions[uid] = _Session(uid=uid, slot=slot,
                                            pending=int(prompt[-1]))
+            if self._paged:
+                pool.reserve(slot, len(prompt) - 1)
             plans.append((slot, prompt[:-1],
                           _bucket_plan(len(prompt) - 1, max_bucket)))
+        use_view = self._fused_view is not None
         with record_function("admission/prefill"):
-            self._prefill_plans(plans, rows_n)
+            self._prefill_plans(plans, rows_n, use_view)
         for slot, toks, _ in plans:
             pool.set_pos(slot, len(toks))
+        if use_view:
+            self._view_dirty.update(slot for slot, _, _ in plans)
 
-    def _prefill_plans(self, plans, rows_n: int) -> None:
+    def _prefill_plans(self, plans, rows_n: int, use_view: bool) -> None:
         """One stacked prefill_slots per (chunk round, bucket) per model."""
         pool = self.pool
-        models = {"target": (self.t_params, self.t_cfg),
-                  "drafter": (self.d_params, self.d_cfg)}
         for c in range(max(len(p[2]) for p in plans)):
             groups = {}
             for slot, toks, chunks in plans:
@@ -416,10 +634,8 @@ class CachedSpecDecEngine:
                     pos[rr] = off
                     write[rr] = True
                 tok_d = to_device(tok, self.device)
-                for name, (params, mcfg) in models.items():
-                    prefill_slots(params, mcfg, tok_d, pool.caches[name],
-                                  pos, write,
-                                  use_kernel=self.cfg.prefill_kernel)
+                for name in ("target", "drafter"):
+                    self._slot_prefill(name, tok_d, pos, write, use_view)
                     self.num_prefill_dispatches += 1
 
     # -- the host-driven round ----------------------------------------------
@@ -453,6 +669,13 @@ class CachedSpecDecEngine:
         assert hi <= pool.buf_len, (
             f"speculative block would write through position {hi - 1} but "
             f"the cache arena holds {pool.buf_len}; pass a larger buf_len")
+        if self._paged:
+            # The paged calls read and write the pages: write back a
+            # fused view first, then extend every advancing slot's chains
+            # through the round's writes ([pos, pos + L], the catch-up).
+            self._view_commit()
+            for sess in sessions:
+                pool.reserve(sess.slot, int(base_pos[sess.slot]) + L + 1)
 
         cur = np.zeros((S * K, 1), np.int64)
         for sess in sessions:
@@ -462,10 +685,7 @@ class CachedSpecDecEngine:
         with SyncCounter(dev) as drafting, \
                 record_function("round/draft_sweep"):
             for j in range(L):
-                logits = decode_step_slots(
-                    self.d_params, self.d_cfg, to_device(cur, dev),
-                    pool.caches["drafter"], row_pos0 + j,
-                    use_kernel=cfg.decode_kernel)
+                logits = self._d_step(to_device(cur, dev), row_pos0 + j)
                 self.num_draft_forwards += 1
                 p_all = probs_from_logits(logits[live_dev], cfg.temps[0],
                                           cfg.top_k, N)
@@ -492,9 +712,7 @@ class CachedSpecDecEngine:
                 for r, sess in enumerate(sessions):
                     chunk[pool.rows_of(sess.slot), 0] = sess.pending
                     chunk[pool.rows_of(sess.slot), 1:] = d_tokens[r]
-                t_logits = verify_step_slots(
-                    self._t_verify_params, self.t_cfg, to_device(chunk, dev),
-                    pool.caches["target"], row_pos0)
+                t_logits = self._t_verify(to_device(chunk, dev), row_pos0)
                 self.num_target_forwards += 1
                 q = probs_from_logits(t_logits[live_dev], cfg.target_temp,
                                       cfg.top_k, N).reshape(r_n, K, L + 1, N)
@@ -542,12 +760,9 @@ class CachedSpecDecEngine:
                         rows = pool.rows_of(slot)
                         extra_tok[rows, 0] = y_l
                         extra_pos[rows] = base_pos[slot] + L
-                    decode_step_slots(self.d_params, self.d_cfg,
-                                      to_device(extra_tok, dev),
-                                      pool.caches["drafter"],
-                                      to_device(extra_pos, dev),
-                                      use_kernel=cfg.decode_kernel,
-                                      return_logits=False)
+                    self._d_step(to_device(extra_tok, dev),
+                                 to_device(extra_pos, dev),
+                                 return_logits=False)
                     self.num_draft_forwards += 1
         if rest.count:
             # Waits outside the per-request fetches (none are expected)
@@ -598,6 +813,23 @@ class CachedSpecDecEngine:
         assert hi <= pool.buf_len, (
             f"speculative block would write through position {hi - 1} but "
             f"the cache arena holds {pool.buf_len}; pass a larger buf_len")
+        if self._paged:
+            # Each advancing slot's chains cover the round's writes; the
+            # first paged fused round gathers the view, later ones mutate
+            # it in place (``engine_cached.py:1105-1160``).
+            for sess in sessions:
+                pool.reserve(sess.slot, int(pool.pos[sess.slot]) + L + 1)
+            if self._fused_view is None:
+                pt = pool.pt_device()
+                self._fused_view = {
+                    name: paged_kv.gather_arena(pool.pages[name], pt,
+                                                pool.buf_len)
+                    for name in ("target", "drafter")}
+                self._view_dirty.clear()
+                self.num_view_gathers += 1
+            arenas = self._fused_view
+        else:
+            arenas = pool.caches
         live = np.zeros(S, bool)
         pending = np.zeros(S, np.int64)
         # Free slots still need a valid key; their draws are masked.
@@ -615,13 +847,15 @@ class CachedSpecDecEngine:
             self._round = build_round_core(cfg, self.t_cfg, self.d_cfg,
                                            self.vocab, S)
         pos_dev, packed = self._round(
-            self._t_verify_params, self.d_params, pool.caches["target"],
-            pool.caches["drafter"], pool.pos_device(),
+            self._t_verify_params, self.d_params, arenas["target"],
+            arenas["drafter"], pool.pos_device(),
             to_device(pending, self.device), to_device(live, self.device),
             to_device(sub_rows, self.device))
         self.num_target_forwards += 1
         self.num_draft_forwards += L + 1
         pool.adopt_round_device(pos_dev)
+        if self._paged:
+            self._view_dirty.update(s.slot for s in sessions)
         if admits:
             self.admit_batch(admits, pool.buf_len)
         return packed
