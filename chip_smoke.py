@@ -286,6 +286,26 @@ GRID_ATOMS, GRID_TRIALS = 4096, 2000
 # tests/test_ssd_kernel.py: the kernel against its reference, and
 # tests/test_decode_consistency.py: decode against forward.
 SSD_TOL, SSD_TOL_TOTAL, SSM_LOGIT_TOL = 5e-4, 1e-5, 2e-3
+# Phase giants: granite-34b (48 query heads over one KV head) and
+# llama3-405b (16 per KV head) at their published widths, depth cut to
+# (target, drafter) layers; kv_fused, 4 requests x 16 tokens, prompts of
+# 16-64 tokens; granite-34b also through kv and with quant=True.
+GIANTS = (("granite-34b", 16, 2), ("llama3-405b", 2, 1))
+GIANT_REQUESTS, GIANT_MAX_NEW, GIANT_PROMPTS = 4, 16, (16, 64)
+# Phases moe and hybrid: the reprefill workloads of
+# repro_torch.launch.profile_reprefill.WORKLOADS; mixtral-8x22b's cached
+# calls at 2 layers past its 4,096-key window (prefill, then decode
+# steps, against a full-sequence forward), recurrentgemma-2b's at one
+# unit (3 layers) past its 2,048-key window; both within SSM_LOGIT_TOL,
+# tests/test_decode_consistency.py's tolerance.  mixtral's lengths,
+# 4,166 and 4,174 = 2 x 2,083 and 2 x 2,087 tokens, route in groups of 2
+# tokens (moe._group_size), as each decode step routes its one token:
+# a group of at most 2 never overflows an expert's capacity (2), so the
+# prefill, the steps and the forward keep every token.  In groups of
+# many tokens they would drop different tokens by JAX's design (the
+# forward's training capacity factor, other groups), not a port fault.
+MIXTRAL_LAYERS, MIXTRAL_PREFILL, WINDOW_DECODES = 2, 4166, 8
+HYBRID_PREFILL = 2100
 # tests/test_quant_fused.py: the int8 acceptance rate against float32's.
 QUANT_RATE_TOL = 0.2
 # The served quant self-draft rate (int8 arenas and the W8A8 verify) over
@@ -709,17 +729,18 @@ def serve_kv_len(torch, dev, b: int, t: int, seed: int):
     return torch.from_numpy(kv_len).to(dev)
 
 
-def decode_inputs(torch, dev, b: int, h: int, hkv: int, d: int, t: int):
+def decode_inputs(torch, dev, b: int, h: int, hkv: int, d: int, t: int,
+                  n_sets: int = 4):
     """q and one (k, v) set per drafter layer (four of the serve arena's
     (b, hkv, t, d) f32: ~121 MB at the serve shape, more than the L2
-    cache, so each call finds its K/V cold), kv_len as the serve draws
-    it."""
+    cache, so each call finds its K/V cold; ``n_sets`` where a set is
+    smaller), kv_len as the serve draws it."""
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 1)
     q = torch.randn((b, h, d), generator=g, device=dev)
     kv_sets = [(torch.randn((b, hkv, t, d), generator=g, device=dev),
                 torch.randn((b, hkv, t, d), generator=g, device=dev))
-               for _ in range(4)]
+               for _ in range(n_sets)]
     return q, kv_sets, serve_kv_len(torch, dev, b, t, SEED + 1)
 
 
@@ -808,17 +829,23 @@ def kernel_decode(torch, dev, cfg, t: int):
     """``decode_attention`` against its plain version at the serve shape,
     on the serve's kv_len and on the edges of the kernel's split plan and
     tiles (``decode_edges``); timed on cold K/V.  The instance is the
-    config's head dim's (``decode_attention`` at 64,
-    ``decode_attention_d128`` at 128)."""
+    config's head dim's and group's (``decode_attention`` at 64,
+    ``decode_attention_d128`` at 128, ``..._g<G>`` for a group above 8,
+    served by sub-groups of 8)."""
     from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_launch_name,
                                                           decode_split_plan)
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_plain)
-    from repro_torch.kernels.mode import launch_name
     b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
-    q, kv_sets, kv_len = decode_inputs(torch, dev, b, h, hkv, d, t)
-    splits, chunk = decode_split_plan(b, hkv, t, head_dim=d)
+    group = h // hkv
+    # The giants' sets are small (2.8-22 MB): enough of them for three L2
+    # caches.
+    q, kv_sets, kv_len = decode_inputs(
+        torch, dev, b, h, hkv, d, t,
+        4 if group <= 8 else cold_sets(8 * b * hkv * t * d))
+    splits, chunk = decode_split_plan(b, hkv, t, head_dim=d, group=group)
     edges = decode_edges(torch, dev, b, t, d, splits, chunk)
     err = 0.0
     k, v = kv_sets[0]
@@ -833,7 +860,7 @@ def kernel_decode(torch, dev, cfg, t: int):
     keys = float(kv_len.sum())
     t_bound, by = decode_bound(b, h, hkv, d, keys)
     return {
-        "name": launch_name("decode_attention", d), "route": "cuda",
+        "name": decode_launch_name(d, False, group), "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attention/"
                   "decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:83",
@@ -1030,17 +1057,19 @@ def kernel_decode_int8(torch, dev, cfg, t: int):
     ``decode_attention_int8_floor``) at the same plan."""
     from repro_torch.kernels.build import load_kernels
     from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_launch_name,
                                                           decode_split_plan)
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_plain)
-    from repro_torch.kernels.mode import launch_name
     b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
-    name = launch_name("decode_attention", d, int8=True)
+    group = h // hkv
+    name = decode_launch_name(d, True, group)
     q, sets, (kf, vf), kv_len = decode_int8_inputs(torch, dev, b, h, hkv, d,
                                                    t)
     n_sets = len(sets)
-    splits, chunk = decode_split_plan(b, hkv, t, head_dim=d, int8=True)
+    splits, chunk = decode_split_plan(b, hkv, t, head_dim=d, int8=True,
+                                      group=group)
     edges = decode_edges(torch, dev, b, t, d, splits, chunk, int8=True)
     # T = 370: the scale row of (b, head) starts at (b Hkv + head) * 1480
     # bytes, 8-byte aligned only for every odd row.
@@ -1119,14 +1148,16 @@ def phase_reference(torch, dev, target):
 
 
 def make_server(torch, dev, target, drafter, max_batch, quant=False,
-                strategy="gls", cache_mode="kv_fused", admission="bucketed"):
+                strategy="gls", cache_mode="kv_fused", admission="bucketed",
+                decode_kernel=True):
     from repro_torch.specdec import CachedSpecDecEngine, SpecDecConfig
     from repro_torch.specdec import SpecDecServer
     k = 1 if strategy in ("single", "daliri") else K_DRAFTS
     cfg = SpecDecConfig(num_drafts=k, draft_len=L_DRAFT,
                         strategy=strategy, top_k=50, max_new_tokens=MAX_NEW,
-                        verifier_backend="kernel", decode_kernel=True,
-                        prefill_kernel=True, quant=quant)
+                        verifier_backend="kernel",
+                        decode_kernel=decode_kernel, prefill_kernel=True,
+                        quant=quant)
     engine = CachedSpecDecEngine(target, drafter, cfg, pool_slots=S_SLOTS,
                                  device=dev)
     return engine, SpecDecServer(engine, max_batch=max_batch,
@@ -1136,7 +1167,9 @@ def make_server(torch, dev, target, drafter, max_batch, quant=False,
 def phase_serve(torch, dev, target, drafter, quant=False,
                 requests: int = N_REQUESTS, max_new: int = MAX_NEW,
                 label: str = "serve", cache_mode: str = "kv_fused",
-                admission: str = "bucketed"):
+                admission: str = "bucketed",
+                prompts: tuple = (PROMPT_MIN, PROMPT_MAX),
+                decode_kernel: bool = True):
     """Phase 3 (float32 arenas) or 3q (``quant``: int8 arenas, W8A8
     verify; the attention kernels' int8 instances count under their own
     names), ``requests`` requests of ``max_new`` new tokens; the attention
@@ -1147,20 +1180,28 @@ def phase_serve(torch, dev, target, drafter, quant=False,
     ``gls_row_race`` launch per request a round, a catch-up sweep only
     in rounds where a slot accepted every draft; per-request admission
     prefills through the dense ``prefill`` (no flash launch, two
-    dispatches a request).  The stats carry the per-uid streams."""
+    dispatches a request).  ``prompts`` is the (shortest, longest)
+    prompt length, the first prompt the longest;
+    ``decode_kernel=False`` serves the drafter's decode attention on its
+    plain route (no decode launch).  The stats carry the per-uid
+    streams."""
     from repro_torch import random as R
+    from repro_torch.kernels.decode_attention.ops import decode_launch_name
     from repro_torch.kernels.mode import (launch_counts, launch_name,
                                           reset_launch_counts)
     from repro_torch.launch.serve import draw_prompts
     vocab = target[1].vocab_size
     engine, server = make_server(torch, dev, target, drafter, S_SLOTS,
                                  quant=quant, cache_mode=cache_mode,
-                                 admission=admission)
-    prompts = draw_prompts(requests, vocab, PROMPT_MIN, PROMPT_MAX, SEED)
-    # One prompt longer than the largest admission bucket (256 at this
-    # buffer length), so admission chunks.
+                                 admission=admission,
+                                 decode_kernel=decode_kernel)
+    p_min, p_max = prompts
+    prompts = draw_prompts(requests, vocab, p_min, p_max, SEED)
+    # One prompt of the longest length: at phase 3's, longer than the
+    # largest admission bucket (256 at its buffer length), so admission
+    # chunks.
     prompts[0] = np.random.default_rng(SEED + 7).integers(
-        0, vocab, PROMPT_MAX).astype(np.int32)
+        0, vocab, p_max).astype(np.int32)
     for p in prompts:
         server.submit(p, max_new=max_new)
     torch.cuda.synchronize()
@@ -1185,18 +1226,23 @@ def phase_serve(torch, dev, target, drafter, quant=False,
     d_layers = drafter[1].num_layers
     dispatches = engine.num_prefill_dispatches
     d = target[1].resolved_head_dim
-    decode, flash = (launch_name(kernel, d, quant)
-                     for kernel in ("decode_attention", "flash_attention"))
+    group = target[1].num_heads // target[1].kv_heads
+    decode = decode_launch_name(d, quant, group)
+    flash = launch_name("flash_attention", d, quant)
     other = {launch_name(kernel, dd, qq)
              for kernel in ("decode_attention", "flash_attention")
              for dd in (64, 128) for qq in (False, True)} - {decode, flash}
+    if not decode_kernel:
+        assert decode not in counts, counts
+        other.add(decode)
+        decode = None
     # The host's waits on the card as the engine saw them (SyncCounter).
     if cache_mode == "kv_fused":
         # None while rounds and admissions are queued, one fetch a round.
         assert m.draft_syncs == 0, f"draft_syncs {m.draft_syncs}"
         assert m.host_syncs == m.rounds, (m.host_syncs, m.rounds)
         assert counts.get("gls_row_race", 0) >= m.rounds, counts
-        assert counts.get(decode, 0) >= \
+        assert decode is None or counts.get(decode, 0) >= \
             (L_DRAFT + 1) * d_layers * m.rounds, counts
     else:
         # L draft fetches a round; one verify fetch and one row race per
@@ -1206,8 +1252,9 @@ def phase_serve(torch, dev, target, drafter, quant=False,
         assert m.host_syncs == m.total_blocks, (m.host_syncs,
                                                 m.total_blocks)
         assert counts.get("gls_row_race", 0) == m.total_blocks, counts
-        assert L_DRAFT * d_layers * m.rounds <= counts.get(decode, 0) <= \
-            (L_DRAFT + 1) * d_layers * m.rounds, counts
+        assert decode is None or L_DRAFT * d_layers * m.rounds <= \
+            counts.get(decode, 0) <= (L_DRAFT + 1) * d_layers * m.rounds, \
+            counts
     if admission == "bucketed":
         assert counts.get(flash, 0) == layers * dispatches // 2, \
             (counts, dispatches)
@@ -2532,6 +2579,273 @@ def phase_ssm_self_draft(torch, dev, target):
     return acc
 
 
+# ---------------------------------------------------------------------------
+# Phase giants: decode at groups 48 and 16, the dense giants at full width
+# ---------------------------------------------------------------------------
+
+
+def giant_buf_len() -> int:
+    """The giants' serve buffer: the longest prompt, the new tokens and
+    L + 2 (``SpecDecServer._required_buf``)."""
+    return GIANT_PROMPTS[1] + GIANT_MAX_NEW + L_DRAFT + 2
+
+
+def phase_giant(torch, dev, arch: str, target_layers: int,
+                draft_layers: int, smi: str):
+    """One dense giant at its published widths, depth cut: the decode
+    kernel's float32 and int8 instances at the model's group against
+    plain at the serve shape (a group above 8 runs as sub-groups of 8),
+    the D = 128 flash instances at its admission shape against plain and
+    float64 (as phase granite holds them); then the pair (target and
+    drafter as separate trees, ``launch.serve.build_pair``) served
+    kv_fused on the kernel routes, the same serve with the drafter's
+    decode on its plain route (per-uid streams equal), and for
+    granite-34b the same workload through kv (streams equal) and with
+    ``quant=True``; the self-draft of one unit (4 prompts x 48 tokens)
+    >= 0.9 L.  Gates: ``draft_syncs == 0``, ``host_syncs == rounds``,
+    and exactly (L + 1) x drafter layers x rounds decode launches of the
+    model's instance in each kv_fused serve.  Frees the pair (kernel
+    records, launch counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_launch_name
+    from repro_torch.launch.serve import build_pair
+    cfg0 = get_config(arch).replace(num_layers=target_layers)
+    buf = giant_buf_len()
+    group = cfg0.num_heads // cfg0.kv_heads
+    kernels = [kernel_decode(torch, dev, cfg0, buf),
+               kernel_decode_int8(torch, dev, cfg0, buf)]
+    for kr in kernels:
+        log_kernel(kr, smi)
+    for int8 in (False, True):
+        kr = kernel_flash(torch, dev, cfg0, GIANT_PROMPTS[1], buf, int8)
+        kr["shape"] += f", {arch}'s admission (group {group})"
+        log_kernel(kr, smi)
+    gc_collect(torch)
+    t0 = time.perf_counter()
+    target, drafter = build_pair(arch, draft_layers, SEED, dev,
+                                 target_layers)
+    torch.cuda.synchronize()
+    n_params = [sum(x.numel() for x in _leaves(p)) for p, _ in
+                (target, drafter)]
+    log(f"giants: {arch} {target_layers}-layer target "
+        f"({n_params[0] / 1e9:.3f}e9 parameters, "
+        f"{4 * n_params[0] / 1e9:.2f} GB) and {draft_layers}-layer drafter "
+        f"({n_params[1] / 1e9:.3f}e9, {4 * n_params[1] / 1e9:.2f} GB), "
+        f"separate trees, head dim {cfg0.resolved_head_dim}, {group} query "
+        f"heads per KV head, built in {time.perf_counter() - t0:.1f}s; "
+        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated [{smi}]")
+    kw = dict(requests=GIANT_REQUESTS, max_new=GIANT_MAX_NEW,
+              prompts=GIANT_PROMPTS)
+    counts, stats = phase_serve(torch, dev, target, drafter,
+                                label=f"{arch} serve", **kw)
+    decode = decode_launch_name(128, False, group)
+    want = (L_DRAFT + 1) * draft_layers * stats["rounds"]
+    assert counts.get(decode, 0) == want, (decode, counts, want)
+    log(f"{arch}: {decode} launches {counts[decode]} = (L + 1) x "
+        f"{draft_layers} drafter layers x {stats['rounds']} rounds; peak "
+        f"device memory of the serve (the pair's weights included) "
+        f"{stats['peak_gib']:.2f} GiB (torch.cuda.max_memory_allocated) "
+        f"[{smi}]")
+    gc_collect(torch)
+    p_counts, plain = phase_serve(torch, dev, target, drafter,
+                                  decode_kernel=False,
+                                  label=f"{arch} serve, plain decode route",
+                                  **kw)
+    add_counts(counts, p_counts)
+    same_streams(plain["streams"], stats["streams"],
+                 f"{arch} kernel vs plain decode route")
+    gc_collect(torch)
+    if arch == "granite-34b":
+        kv_counts, kv_stats = phase_serve(torch, dev, target, drafter,
+                                          cache_mode="kv",
+                                          label=f"{arch} kv serve", **kw)
+        same_streams(stats["streams"], kv_stats["streams"],
+                     f"{arch} kv vs kv_fused")
+        compare_serves(kv_stats, stats, f"{arch} kv vs kv_fused serve", smi)
+        add_counts(counts, kv_counts)
+        gc_collect(torch)
+        q_counts, q_stats = phase_serve(torch, dev, target, drafter,
+                                        quant=True, label=f"{arch} serve",
+                                        **kw)
+        q_decode = decode_launch_name(128, True, group)
+        assert q_counts.get(q_decode, 0) == \
+            (L_DRAFT + 1) * draft_layers * q_stats["rounds"], \
+            (q_counts, q_stats["rounds"])
+        add_counts(counts, q_counts)
+        log(f"{arch} quant vs float32 serve [{smi}]: "
+            + ", ".join(f"{k} {q_stats[k]:.4g} vs {stats[k]:.4g}"
+                        for k in ("tok_s", "round_ms", "ttft_ms", "peak_gib",
+                                  "arena_mib")))
+        gc_collect(torch)
+    per_unit, _ = self_draft_rates(torch, dev, target, "float32", 1)
+    acc = sum(a for a, _, _ in per_unit) / sum(b for _, b, _ in per_unit)
+    log(f"{arch} self-draft: 1 unit x {S_SLOTS} prompts, mean accepted per "
+        f"block {acc:.3f} (L={L_DRAFT}, need >= {0.9 * L_DRAFT:.1f})")
+    assert acc >= 0.9 * L_DRAFT, f"{arch} self-draft acceptance {acc:.3f}"
+    del target, drafter
+    gc_collect(torch)
+    return kernels, counts
+
+
+# ---------------------------------------------------------------------------
+# Phases moe and hybrid: the reference engine's other families
+# ---------------------------------------------------------------------------
+
+
+def phase_reprefill_serve(torch, dev, arch: str, target, drafter, smi):
+    """``arch``'s reprefill workload (``profile_reprefill.WORKLOADS``)
+    through the reference engine, batched: every request finishes with
+    its tokens in range, one verify fetch and one ``gls_row_race`` launch
+    per request and block, and no attention kernel (JAX's MoE and hybrid
+    calls pass no ``use_kernel``)."""
+    from repro_torch import random as R
+    from repro_torch.kernels.mode import launch_counts, reset_launch_counts
+    from repro_torch.launch import profile_reprefill as W
+    _, _, _, requests, max_new, _, _ = W.WORKLOADS[arch]
+    vocab = target[1].vocab_size
+    _, server = W.make_server(target, drafter, dev, requests, arch)
+    for p in W.workload_prompts(vocab, SEED, arch):
+        server.submit(p, max_new=max_new)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    done = server.run(R.PRNGKey(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m = server.metrics
+    assert len(done) == requests, f"{len(done)}/{requests} finished"
+    for r in done:
+        out = np.asarray(r.output)
+        assert len(out) == max_new, f"uid {r.uid}: {len(out)} tokens"
+        assert out.min() >= 0 and out.max() < vocab, f"uid {r.uid} range"
+    blocks = sum(r.blocks for r in done)
+    assert m.host_syncs == blocks, (m.host_syncs, blocks)
+    assert counts.get("gls_row_race", 0) == blocks, (counts, blocks)
+    assert set(counts) == {"gls_row_race"}, counts
+    log(f"{arch} reprefill serve [{smi}]: {target[1].num_layers}+"
+        f"{drafter[1].num_layers} layers, {len(done)} requests, "
+        f"{m.total_tokens} tokens in {wall:.3f}s -> "
+        f"{m.total_tokens / wall:.1f} tok/s; rounds={m.rounds} round wall "
+        f"{wall / m.rounds * 1e3:.1f} ms block_efficiency="
+        f"{m.mean_block_efficiency:.3f} host_syncs={m.host_syncs} "
+        f"gls_row_race={counts.get('gls_row_race', 0)} (= {blocks} request "
+        f"blocks) peak device memory {peak:.2f} GiB launches={counts}")
+    return counts
+
+
+def reprefill_self_draft(torch, dev, arch: str, target) -> float:
+    """The target drafting for itself through the reference engine: one
+    request of 64 tokens, 4 (L + 1) new; the mean accepted per block."""
+    from repro_torch import random as R
+    from repro_torch.launch import profile_reprefill as W
+    el = W.WORKLOADS[arch][2]
+    _, server = W.make_server(target, target, dev, 1, arch)
+    prompt = np.random.default_rng(SEED + 10).integers(
+        0, target[1].vocab_size, 64).astype(np.int32)
+    server.submit(prompt, max_new=4 * (el + 1))
+    done = server.run(R.PRNGKey(SEED + 1))
+    acc = sum(r.accepted for r in done) / max(sum(r.blocks for r in done), 1)
+    log(f"{arch} self-draft: blocks={server.metrics.rounds} mean accepted "
+        f"per block {acc:.3f} (L={el})")
+    return acc
+
+
+def window_check(torch, dev, params, cfg, n_prefill: int, what: str):
+    """``prefill`` of ``n_prefill`` tokens (past the window: the ring
+    wraps, the attention is chunked) then ``WINDOW_DECODES``
+    ``decode_step`` calls, against one full-sequence ``forward`` over all
+    the tokens: the prefill's last logits and each step's, within
+    SSM_LOGIT_TOL."""
+    from repro_torch.models import decode_step, forward, init_cache, prefill
+    n = n_prefill + WINDOW_DECODES
+    toks = torch.from_numpy(np.random.default_rng(SEED + 21).integers(
+        0, cfg.vocab_size, (1, n)).astype(np.int32)).to(dev)
+    full = forward(params, cfg, {"tokens": toks})[0]
+    cache = init_cache(cfg, 1, n, dev)
+    lg, cache = prefill(params, cfg, {"tokens": toks[:, :n_prefill]}, cache)
+    errs = [float((lg[0] - full[n_prefill - 1]).abs().max())]
+    for i in range(n_prefill, n):
+        lg, cache = decode_step(params, cfg, toks[:, i:i + 1], cache)
+        errs.append(float((lg[0] - full[i]).abs().max()))
+    scale = float(full.abs().max())
+    log(f"{what}: prefill({n_prefill}) + {WINDOW_DECODES} decode steps vs "
+        f"forward({n}): max abs logit err {max(errs):.3g} (per step "
+        f"{[float(f'{e:.3g}') for e in errs]}; max |logit| {scale:.3g}; "
+        f"tolerance {SSM_LOGIT_TOL})")
+    assert bool(torch.isfinite(full).all()), f"{what}: non-finite logits"
+    assert max(errs) <= SSM_LOGIT_TOL, (what, errs)
+
+
+def phase_moe(torch, dev, smi: str):
+    """(a) granite-moe-1b-a400m at its published widths (24 layers, a
+    2-layer drafter) through the reference engine; its self-draft rate is
+    logged, not held: rows share routing groups and drops past capacity
+    differ between the drafter's and the target's forwards, in JAX too.
+    (b) mixtral-8x22b at its published widths, 2 layers, through the
+    registry's cached calls past its 4,096-key window, against a forward
+    over the whole sequence (lengths whose routing groups drop no token:
+    ``MIXTRAL_PREFILL``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_pair
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as M
+    arch = "granite-moe-1b-a400m"
+    target, drafter = build_pair(arch, 2, SEED, dev)
+    counts = phase_reprefill_serve(torch, dev, arch, target, drafter, smi)
+    reprefill_self_draft(torch, dev, arch, target)
+    del target, drafter
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("mixtral-8x22b").replace(num_layers=MIXTRAL_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_params(gen, cfg, dev)
+    n_params = sum(x.numel() for x in _leaves(params))
+    log(f"mixtral-8x22b: {cfg.num_layers} layers at published widths "
+        f"({n_params / 1e9:.3f}e9 parameters, {4 * n_params / 1e9:.2f} GB), "
+        f"window {cfg.sliding_window}")
+    n = MIXTRAL_PREFILL + WINDOW_DECODES
+    assert max(M._group_size(MIXTRAL_PREFILL), M._group_size(n)) <= 2
+    window_check(torch, dev, params, cfg, MIXTRAL_PREFILL,
+                 "mixtral-8x22b cached calls")
+    log(f"mixtral-8x22b: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    gc_collect(torch)
+    return counts
+
+
+def phase_hybrid(torch, dev, smi: str):
+    """recurrentgemma-2b at its published widths (26 layers, a 3-layer
+    drafter: one unit) through the reference engine, its self-draft
+    >= 0.9 L; then the drafter's tree (one unit of the same widths) through
+    the registry's cached calls past its 2,048-key window against a
+    forward."""
+    from repro_torch.launch import profile_reprefill as W
+    from repro_torch.launch.serve import build_pair
+    arch = "recurrentgemma-2b"
+    target, drafter = build_pair(arch, 3, SEED, dev)
+    n_params = [sum(x.numel() for x in _leaves(p)) for p, _ in
+                (target, drafter)]
+    log(f"{arch}: {target[1].num_layers}-layer target "
+        f"({n_params[0] / 1e9:.3f}e9 parameters) and "
+        f"{drafter[1].num_layers}-layer drafter ({n_params[1] / 1e9:.3f}e9)")
+    counts = phase_reprefill_serve(torch, dev, arch, target, drafter, smi)
+    acc = reprefill_self_draft(torch, dev, arch, target)
+    el = W.WORKLOADS[arch][2]
+    assert acc >= 0.9 * el, f"{arch} self-draft acceptance {acc:.3f}"
+    gc_collect(torch)
+    window_check(torch, dev, drafter[0], drafter[1], HYBRID_PREFILL,
+                 f"{arch} (one unit) cached calls")
+    del target, drafter
+    gc_collect(torch)
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2659,6 +2973,9 @@ def main() -> int:
     add_counts(counts, kv_counts)
     add_counts(counts, diverse_counts)
     add_counts(counts, paged_counts)
+    # One pair on the card at a time from here on.
+    del target, drafter
+    gc_collect(torch)
 
     # Phase granite: granite-8b (head dim 128) through kv_fused.
     t0 = time.perf_counter()
@@ -2670,6 +2987,35 @@ def main() -> int:
         f"granite kv_fused and kv serves {g_counts.get('gls_row_race', 0)}")
     counts["gls_row_race"] += g_counts.get("gls_row_race", 0)
     log(f"phase granite: {time.perf_counter() - t0:.1f}s")
+
+    # Phase giants: granite-34b (group 48) and llama3-405b (group 16)
+    # through kv_fused on the decode kernel's sub-groups.
+    giant_kernels = []
+    for arch, target_layers, draft_layers in GIANTS:
+        t0 = time.perf_counter()
+        gk, gcounts = phase_giant(torch, dev, arch, target_layers,
+                                  draft_layers, smi)
+        giant_kernels += gk
+        log(f"launches of {arch}'s serves (added to the kernels line): "
+            f"{gcounts}")
+        add_counts(counts, gcounts)
+        log(f"phase giants ({arch}): {time.perf_counter() - t0:.1f}s")
+    kernels[9:9] = giant_kernels
+    # The int8 instance at group 16 has no serve: llama3-405b serves
+    # float32 only (its W8A8 verify copy would not fit beside the pair).
+    for kr in giant_kernels:
+        if kr["name"] != "decode_attention_int8_d128_g16":
+            assert counts.get(kr["name"], 0) > 0, (kr["name"], counts)
+
+    # Phases moe and hybrid: the reference engine's MoE and RG-LRU
+    # families, and their windows' cached calls.
+    for name, phase in (("moe", phase_moe), ("hybrid", phase_hybrid)):
+        t0 = time.perf_counter()
+        fam_counts = phase(torch, dev, smi)
+        log(f"launches of phase {name}'s serve (added to the kernels "
+            f"line): {fam_counts}")
+        add_counts(counts, fam_counts)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f}s")
 
     # Phase 5: Wyner-Ziv compression through the binned race kernel.
     t0 = time.perf_counter()

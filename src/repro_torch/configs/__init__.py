@@ -1,7 +1,7 @@
-"""Architecture registry of the port (``--arch <id>``).  Only the
-configurations the port serves are listed (dense and SSM); the other
-families of the JAX registry wait for their slice (ROADMAP queue 1,
-item 15)."""
+"""Architecture registry of the port (``--arch <id>``): the dense, MoE,
+SSM and hybrid configurations of the JAX registry, and the paper-scale
+spec-dec pair.  whisper-small and llama-3.2-vision-11b (the encdec and
+vlm families) wait for their slice (ROADMAP queue 1, item 15b)."""
 
 from __future__ import annotations
 
@@ -13,6 +13,11 @@ _MODULES = {
     "smollm-360m": "smollm_360m",
     "granite-8b": "granite_8b",
     "mamba2-370m": "mamba2_370m",
+    "granite-34b": "granite_34b",
+    "llama3-405b": "llama3_405b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCH_NAMES = tuple(_MODULES)
@@ -25,4 +30,22 @@ def get_config(name: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ARCH_NAMES", "get_config"]
+def all_configs() -> dict:
+    return {name: get_config(name) for name in ARCH_NAMES}
+
+
+# Paper-scale speculative decoding pair (``repro/configs/__init__.py:
+# 47-56``): a ~100M-class llama target and a ~20M-class drafter.
+PAPER_TARGET = ModelConfig(
+    name="gls-target-100m", family="dense", num_layers=12, d_model=768,
+    num_heads=12, num_kv_heads=4, head_dim=64, d_ff=2048,
+    vocab_size=8192, dtype="float32",
+)
+PAPER_DRAFTER = ModelConfig(
+    name="gls-drafter-20m", family="dense", num_layers=4, d_model=384,
+    num_heads=6, num_kv_heads=2, head_dim=64, d_ff=1024,
+    vocab_size=8192, dtype="float32",
+)
+
+__all__ = ["ARCH_NAMES", "PAPER_DRAFTER", "PAPER_TARGET", "all_configs",
+           "get_config"]

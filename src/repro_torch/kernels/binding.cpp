@@ -42,7 +42,7 @@ cudaError_t launch_decode_attention_int8_floor(
     const float* v_scale, const int* kv_len, float* out, int B, int H,
     int Hkv, int T, int D, int splits, int chunk, cudaStream_t stream);
 bool decode_attention_has_head_dim(int d);
-int decode_attention_max_group();
+int decode_attention_subgroup(int group);
 int decode_attention_max_splits();
 cudaError_t launch_flash_attention(const float* q, const float* k,
                                    const float* v, const int* q_offset,
@@ -297,10 +297,9 @@ torch::Tensor decode_attention(torch::Tensor q, torch::Tensor k,
   TORCH_CHECK(Hkv > 0 && H % Hkv == 0, "H must be a multiple of Hkv");
   check_head_dim("decode_attention", D,
                  decode_attention_has_head_dim(static_cast<int>(D)));
-  TORCH_CHECK(H / Hkv <= decode_attention_max_group(),
-              "decode_attention: more than " +
-              std::to_string(decode_attention_max_group()) +
-              " query heads per KV head");
+  TORCH_CHECK(H / decode_attention_subgroup(static_cast<int>(H / Hkv)) <
+                  65536,
+              "decode_attention: too many head slots");
   TORCH_CHECK(B < 65536 && Hkv < 65536 && T < (1 << 24),
               "decode_attention: unsupported shape");
   check_split_plan("decode_attention", splits, chunk, T,
@@ -345,10 +344,9 @@ torch::Tensor decode_int8(const char* name, Int8DecodeLaunch launch,
   TORCH_CHECK(Hkv > 0 && H % Hkv == 0, "H must be a multiple of Hkv");
   check_head_dim(name, D,
                  decode_attention_has_head_dim(static_cast<int>(D)));
-  TORCH_CHECK(H / Hkv <= decode_attention_max_group(),
-              what + ": more than " +
-              std::to_string(decode_attention_max_group()) +
-              " query heads per KV head");
+  TORCH_CHECK(H / decode_attention_subgroup(static_cast<int>(H / Hkv)) <
+                  65536,
+              what + ": too many head slots");
   TORCH_CHECK(B < 65536 && Hkv < 65536 && T < (1 << 24),
               what + ": unsupported shape");
   check_split_plan(name, splits, chunk, T,

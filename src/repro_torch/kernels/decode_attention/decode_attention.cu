@@ -16,7 +16,24 @@
 // kv_len == 0 comes out as zeros; keys past kv_len are never read.
 // Compiled for the served head dims, D = 64 (smollm-360m) and D = 128
 // (granite-8b), template parameters beside G (1..8); the binding rejects
-// any other.
+// any other head dim.
+//
+// Any GQA group, by sub-groups.  The instances hold the softmax state and
+// the P V accumulators of G <= 8 heads in registers (at D = 128, G = 8
+// already spills a little under the 128-register cap), so a larger group
+// (granite-34b's 48 query heads over one KV head, llama3-405b's 16) is
+// split into sub-groups of G' heads, G' the largest divisor of the group
+// at most 8 (48 -> 6 x 8, 16 -> 2 x 8; `decode_attention_subgroup`), and
+// the G' instance serves each: the grid's y runs over Hkv x (group / G')
+// head slots, slot y taking query heads [y G', y G' + G') against the K/V
+// row of KV head y / (group / G').  The sub-groups of one KV row are
+// adjacent in the grid, so they run together and every sub-group after
+// the first should find the row's K/V in L2: the bound stays one read of
+// K/V from device memory, but the blocks' shared-memory traffic and
+// arithmetic grow with the group (each block streams the whole row
+// through its own stages), so what bounds this design at a large group
+// is each SM's shared-memory bandwidth and issue rate over the row's
+// group / G' copies, not the device-memory bytes.
 //
 // What bounds it on the card: bytes.  One query per head does ~4 D flops
 // per key against the K and V bytes that its G heads share, so the time
@@ -256,7 +273,7 @@ decode_attention_kernel(const float* __restrict__ q,
                         const float* __restrict__ v,
                         const int* __restrict__ kv_len,
                         float* __restrict__ out, int H, int Hkv, int T,
-                        int chunk, int tk, int stages) {
+                        int chunk, int tk, int stages, int sub) {
   constexpr int kD = D;
   constexpr int kWarpKeys = Dims<D>::kWarpKeys;
   constexpr int kCols = Dims<D>::kCols;
@@ -270,7 +287,8 @@ decode_attention_kernel(const float* __restrict__ q,
   cluster_arrive_relaxed();
   const int split = blockIdx.x;  // the block's rank in its cluster
   const int splits = gridDim.x;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  // Head slot y serves query heads [y G, y G + G) of KV head y / sub.
+  const int slot = blockIdx.y, kvh = slot / sub, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   extern __shared__ __align__(16) float smem[];
   const Layout<D> lay{tk, stages, G, splits};
@@ -299,7 +317,7 @@ decode_attention_kernel(const float* __restrict__ q,
     }
   }
   const float4* qb = reinterpret_cast<const float4*>(
-      q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * kD);
+      q + (static_cast<size_t>(b) * H + static_cast<size_t>(slot) * G) * kD);
   for (int i = tid; i < G * kD / 4; i += kThreads) {
     reinterpret_cast<float4*>(q_s)[i] = __ldg(qb + i);
   }
@@ -480,7 +498,7 @@ decode_attention_kernel(const float* __restrict__ q,
         den = fmaf(sr, lr[r], den);
         num = fmaf(sr, ar[r], num);
       }
-      out[(static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G + g) *
+      out[(static_cast<size_t>(b) * H + static_cast<size_t>(slot) * G + g) *
               kD + d] = num / fmaxf(den, 1e-30f);
     }
   }
@@ -621,7 +639,7 @@ decode_attention_kernel_int8(const float* __restrict__ q,
                              const float* __restrict__ v_scale,
                              const int* __restrict__ kv_len,
                              float* __restrict__ out, int H, int Hkv, int T,
-                             int chunk, int tk, int stages) {
+                             int chunk, int tk, int stages, int sub) {
   using QD = QDims<D>;
   constexpr int kKL = QD::kKeyLanes;   // lanes per key
   constexpr int kKeys = 32 / kKL;      // keys a warp scores per pass
@@ -635,7 +653,8 @@ decode_attention_kernel_int8(const float* __restrict__ q,
   // As in the float32 instance: the first phase is arrived at now and
   // waited on after the keys.  One split needs no cluster barrier.
   if (splits > 1) cluster_arrive_relaxed();
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  // Head slot y serves query heads [y G, y G + G) of KV head y / sub.
+  const int slot = blockIdx.y, kvh = slot / sub, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   extern __shared__ __align__(16) unsigned char qsmem[];
   const QLayout<D> lay{tk, stages, G, splits};
@@ -671,7 +690,7 @@ decode_attention_kernel_int8(const float* __restrict__ q,
   // lanes of a quarter-warp read chunks r = 0..3 (at D = 128, 4 h + r)
   // at 80 r bytes, 8 distinct bank groups.
   const float4* qb = reinterpret_cast<const float4*>(
-      q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D);
+      q + (static_cast<size_t>(b) * H + static_cast<size_t>(slot) * G) * D);
   for (int i = tid; i < G * D / 4; i += kQThreads) {
     const int g = i / (D / 4), c4 = i % (D / 4);
     reinterpret_cast<float4*>(q_s + (g * kNC + c4 / 4) * kQPad)[c4 % 4] =
@@ -875,7 +894,7 @@ decode_attention_kernel_int8(const float* __restrict__ q,
   }
   __syncthreads();
   float* orow =
-      out + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D;
+      out + (static_cast<size_t>(b) * H + static_cast<size_t>(slot) * G) * D;
   float* rpart = bpart;
   if (splits > 1) {
     cluster_wait();
@@ -946,10 +965,11 @@ decode_int8_floor_kernel(const float* __restrict__ q,
                          const float* __restrict__ v_scale,
                          const int* __restrict__ kv_len,
                          float* __restrict__ out, int H, int Hkv, int T,
-                         int chunk, int tk, int stages) {
+                         int chunk, int tk, int stages, int sub) {
   const int split = blockIdx.x, splits = gridDim.x;
   if (splits > 1) cluster_arrive_relaxed();
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  // Head slot y serves query heads [y G, y G + G) of KV head y / sub.
+  const int slot = blockIdx.y, kvh = slot / sub, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32;
   extern __shared__ __align__(16) unsigned char qsmem[];
   const QLayout<D> lay{tk, stages, G, splits};
@@ -975,7 +995,7 @@ decode_int8_floor_kernel(const float* __restrict__ q,
     }
   }
   const float4* qb = reinterpret_cast<const float4*>(
-      q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D);
+      q + (static_cast<size_t>(b) * H + static_cast<size_t>(slot) * G) * D);
   for (int i = tid; i < G * D / 4; i += kQThreads) {
     reinterpret_cast<float4*>(q_s)[i] = __ldg(qb + i);
   }
@@ -1000,14 +1020,14 @@ decode_int8_floor_kernel(const float* __restrict__ q,
   }
   if (split == 0) {
     float* orow = out +
-        (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D;
+        (static_cast<size_t>(b) * H + static_cast<size_t>(slot) * G) * D;
     for (int i = tid; i < G * D; i += kQThreads) orow[i] = 0.f;
   }
 }
 
 using Int8Kernel = void (*)(const float*, const int8_t*, const int8_t*,
                             const float*, const float*, const int*, float*,
-                            int, int, int, int, int, int);
+                            int, int, int, int, int, int, int);
 
 // The int8 instances, and their floors, by group size at head dim D.
 template <int D>
@@ -1026,7 +1046,13 @@ constexpr Int8Kernel kInt8Floors[kMaxG] = {
 }  // namespace
 
 bool decode_attention_has_head_dim(int d) { return d == 64 || d == 128; }
-int decode_attention_max_group() { return kMaxG; }
+// The heads of a sub-group: the largest divisor of the group at most
+// kMaxG, the instance that serves it.
+int decode_attention_subgroup(int group) {
+  int g = group < kMaxG ? group : kMaxG;
+  while (g > 1 && group % g) --g;
+  return g < 1 ? 1 : g;
+}
 int decode_attention_max_splits() { return kMaxSplits; }
 
 namespace {
@@ -1047,15 +1073,15 @@ cudaError_t grant_smem(Kernel kernel, bool (&granted)[64][kMaxG], int G,
   return err;
 }
 
-// One launch of grid (splits, Hkv, B) in clusters of `splits` blocks (a
-// cluster attribute also for one split: without it the int8 instance
+// One launch of grid (splits, head slots, B) in clusters of `splits`
+// blocks (a cluster attribute also for one split: without it the int8 instance
 // took 3-6 % longer, `tools/kernel_variants.py`).
 template <typename Kernel, typename... Args>
-cudaError_t launch_clusters(Kernel kernel, int splits, int Hkv, int B,
+cudaError_t launch_clusters(Kernel kernel, int splits, int slots, int B,
                             int threads, size_t smem, cudaStream_t stream,
                             Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, Hkv, B);
+  cfg.gridDim = dim3(splits, slots, B);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -1074,15 +1100,16 @@ cudaError_t launch(const float* q, const float* k, const float* v,
                    const int* kv_len, float* out, int B, int H, int Hkv,
                    int T, int splits, int chunk, cudaStream_t stream) {
   using Kernel = void (*)(const float*, const float*, const float*,
-                          const int*, float*, int, int, int, int, int, int);
+                          const int*, float*, int, int, int, int, int, int,
+                          int);
   constexpr Kernel kKernels[kMaxG] = {
       decode_attention_kernel<D, 1>, decode_attention_kernel<D, 2>,
       decode_attention_kernel<D, 3>, decode_attention_kernel<D, 4>,
       decode_attention_kernel<D, 5>, decode_attention_kernel<D, 6>,
       decode_attention_kernel<D, 7>, decode_attention_kernel<D, 8>};
   constexpr int kTK = Dims<D>::kTK;
-  const int G = H / Hkv;
-  if (G < 1 || G > kMaxG) return cudaErrorInvalidValue;
+  if (Hkv < 1 || H % Hkv) return cudaErrorInvalidValue;
+  const int G = decode_attention_subgroup(H / Hkv), sub = H / Hkv / G;
   const Kernel kernel = kKernels[G - 1];
   static bool granted[64][kMaxG] = {};
   cudaError_t err = grant_smem(
@@ -1091,9 +1118,10 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   // A range of one tile or less is one stage, sized to the range.
   const int tk = chunk < kTK ? chunk : kTK;
   const int stages = chunk > tk ? kStages : 1;
-  return launch_clusters(kernel, splits, Hkv, B, kThreads,
+  return launch_clusters(kernel, splits, Hkv * sub, B, kThreads,
                          Layout<D>{tk, stages, G, splits}.bytes(), stream,
-                         q, k, v, kv_len, out, H, Hkv, T, chunk, tk, stages);
+                         q, k, v, kv_len, out, H, Hkv, T, chunk, tk, stages,
+                         sub);
 }
 
 // The int8 launch at head dim D of one of `kernels` (by group size:
@@ -1107,8 +1135,8 @@ cudaError_t launch_int8(const Int8Kernel (&kernels)[kMaxG],
                         const int* kv_len, float* out, int B, int H, int Hkv,
                         int T, int splits, int chunk, cudaStream_t stream) {
   constexpr int kTK = QDims<D>::kTK;
-  const int G = H / Hkv;
-  if (G < 1 || G > kMaxG) return cudaErrorInvalidValue;
+  if (Hkv < 1 || H % Hkv) return cudaErrorInvalidValue;
+  const int G = decode_attention_subgroup(H / Hkv), sub = H / Hkv / G;
   const Int8Kernel kernel = kernels[G - 1];
   cudaError_t err = grant_smem(
       kernel, granted, G,
@@ -1117,10 +1145,10 @@ cudaError_t launch_int8(const Int8Kernel (&kernels)[kMaxG],
   // A range of one tile or less is one stage, sized to the range.
   const int tk = chunk < kTK ? chunk : kTK;
   const int stages = chunk > tk ? kQStages : 1;
-  return launch_clusters(kernel, splits, Hkv, B, kQThreads,
+  return launch_clusters(kernel, splits, Hkv * sub, B, kQThreads,
                          QLayout<D>{tk, stages, G, splits}.bytes(), stream,
                          q, k, v, k_scale, v_scale, kv_len, out, H, Hkv, T,
-                         chunk, tk, stages);
+                         chunk, tk, stages, sub);
 }
 
 }  // namespace

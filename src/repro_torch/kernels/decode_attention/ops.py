@@ -48,13 +48,31 @@ def resident_blocks_per_sm(chunk: int, head_dim: int, int8: bool) -> int:
     return min(cap, _SMEM_PER_SM // (smem + _SMEM_PER_BLOCK_RESERVED))
 
 
+# The query heads of one instance (decode_attention.cu): a larger GQA
+# group runs as sub-groups of this many heads or fewer.
+MAX_SUBGROUP = 8
+
+
+def decode_subgroup(group: int) -> int:
+    """Query heads of a sub-group for a GQA group of ``group`` heads: the
+    largest divisor of ``group`` at most 8, the compiled instance that
+    serves it (``decode_attention.cu::decode_attention_subgroup``; 16 ->
+    8, 48 -> 8, 3 -> 3)."""
+    g = max(1, min(group, MAX_SUBGROUP))
+    while group % g:
+        g -= 1
+    return g
+
+
 def decode_split_plan(b: int, hkv: int, t: int, sms: int = H100_SMS,
-                      head_dim: int = 64,
-                      int8: bool = False) -> tuple[int, int]:
-    """(splits, chunk): each (row, KV head) runs as a cluster of ``splits``
-    blocks, block i owning keys [i chunk, min((i + 1) chunk, t)) (empty
-    where it starts at or past t).  ``head_dim`` picks the instance (64 or
-    128), ``int8`` its int8 K/V.
+                      head_dim: int = 64, int8: bool = False,
+                      group: int = 1) -> tuple[int, int]:
+    """(splits, chunk): each (row, head slot) runs as a cluster of
+    ``splits`` blocks, block i owning keys [i chunk, min((i + 1) chunk, t))
+    (empty where it starts at or past t).  ``head_dim`` picks the instance
+    (64 or 128), ``int8`` its int8 K/V.  A head slot is one sub-group of
+    the KV head's ``group`` query heads (``decode_subgroup``): the grid has
+    hkv x group / G' of them, G' the sub-group's heads.
 
     Float32: the most splits (at most 8, at most one per 16 keys) whose
     whole grid is resident on the card at once: a second wave of blocks
@@ -68,7 +86,7 @@ def decode_split_plan(b: int, hkv: int, t: int, sms: int = H100_SMS,
     both serve shapes (smollm-360m's 160 rows, granite-8b's 256), where 2
     splits measured 32-51 % slower and 4 splits 87-93 %
     (``tools/kernel_variants.py``)."""
-    rows = max(1, b * hkv)
+    rows = max(1, b * hkv * (group // decode_subgroup(group)))
     most = min(MAX_CLUSTER, max(1, -(-t // 16)))
     resident = [s for s in range(1, most + 1)
                 if rows * s <= sms * resident_blocks_per_sm(
@@ -85,9 +103,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, H, D); k/v: (B, Hkv, T, D) f32, or int8 with ``k_scale``/
     ``v_scale`` (B, Hkv, T, 1) f32 (both or neither); kv_len: (B,) ->
-    (B, H, D).  The two routes agree to float32 summation order.  Launches
-    count under ``launch_name``: ``decode_attention`` and
-    ``decode_attention_int8`` at D = 64, ``..._d128`` at D = 128."""
+    (B, H, D), any GQA group H / Hkv (above 8 by sub-groups).  The two
+    routes agree to float32 summation order.  Launches count under
+    ``decode_launch_name``: ``decode_attention`` and
+    ``decode_attention_int8`` at D = 64, ``..._d128`` at D = 128, and
+    ``..._g<group>`` for a group above 8."""
     assert (k_scale is None) == (v_scale is None)
     if not use_kernel(q):
         return decode_attention_plain(q, k, v, kv_len, k_scale, v_scale)
@@ -95,11 +115,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ext = load_kernels()
     kvl = kv_len.to(torch.int32).contiguous()
     d, int8 = q.shape[-1], k_scale is not None
+    group = q.shape[1] // max(1, k.shape[1])
     # A head dim the kernel is not compiled for gets the smallest plan;
     # the binding then raises.
     splits, chunk = (decode_split_plan(
-        k.shape[0], k.shape[1], k.shape[2], sm_count(q.device), d, int8)
-        if d in _TILE_KEYS else (1, max(1, k.shape[2])))
+        k.shape[0], k.shape[1], k.shape[2], sm_count(q.device), d, int8,
+        group) if d in _TILE_KEYS else (1, max(1, k.shape[2])))
     if not int8:
         out = ext.decode_attention(aligned16(q), aligned16(k), aligned16(v),
                                    kvl, splits, chunk)
@@ -108,8 +129,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                         aligned16(v), aligned16(k_scale),
                                         aligned16(v_scale), kvl, splits,
                                         chunk)
-    launch_counts[launch_name("decode_attention", d, int8)] += 1
+    launch_counts[decode_launch_name(d, int8, group)] += 1
     return out
+
+
+def decode_launch_name(head_dim: int, int8: bool, group: int) -> str:
+    """The ``launch_counts`` key of a decode launch: ``launch_name``'s,
+    with ``_g<group>`` for a group served by sub-groups (above 8:
+    ``decode_attention_d128_g48``)."""
+    name = launch_name("decode_attention", head_dim, int8)
+    return name if group <= MAX_SUBGROUP else f"{name}_g{group}"
 
 
 def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,

@@ -1,6 +1,7 @@
-"""Where a reprefill serving round of Mamba-2 spends its time on the card.
+"""Where a reprefill serving round spends its time on the card.
 
   python -m repro_torch.launch.profile_reprefill [--rounds 4] \
+      [--arch mamba2-370m|granite-moe-1b-a400m|recurrentgemma-2b] \
       [--trace build/profile_reprefill_trace.json]
 
 Serves mamba2-370m at its published widths with the reprefill workload
@@ -10,7 +11,13 @@ same widths, float32, weights from seeds 0 and 1; 4 requests x 8 drafts
 x 4 draft tokens, GLS, top-k 50, the kernel verifier, through
 ``SpecDecServer(cache_mode="reprefill")`` (batched): 4 prompts of
 64-192 tokens, the longest 192, so the buffer is 230 tokens (4 chunks
-of 64).  After ``--warmup`` rounds it steps ``--rounds`` rounds under
+of 64).  ``--arch`` takes the other families the reference engine
+serves, each with its own workload (``WORKLOADS``): granite-moe-1b-a400m
+(24 layers, a 2-layer drafter, 8 drafts x 4, prompts 16-128, 16 new
+tokens) and recurrentgemma-2b (26 layers, a 3-layer drafter: one unit,
+4 drafts x 2, prompts 32-96, 16 new tokens), as ``chip_smoke.py``'s
+phases moe and hybrid serve them.  After ``--warmup`` rounds it steps
+``--rounds`` rounds under
 ``torch.profiler`` (CPU and CUDA activities) and prints, per round:
 
 * wall time on the host clock (each round ends in host fetches, so the
@@ -42,39 +49,51 @@ from repro_torch.launch.profile_round import analyse
 from repro_torch.launch.serve import build_pair, draw_prompts
 from repro_torch.specdec import SpecDecConfig, SpecDecEngine, SpecDecServer
 
-# The reprefill workload: model pair, speculation and traffic.
-ARCH, DRAFT_LAYERS = "mamba2-370m", 4
-DRAFTS, DRAFT_LEN, TOP_K = 8, 4, 50
-REQUESTS, MAX_NEW, PROMPT_MIN, PROMPT_MAX = 4, 32, 64, 192
+# The reprefill workloads by arch: drafter layers, drafts, draft length,
+# requests, new tokens, shortest and longest prompt.  Mamba-2's names
+# below are the module's defaults.
+WORKLOADS = {
+    "mamba2-370m": (4, 8, 4, 4, 32, 64, 192),
+    "granite-moe-1b-a400m": (2, 8, 4, 4, 16, 16, 128),
+    "recurrentgemma-2b": (3, 4, 2, 4, 16, 32, 96),
+}
+ARCH = "mamba2-370m"
+(DRAFT_LAYERS, DRAFTS, DRAFT_LEN, REQUESTS, MAX_NEW, PROMPT_MIN,
+ PROMPT_MAX) = WORKLOADS[ARCH]
+TOP_K = 50
 
 
-def make_server(target, drafter, dev, max_batch: int = REQUESTS):
+def make_server(target, drafter, dev, max_batch: int = REQUESTS,
+                arch: str = ARCH):
     """A reprefill ``SpecDecServer`` over a ``SpecDecEngine`` with GLS,
-    ``DRAFTS`` x ``DRAFT_LEN``, top-k ``TOP_K`` and the kernel
+    ``arch``'s drafts x draft length, top-k ``TOP_K`` and the kernel
     verifier.  Returns (engine, server)."""
-    cfg = SpecDecConfig(num_drafts=DRAFTS, draft_len=DRAFT_LEN,
-                        strategy="gls", top_k=TOP_K, max_new_tokens=MAX_NEW,
+    _, drafts, draft_len, _, max_new, _, _ = WORKLOADS[arch]
+    cfg = SpecDecConfig(num_drafts=drafts, draft_len=draft_len,
+                        strategy="gls", top_k=TOP_K, max_new_tokens=max_new,
                         verifier_backend="kernel")
     engine = SpecDecEngine(target, drafter, cfg, device=dev)
     return engine, SpecDecServer(engine, max_batch=max_batch,
                                  cache_mode="reprefill")
 
 
-def workload_prompts(vocab: int, seed: int) -> list:
-    """``REQUESTS`` prompts of ``PROMPT_MIN``-``PROMPT_MAX`` tokens; the
-    first is exactly ``PROMPT_MAX`` long, so the longest prompt -- and
-    with it the buffer and ``ssd_chunk``'s shape -- is the same for every
+def workload_prompts(vocab: int, seed: int, arch: str = ARCH) -> list:
+    """``arch``'s requests, prompts of its shortest to longest length;
+    the first is exactly the longest, so the longest prompt -- and with
+    it the buffer and the kernels' shapes -- is the same for every
     seed."""
-    prompts = draw_prompts(REQUESTS, vocab, PROMPT_MIN, PROMPT_MAX, seed)
+    _, _, _, requests, _, lo, hi = WORKLOADS[arch]
+    prompts = draw_prompts(requests, vocab, lo, hi, seed)
     prompts[0] = np.random.default_rng(seed + 9).integers(
-        0, vocab, PROMPT_MAX).astype(np.int32)
+        0, vocab, hi).astype(np.int32)
     return prompts
 
 
-def buffer_len() -> int:
+def buffer_len(arch: str = ARCH) -> int:
     """The reprefill buffer of the workload: the longest prompt, the new
     tokens and L + 2 (``SpecDecServer._required_buf``)."""
-    return PROMPT_MAX + MAX_NEW + DRAFT_LEN + 2
+    _, _, draft_len, _, max_new, _, hi = WORKLOADS[arch]
+    return hi + max_new + draft_len + 2
 
 
 def kernel_ms(trace: dict, needle: str, rounds: int) -> float:
@@ -87,6 +106,7 @@ def kernel_ms(trace: dict, needle: str, rounds: int) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=ARCH, choices=sorted(WORKLOADS))
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
@@ -100,16 +120,17 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    target, drafter = build_pair(ARCH, DRAFT_LAYERS, args.seed, dev)
-    _, server = make_server(target, drafter, dev)
-    assert args.warmup + args.rounds <= MAX_NEW
-    for p in workload_prompts(target[1].vocab_size, args.seed):
-        server.submit(p, max_new=MAX_NEW)
+    draft_layers, _, _, requests, max_new, _, _ = WORKLOADS[args.arch]
+    target, drafter = build_pair(args.arch, draft_layers, args.seed, dev)
+    _, server = make_server(target, drafter, dev, requests, args.arch)
+    assert args.warmup + args.rounds <= max_new
+    for p in workload_prompts(target[1].vocab_size, args.seed, args.arch):
+        server.submit(p, max_new=max_new)
     key = R.PRNGKey(args.seed)
     for _ in range(args.warmup):
         server.step(key)
     torch.cuda.synchronize()
-    assert len(server.live) == REQUESTS and not server.queue
+    assert len(server.live) == requests and not server.queue
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     walls = []

@@ -2,10 +2,14 @@
 the card.
 
   python -m repro_torch.launch.profile_round [--arch smollm-360m] \
+      [--target-layers N] [--draft-layers 4] \
       [--rounds 6] [--quant] [--strategy gls] [--cache-mode kv_fused] \
       [--paged] [--trace build/profile_round_trace.json]
 
-Serves a dense model (``--arch``: smollm-360m by default, or granite-8b)
+Serves a dense model (``--arch``: smollm-360m by default, granite-8b,
+or a giant, granite-34b or llama3-405b, with ``--target-layers`` and
+``--draft-layers`` cutting its depth as ``chip_smoke.py``'s phase giants
+does: 16 + 2 and 2 + 1)
 at its published widths with the serving geometry of ``chip_smoke.py``
 (the full-depth target, a 4-layer drafter of the same widths, 4 slots x
 8 drafts x 4 draft tokens, the kernel verifier and both attention
@@ -135,6 +139,9 @@ def analyse(trace: dict, rounds: int, prefix: str = "round/",
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="smollm-360m", choices=DENSE_ARCHS)
+    ap.add_argument("--target-layers", type=int, default=None,
+                    help="cut the target's depth (default: published)")
+    ap.add_argument("--draft-layers", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -155,7 +162,8 @@ def main(argv=None):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    target, drafter = build_pair(args.arch, 4, args.seed, dev)
+    target, drafter = build_pair(args.arch, args.draft_layers, args.seed,
+                                 dev, args.target_layers)
     k = 1 if args.strategy in ("single", "daliri") else 8
     cfg = SpecDecConfig(num_drafts=k, draft_len=4, strategy=args.strategy,
                         top_k=50, verifier_backend="kernel",

@@ -4,12 +4,17 @@ driven by the FIFO scheduler, with fused rounds over KV caches
 (``--cache-mode kv_fused``, dense models), host-driven rounds over the
 same caches (``--cache-mode kv``), or through the reference engine that
 re-scores the whole prefix every block (``--cache-mode reprefill``,
-required for the SSM family, batched over live requests).
+required for the SSM, MoE and hybrid families, batched over live
+requests).
 
   python -m repro_torch.launch.serve --arch smollm-360m --draft-layers 4 \
       --requests 8 --drafts 8 --draft-len 4 --seed 0 [--device cpu]
   python -m repro_torch.launch.serve --arch mamba2-370m \
       --cache-mode reprefill --draft-layers 4 --requests 4 --max-new 32
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m \
+      --cache-mode reprefill --draft-layers 2 --requests 4 --max-new 16
+  python -m repro_torch.launch.serve --arch granite-34b \
+      --target-layers 16 --draft-layers 2 --requests 4 --max-new 16
   python -m repro_torch.launch.serve --cache-mode kv \
       --admission per_request
   python -m repro_torch.launch.serve --paged --policy v2 \
@@ -85,8 +90,9 @@ def draw_prompts(n: int, vocab: int, min_len: int, max_len: int,
 
 
 def check_cache_mode(arch: str, cache_mode: str) -> None:
-    """The cached engine serves the dense family only (as in JAX, whose
-    ``engine_cached.py`` asserts it); other families need reprefill."""
+    """The cached engines serve the dense family only (as in JAX, whose
+    ``engine_cached.py`` asserts it); the ssm, moe and hybrid families
+    need reprefill."""
     family = get_config(arch).family
     if cache_mode != "reprefill" and family != "dense":
         raise ValueError(

@@ -1,5 +1,6 @@
-"""Shared layers of the dense family: RMSNorm, RoPE (split-half layout),
-GQA attention with its two kernel routes and the dense path, SwiGLU,
+"""Shared layers of the attention families: RMSNorm, RoPE (split-half
+layout), GQA attention with its two kernel routes and the dense path
+(an optional sliding window), SwiGLU,
 the attention projections and the init helpers -- the port's
 counterpart of ``repro/models/layers.py``.
 
@@ -26,14 +27,15 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
                device) -> torch.Tensor:
     w = torch.randn((in_dim, out_dim), generator=gen, dtype=torch.float32,
                     device=device)
-    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+    # In place: no second copy of a giant's lm_head on the card.
+    return w.mul_(1.0 / math.sqrt(in_dim)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype,
                device) -> torch.Tensor:
     w = torch.randn((vocab, dim), generator=gen, dtype=torch.float32,
                     device=device)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 def dense(x: torch.Tensor, w) -> torch.Tensor:
@@ -94,7 +96,7 @@ def _per_row(val, b: int, device) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, q_offset=0, kv_len=None,
+              causal: bool = True, q_offset=0, kv_len=None, window: int = 0,
               k_scale=None, v_scale=None,
               use_kernel: bool = False) -> torch.Tensor:
     """GQA attention: q (B, H, S, D), k/v (B, Hkv, T, D) -> (B, H, S, D).
@@ -109,12 +111,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
       * the causal multi-token case (s > 1) through
         ``kernels/flash_attention``.
 
-    The flash kernel also takes a sliding ``window``, but no served
-    model has one, so this function never passes it.  Both kernels are
-    compiled for head dims 64 (smollm-360m) and 128 (granite-8b), up to
-    8 query heads per KV head; on the card any other head dim raises
-    (there is no fallback to the dense path), on the CPU every head dim
-    takes the kernels' plain versions.
+    A sliding ``window`` (query at position p sees keys at positions
+    above p - window, ``layers.py:199-200``) never takes a kernel route,
+    as in JAX (``:164``, ``:171``): the windowed families (mixtral's
+    sliding window, recurrentgemma's local attention) run the dense
+    path.  Both kernels are compiled for head dims 64 (smollm-360m) and
+    128 (granite-8b), decode at any GQA group (above 8 query heads per
+    KV head by sub-groups); on the card any other head dim raises (there
+    is no fallback to the dense path), on the CPU every head dim takes
+    the kernels' plain versions.
 
     Both are online-softmax streams, equal to the dense path up to
     float32 summation order.  Everything else takes the dense path.
@@ -124,12 +129,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the result lands in q's dtype (``layers.py:179-181,210-212``).
     """
     b, h, s, d = q.shape
-    if use_kernel and s == 1 and not causal and kv_len is not None:
+    if (use_kernel and s == 1 and not causal and not window
+            and kv_len is not None):
         from repro_torch.kernels.decode_attention.ops import decode_attention
         out = decode_attention(q[:, :, 0], k, v, _per_row(kv_len, b, q.device),
                                k_scale, v_scale)
         return out[:, :, None, :]
-    if use_kernel and s > 1 and causal:
+    if use_kernel and s > 1 and causal and not window:
         from repro_torch.kernels.flash_attention.ops import flash_attention
         kvl = None if kv_len is None else _per_row(kv_len, b, q.device)
         return flash_attention(q, k, v, _per_row(q_offset, b, q.device), kvl,
@@ -152,6 +158,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = torch.ones((1, s, t), dtype=torch.bool, device=q.device)
     if causal:
         mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
+    if window:
+        mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
     if isinstance(kv_len, torch.Tensor):
         mask = mask & (k_pos[None, None, :]
                        < kv_len.to(torch.int64).reshape(-1, 1, 1))
@@ -191,6 +199,7 @@ def attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, q_offset: int = 0,
+                      window: int = 0,
                       kv_block: int = 1024) -> torch.Tensor:
     """Online-softmax GQA attention streaming K/V in blocks of
     ``kv_block`` keys (``layers.py:252-320``): q (B, H, S, D), k/v
@@ -198,10 +207,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     O(S * T).  A ragged last block is zero-padded and its pad keys
     masked; query i sits at position ``q_offset + i``.  Rows with no key
     yet (every score -inf) are guarded, and a row masked throughout
-    comes out zero, as ``attention``'s does.  Plain PyTorch, on the card
-    too: JAX runs it outside any Pallas kernel.  ``window`` (sliding
-    attention) comes with the families that have it (ROADMAP queue 1,
-    item 15)."""
+    comes out zero, as ``attention``'s does.  ``window`` keeps the keys
+    above position ``q_pos - window`` (``layers.py:296-297``).  Plain
+    PyTorch, on the card too: JAX runs it outside any Pallas kernel."""
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     g = h // hkv
@@ -225,6 +233,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = (k_pos < t)[None, :].expand(s, kv_block)
         if causal:
             mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
         scores = scores.masked_fill(~mask, float("-inf"))
         m_new = torch.maximum(m, scores.amax(dim=-1))
         # Rows masked so far keep m = -inf: shift them by 0 instead.

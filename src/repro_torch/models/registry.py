@@ -1,5 +1,5 @@
-"""Family registry of the port: one model API over the dense and SSM
-families -- the counterpart of ``repro/models/registry.py``.
+"""Family registry of the port: one model API over the dense, MoE, SSM
+and hybrid families -- the counterpart of ``repro/models/registry.py``.
 
   init_params(gen, cfg, device)               -> params
   forward(params, cfg, batch, **kw)           -> logits (B, S, Vpad)
@@ -16,8 +16,9 @@ from repro_torch.models.config import ModelConfig
 
 
 def family_module(cfg: ModelConfig) -> ModuleType:
-    from repro_torch.models import mamba2, transformer
-    return {"dense": transformer, "ssm": mamba2}[cfg.family]
+    from repro_torch.models import mamba2, moe, rglru, transformer
+    return {"dense": transformer, "moe": moe, "ssm": mamba2,
+            "hybrid": rglru}[cfg.family]
 
 
 def init_params(gen, cfg: ModelConfig, device):

@@ -3,7 +3,9 @@ port's counterpart of ``repro/models/transformer.py``: ``init_params``,
 the full-sequence ``forward`` (chunked attention above 2,048 tokens),
 the dense serving calls of the registry (``init_cache``, ``prefill``,
 ``decode_step``, ``verify_step``: one cache position shared by every
-row, the host-driven kv round's per-request admission) and the slot
+row, the host-driven kv round's per-request admission; a
+sliding-window config keeps a ring of ``window`` slots, written at
+``pos % T`` by ``prefill`` and ``decode_step``) and the slot
 calls of the cache arenas (``prefill_slots``, ``decode_step_slots``,
 ``verify_step_slots``) and their paged twins (``*_slots_paged``: the
 same layer code on each layer's view gathered through a page table,
@@ -76,14 +78,24 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
 
 def cache_len(cfg: ModelConfig, max_len: int) -> int:
     """Time slots of a cache for ``max_len`` tokens (``transformer.py:
-    113``): all of them at full attention, the only kind the port's
-    configs have."""
+    113``): all of them at full attention, at most the window for a
+    sliding-window config, whose cache is a ring (position p at slot
+    p % T)."""
+    if cfg.sliding_window:
+        return min(max_len, cfg.sliding_window)
     return max_len
 
 
+def _non_ring(cfg: ModelConfig, call: str) -> None:
+    """The slot and verify calls write T-long windows at a position: a
+    ring cache has no such window (``transformer.py:303,413,467``)."""
+    if cfg.sliding_window:
+        raise ValueError(f"{call}: non-ring caches only")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    """A zeroed full-attention KV cache at position 0
-    (``transformer.py:117``)."""
+    """A zeroed KV cache at position 0 (``transformer.py:117``), sized
+    by ``cache_len``."""
     shape = (cfg.num_layers, batch, cfg.kv_heads, cache_len(cfg, max_len),
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
@@ -155,7 +167,8 @@ def _self_attention(p, cfg, x, positions, chunked: bool):
     (``transformer.py:60``): (projected output, k, v)."""
     q, k, v = _qkv(p, cfg, x, positions)
     attend = L.chunked_attention if chunked else L.attention
-    return L.project_out(p["attn"], attend(q, k, v, causal=True)), k, v
+    out = attend(q, k, v, causal=True, window=cfg.sliding_window)
+    return L.project_out(p["attn"], out), k, v
 
 
 # Above this length ``forward`` and ``prefill`` stream the attention
@@ -244,7 +257,8 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     drafts -> (logits (B, m, Vpad), the cache m positions on), column j
     scoring the continuation after ``tokens[:, :j+1]``.  A quantized
     tree (``serving.quant.quantize_params``) runs its matmuls W8A8
-    (``serving.quant.verify_step_q``)."""
+    (``serving.quant.verify_step_q``).  Non-ring caches only."""
+    _non_ring(cfg, "verify_step")
     pos = int(cache["pos"])
     b, m = tokens.shape
     t = cache["k"].shape[3]
@@ -339,6 +353,7 @@ def _verify_block(p, x, cache_l, *, cfg, pos, m):
 
 def _prefill_slots(params, cfg, tokens, cache, pos, write, t, use_kernel,
                    paged=None) -> None:
+    _non_ring(cfg, "prefill_slots")
     b, m = tokens.shape
     pos = np.asarray(pos, np.int64)
     write = (np.ones(b, bool) if write is None
@@ -423,6 +438,7 @@ def decode_step_slots_paged(params: dict, cfg: ModelConfig,
 
 
 def _verify_step_slots(params, cfg, tokens, cache, pos, paged=None):
+    _non_ring(cfg, "verify_step_slots")
     block = functools.partial(_verify_block, cfg=cfg,
                               pos=pos.to(torch.int64), m=tokens.shape[1])
     x = _run_layers(params, block, _embed(params, tokens), cache, paged)

@@ -541,7 +541,7 @@ decode_int8_mma_kernel(const float* __restrict__ q,
                        const float* __restrict__ v_scale,
                        const int* __restrict__ kv_len,
                        float* __restrict__ out, int H, int Hkv, int T,
-                       int chunk, int tk, int stages) {
+                       int chunk, int tk, int stages, int sub) {
   using QD = QDims<D>;
   constexpr int kKS = D / 16;   // k-steps of S, m-tiles of out^T
   constexpr int kNC = QD::kChunks, kPart = QD::kPart;
@@ -552,7 +552,7 @@ decode_int8_mma_kernel(const float* __restrict__ q,
   const int split = blockIdx.x;
   const int splits = gridDim.x;
   if (splits > 1) cluster_arrive_relaxed();
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int slot = blockIdx.y, kvh = slot / sub, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tig = lane & 3;
   extern __shared__ __align__(16) unsigned char qsmem[];
@@ -585,7 +585,7 @@ decode_int8_mma_kernel(const float* __restrict__ q,
     }
   }
   const float4* qb4 = reinterpret_cast<const float4*>(
-      q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D);
+      q + (static_cast<size_t>(b) * H + static_cast<size_t>(slot) * G) * D);
   for (int i = tid; i < G * D / 4; i += kQThreads) {
     const int gg = i / (D / 4), c4 = i % (D / 4);
     reinterpret_cast<float4*>(q_s + (gg * kNC + c4 / 4) * kQPad)[c4 % 4] =
@@ -793,7 +793,7 @@ decode_int8_mma_kernel(const float* __restrict__ q,
   }
   __syncthreads();
   float* orow =
-      out + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D;
+      out + (static_cast<size_t>(b) * H + static_cast<size_t>(slot) * G) * D;
   float* rpart = bpart;
   if (splits > 1) {
     cluster_wait();
