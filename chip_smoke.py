@@ -28,8 +28,8 @@ when the port's sources are not beside this file.  Phases:
      function (none for the row and joint races: ``torch.min`` on a
      precomputed score is timed as a note only), and
      the bound (bytes over 3.35 TB/s or float32 operations over
-     67 TFLOP/s, whichever is larger); for the flash rows the products
-     at float32 accuracy on the tensor cores (3 TF32 products per float32
+     67 TFLOP/s, whichever is larger); for the flash and decode rows the
+     products at float32 accuracy on the tensor cores (3 TF32 products per float32
      product, 2 for int8 K/V, at 495 TFLOP/s) or the bytes, whichever is
      larger, with the float32-FMA bound beside it as ``bound_fma_ms``.
      The int8 instances of both attention kernels (int8 K/V with
@@ -41,8 +41,10 @@ when the port's sources are not beside this file.  Phases:
      boundary), with SDPA over the dequantized K/V (dequantized once,
      untimed) as the yardstick and the int8 bytes read as the bound.
      The tensor-core flash instances (int8 here, and the two of phase
-     granite) are also held to a float64 evaluation of the same inputs:
-     the kernel's max error at most 4x the plain version's.  Each flash
+     granite) and the decode's tensor-core group instance (phase giants,
+     at the serve shape and over ``GIANT_LONG_T`` keys) are also held to
+     a float64 evaluation of the same inputs: the kernel's max error at
+     most 4x the plain version's.  Each flash
      instance is also checked with ``causal=False`` against its plain
      version at the same inputs (1e-4; no served path passes it).
      The int8 decode and the joint race rows also give ``floor_ms``: the
@@ -292,6 +294,10 @@ SSD_TOL, SSD_TOL_TOTAL, SSM_LOGIT_TOL = 5e-4, 1e-5, 2e-3
 # 16-64 tokens; granite-34b also through kv and with quant=True.
 GIANTS = (("granite-34b", 16, 2), ("llama3-405b", 2, 1))
 GIANT_REQUESTS, GIANT_MAX_NEW, GIANT_PROMPTS = 4, 16, (16, 64)
+# The giants' float32 decode is also checked and timed over K/V of this
+# many keys, every key live (134 MB a set for granite-34b, 1.07 GB for
+# llama3-405b).
+GIANT_LONG_T = 4096
 # Phases moe and hybrid: the reprefill workloads of
 # repro_torch.launch.profile_reprefill.WORKLOADS; mixtral-8x22b's cached
 # calls at 2 layers past its 4,096-key window (prefill, then decode
@@ -730,18 +736,20 @@ def serve_kv_len(torch, dev, b: int, t: int, seed: int):
 
 
 def decode_inputs(torch, dev, b: int, h: int, hkv: int, d: int, t: int,
-                  n_sets: int = 4):
+                  n_sets: int = 4, full: bool = False):
     """q and one (k, v) set per drafter layer (four of the serve arena's
     (b, hkv, t, d) f32: ~121 MB at the serve shape, more than the L2
     cache, so each call finds its K/V cold; ``n_sets`` where a set is
-    smaller), kv_len as the serve draws it."""
+    smaller), kv_len as the serve draws it (``full``: every key live)."""
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 1)
     q = torch.randn((b, h, d), generator=g, device=dev)
     kv_sets = [(torch.randn((b, hkv, t, d), generator=g, device=dev),
                 torch.randn((b, hkv, t, d), generator=g, device=dev))
                for _ in range(n_sets)]
-    return q, kv_sets, serve_kv_len(torch, dev, b, t, SEED + 1)
+    kv_len = (torch.full((b,), t, dtype=torch.int32, device=dev) if full
+              else serve_kv_len(torch, dev, b, t, SEED + 1))
+    return q, kv_sets, kv_len
 
 
 def time_decode(torch, q, kv_sets, kv_len) -> dict:
@@ -757,8 +765,10 @@ def time_decode(torch, q, kv_sets, kv_len) -> dict:
     q4 = q[:, :, None, :]
     calls = [lambda k=k, v=v: decode_attention(q, k, v, kv_len)
              for k, v in kv_sets]
+    # The G <= 8 instance (decode_attention_kernel) or the group instance
+    # (decode_attention_group_kernel).
     return {"ms": time_cycled(calls),
-            "device_ms": device_ms(torch, calls, "decode_attention_kernel"),
+            "device_ms": device_ms(torch, calls, "decode_attention_"),
             "plain_ms": time_cycled([
                 lambda k=k, v=v: decode_attention_plain(q, k, v, kv_len)
                 for k, v in kv_sets]),
@@ -792,14 +802,26 @@ def decode_edges(torch, dev, b: int, t: int, d: int, splits: int,
 
 def decode_bound(b: int, h: int, hkv: int, d: int, keys: float,
                  int8: bool = False):
-    """The bound of one decode call over ``keys`` live keys (the sum of
-    kv_len): q and out, kv_len, and each live key's K and V (int8: plus
-    its two float32 scales) once."""
+    """The bounds of one decode call over ``keys`` live keys (the sum of
+    kv_len).  Bytes: q and out, kv_len, and each live key's K and V
+    (int8: plus its two float32 scales) once, over 3.35 TB/s.
+    ``bound_ms``, as ``flash_bound``'s, the larger of the bytes' time and
+    the (head, key) products (4 D flops a pair) at float32 accuracy on
+    the tensor cores: 3 TF32 products per float32 product (2 for int8
+    K/V, exact in TF32) at 495 TFLOP/s.  ``bound_fma_ms``: the larger of
+    the bytes' time and 4 D + 4 flops a pair (int8: 4 D + 6) at the
+    float32 FMA rate.  Returns (bound_ms, bound_by, bound_fma_ms)."""
+    pairs = h * keys
     if int8:
-        return bound(4 * (2 * b * h * d + b) + 2 * hkv * keys * (d + 4),
-                     h * keys * (4 * d + 6))
-    return bound(4 * (2 * b * h * d + 2 * hkv * keys * d + b),
-                 h * keys * (4 * d + 4))
+        nbytes = 4 * (2 * b * h * d + b) + 2 * hkv * keys * (d + 4)
+        fma_flops = pairs * (4 * d + 6)
+    else:
+        nbytes = 4 * (2 * b * h * d + 2 * hkv * keys * d + b)
+        fma_flops = pairs * (4 * d + 4)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_tc = (2 if int8 else 3) * pairs * 4 * d / PEAK_TF32_FLOPS * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_tc else (t_tc, "operations")) \
+        + (bound(nbytes, fma_flops)[0],)
 
 
 def time_decode_int8(torch, q, sets, kv_len, kf, vf) -> dict:
@@ -825,13 +847,61 @@ def time_decode_int8(torch, q, sets, kv_len, kf, vf) -> dict:
                 q[:, :, None, :], kf, vf, attn_mask=mask, enable_gqa=True))}
 
 
-def kernel_decode(torch, dev, cfg, t: int):
+def decode_float64(torch, q, k, v, kv_len):
+    """One float32 decode evaluated in float64, with the plain version's
+    masked-row contract (``masked_softmax``)."""
+    from repro_torch.kernels.flash_attention.ref import masked_softmax
+    b, h, d = q.shape
+    hkv, t = k.shape[1:3]
+    qr = q.double().reshape(b, hkv, h // hkv, d)
+    s = torch.einsum("bhgd,bhtd->bhgt", qr, k.double()) / d ** 0.5
+    live = (torch.arange(t, device=q.device)[None, :]
+            < kv_len.long()[:, None])[:, None, None, :]
+    w = masked_softmax(s, live)
+    return torch.einsum("bhgt,bhtd->bhgd", w, v.double()).reshape(b, h, d)
+
+
+def decode_err64(torch, q, k, v, kv_len, name: str):
+    """(kernel, plain) max abs error against ``decode_float64`` on one
+    set: the group instance's 3 TF32 products a product are held to 4x
+    the plain version's error, the rule of the tensor-core flash."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_plain)
+    want = decode_float64(torch, q, k, v, kv_len)
+    err64 = tuple(float((o.double() - want).abs().max()) for o in (
+        decode_attention(q, k, v, kv_len),
+        decode_attention_plain(q, k, v, kv_len)))
+    assert err64[0] <= 4 * err64[1], \
+        f"{name} error against float64 {err64[0]} > 4 x plain's {err64[1]}"
+    return err64
+
+
+def decode_floor_ms(torch, q, kv_sets, kv_len, splits: int,
+                    chunk: int) -> float:
+    """Device ms per launch of the group instance's floor (the
+    extension's ``decode_attention_group_floor``: its grid, clusters,
+    copies and merge, no arithmetic) at the plan, cycling through
+    ``kv_sets``."""
+    from repro_torch.kernels.build import load_kernels
+    floor = load_kernels().decode_attention_group_floor
+    kvl = kv_len.to(torch.int32)
+    return device_ms(torch, [lambda k=k, v=v: floor(q, k, v, kvl, splits,
+                                                    chunk)
+                             for k, v in kv_sets], "decode_attention_group")
+
+
+def kernel_decode(torch, dev, cfg, t: int, smi: str = "",
+                  long_t: int = 0):
     """``decode_attention`` against its plain version at the serve shape,
     on the serve's kv_len and on the edges of the kernel's split plan and
     tiles (``decode_edges``); timed on cold K/V.  The instance is the
     config's head dim's and group's (``decode_attention`` at 64,
     ``decode_attention_d128`` at 128, ``..._g<G>`` for a group above 8,
-    served by sub-groups of 8)."""
+    the group instance, timed beside its floor).  ``long_t``: also the
+    same instance over K/V of ``long_t`` keys, every key live, checked on
+    one set and timed on cold sets with its bound, logged on a line of
+    its own."""
     from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                           decode_launch_name,
                                                           decode_split_plan)
@@ -840,6 +910,7 @@ def kernel_decode(torch, dev, cfg, t: int):
     b, h, hkv, d = S_SLOTS * K_DRAFTS, cfg.num_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
     group = h // hkv
+    name = decode_launch_name(d, False, group)
     # The giants' sets are small (2.8-22 MB): enough of them for three L2
     # caches.
     q, kv_sets, kv_len = decode_inputs(
@@ -858,9 +929,13 @@ def kernel_decode(torch, dev, cfg, t: int):
         assert bool((out_k[lens == 0] == 0).all()), \
             "kv_len == 0 row is not zero"
     keys = float(kv_len.sum())
-    t_bound, by = decode_bound(b, h, hkv, d, keys)
-    return {
-        "name": decode_launch_name(d, False, group), "route": "cuda",
+    t_bound, by, t_fma = decode_bound(b, h, hkv, d, keys)
+    floor = ({"floor_ms": decode_floor_ms(torch, q, kv_sets, kv_len, splits,
+                                          chunk),
+              "err64": decode_err64(torch, q, k, v, kv_len, name)}
+             if group > 8 else {})
+    kr = {
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attention/"
                   "decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:83",
@@ -869,9 +944,49 @@ def kernel_decode(torch, dev, cfg, t: int):
                  f"(cold L2), {int(keys)} live keys",
         "max_abs_err": err,
         **time_decode(torch, q, kv_sets, kv_len),
+        **floor,
         "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa)",
-        "bound_ms": t_bound, "bound_by": by,
+        "bound_ms": t_bound, "bound_by": by, "bound_fma_ms": t_fma,
     }
+    del q, kv_sets
+    if long_t:
+        log_kernel(kernel_decode_long(torch, dev, b, h, hkv, d, long_t,
+                                      name), smi)
+    return kr
+
+
+def kernel_decode_long(torch, dev, b: int, h: int, hkv: int, d: int,
+                       t: int, name: str) -> dict:
+    """The float32 decode instance over K/V of ``t`` keys with every key
+    live (cold sets worth three L2 caches, at least four): against plain
+    on the first set, timed beside its floor, plain, SDPA and bound."""
+    from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_split_plan)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_plain)
+    q, kv_sets, kv_len = decode_inputs(torch, dev, b, h, hkv, d, t,
+                                       cold_sets(8 * b * hkv * t * d),
+                                       full=True)
+    group = h // hkv
+    splits, chunk = decode_split_plan(b, hkv, t, head_dim=d, group=group)
+    err = float((decode_attention(q, *kv_sets[0], kv_len)
+                 - decode_attention_plain(q, *kv_sets[0], kv_len)).abs()
+                .max())
+    assert err <= 1e-4, f"{name} at T = {t}: max abs err {err}"
+    err64 = decode_err64(torch, q, *kv_sets[0], kv_len, f"{name} at T = {t}")
+    t_bound, by, t_fma = decode_bound(b, h, hkv, d, float(b * t))
+    kr = {"name": f"{name} at T = {t}", "max_abs_err": err, "err64": err64,
+          "shape": f"q ({b}, {h}, {d}), k/v ({b}, {hkv}, {t}, {d}) f32, "
+                   f"every key live, {splits} splits of {chunk} keys, "
+                   f"{len(kv_sets)} K/V sets (cold L2)",
+          **time_decode(torch, q, kv_sets, kv_len),
+          "floor_ms": decode_floor_ms(torch, q, kv_sets, kv_len, splits,
+                                      chunk),
+          "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa)",
+          "bound_ms": t_bound, "bound_by": by, "bound_fma_ms": t_fma}
+    del q, kv_sets
+    gc_collect(torch)
+    return kr
 
 
 def flash_inputs(torch, dev, b: int, h: int, hkv: int, d: int, s: int,
@@ -1038,15 +1153,18 @@ def int8_kv_sets(torch, dev, b: int, hkv: int, t: int, d: int, n: int,
 
 
 def decode_int8_inputs(torch, dev, b: int, h: int, hkv: int, d: int,
-                       t: int):
+                       t: int, full: bool = False):
     """q, int8 K/V sets worth three L2 caches (``int8_kv_sets``), the
-    first set dequantized, and the serve's kv_len draw."""
+    first set dequantized, and the serve's kv_len draw (``full``: every
+    key live)."""
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 11)
     q = torch.randn((b, h, d), generator=g, device=dev)
     n_sets = cold_sets(2 * b * hkv * t * (d + 4))
     sets, kvf = int8_kv_sets(torch, dev, b, hkv, t, d, n_sets, SEED + 12)
-    return q, sets, kvf, serve_kv_len(torch, dev, b, t, SEED + 11)
+    kv_len = (torch.full((b,), t, dtype=torch.int32, device=dev) if full
+              else serve_kv_len(torch, dev, b, t, SEED + 11))
+    return q, sets, kvf, kv_len
 
 
 def kernel_decode_int8(torch, dev, cfg, t: int):
@@ -1088,7 +1206,7 @@ def kernel_decode_int8(torch, dev, cfg, t: int):
     floor_calls = [lambda s_=s_: floor(q, s_[0], s_[1], s_[2], s_[3], kvl,
                                        splits, chunk) for s_ in sets]
     keys = float(kv_len.sum())
-    t_bound, by = decode_bound(b, h, hkv, d, keys, int8=True)
+    t_bound, by, t_fma = decode_bound(b, h, hkv, d, keys, int8=True)
     return {
         "name": name,
         "route": "cuda",
@@ -1105,7 +1223,7 @@ def kernel_decode_int8(torch, dev, cfg, t: int):
         "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa) "
                    "on K/V dequantized once beforehand (untimed), one warm "
                    "set",
-        "bound_ms": t_bound, "bound_by": by,
+        "bound_ms": t_bound, "bound_by": by, "bound_fma_ms": t_fma,
     }
 
 
@@ -2594,7 +2712,9 @@ def phase_giant(torch, dev, arch: str, target_layers: int,
                 draft_layers: int, smi: str):
     """One dense giant at its published widths, depth cut: the decode
     kernel's float32 and int8 instances at the model's group against
-    plain at the serve shape (a group above 8 runs as sub-groups of 8),
+    plain at the serve shape (a group above 8: float32 on the group
+    instance, timed beside its floor and also over GIANT_LONG_T keys;
+    int8 as sub-groups of 8),
     the D = 128 flash instances at its admission shape against plain and
     float64 (as phase granite holds them); then the pair (target and
     drafter as separate trees, ``launch.serve.build_pair``) served
@@ -2612,7 +2732,7 @@ def phase_giant(torch, dev, arch: str, target_layers: int,
     cfg0 = get_config(arch).replace(num_layers=target_layers)
     buf = giant_buf_len()
     group = cfg0.num_heads // cfg0.kv_heads
-    kernels = [kernel_decode(torch, dev, cfg0, buf),
+    kernels = [kernel_decode(torch, dev, cfg0, buf, smi, GIANT_LONG_T),
                kernel_decode_int8(torch, dev, cfg0, buf)]
     for kr in kernels:
         log_kernel(kr, smi)
@@ -2989,7 +3109,7 @@ def main() -> int:
     log(f"phase granite: {time.perf_counter() - t0:.1f}s")
 
     # Phase giants: granite-34b (group 48) and llama3-405b (group 16)
-    # through kv_fused on the decode kernel's sub-groups.
+    # through kv_fused on the decode kernel's group instance.
     giant_kernels = []
     for arch, target_layers, draft_layers in GIANTS:
         t0 = time.perf_counter()

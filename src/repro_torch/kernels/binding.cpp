@@ -41,9 +41,14 @@ cudaError_t launch_decode_attention_int8_floor(
     const float* q, const int8_t* k, const int8_t* v, const float* k_scale,
     const float* v_scale, const int* kv_len, float* out, int B, int H,
     int Hkv, int T, int D, int splits, int chunk, cudaStream_t stream);
+cudaError_t launch_decode_attention_group_floor(
+    const float* q, const float* k, const float* v, const int* kv_len,
+    float* out, int B, int H, int Hkv, int T, int D, int splits, int chunk,
+    cudaStream_t stream);
 bool decode_attention_has_head_dim(int d);
 int decode_attention_subgroup(int group);
 int decode_attention_max_splits();
+int decode_group_slots(int group);
 cudaError_t launch_flash_attention(const float* q, const float* k,
                                    const float* v, const int* q_offset,
                                    const int* kv_len, float* out, int B, int H,
@@ -279,9 +284,19 @@ std::vector<torch::Tensor> gls_race_floor(torch::Tensor log_s,
                     log_q, active, kc);
 }
 
-torch::Tensor decode_attention(torch::Tensor q, torch::Tensor k,
-                               torch::Tensor v, torch::Tensor kv_len,
-                               int64_t splits, int64_t chunk) {
+using DecodeLaunch = cudaError_t (*)(const float*, const float*,
+                                     const float*, const int*, float*, int,
+                                     int, int, int, int, int, int,
+                                     cudaStream_t);
+
+// The float32 decode, or the floor of its group instance (`group_only`:
+// a GQA group above 8 at head dim 128), at the split plan (splits,
+// chunk).
+torch::Tensor decode_f32(const char* name, DecodeLaunch launch,
+                         bool group_only, torch::Tensor q, torch::Tensor k,
+                         torch::Tensor v, torch::Tensor kv_len,
+                         int64_t splits, int64_t chunk) {
+  const std::string what(name);
   check_tensor(q, "q", torch::kFloat32, 3);
   check_tensor(k, "k", torch::kFloat32, 4);
   check_tensor(v, "v", torch::kFloat32, 4);
@@ -295,22 +310,23 @@ torch::Tensor decode_attention(torch::Tensor q, torch::Tensor k,
   TORCH_CHECK(k.size(0) == B && k.size(3) == D, "q/k shape mismatch");
   TORCH_CHECK(kv_len.size(0) == B, "kv_len must be (B,)");
   TORCH_CHECK(Hkv > 0 && H % Hkv == 0, "H must be a multiple of Hkv");
-  check_head_dim("decode_attention", D,
+  check_head_dim(name, D,
                  decode_attention_has_head_dim(static_cast<int>(D)));
-  TORCH_CHECK(H / decode_attention_subgroup(static_cast<int>(H / Hkv)) <
-                  65536,
-              "decode_attention: too many head slots");
-  TORCH_CHECK(B < 65536 && Hkv < 65536 && T < (1 << 24),
-              "decode_attention: unsupported shape");
-  check_split_plan("decode_attention", splits, chunk, T,
-                   decode_attention_max_splits(), 1);
-  check_aligned16("decode_attention: q, k and v", q);
-  check_aligned16("decode_attention: q, k and v", k);
-  check_aligned16("decode_attention: q, k and v", v);
+  const int64_t group = H / Hkv;
+  TORCH_CHECK(!group_only || (group > 8 && D == 128),
+              what + ": compiled for a GQA group above 8 at head dim 128");
+  TORCH_CHECK(B < 65536 && Hkv * decode_group_slots(group) < 65536 &&
+                  T < (1 << 24),
+              what + ": unsupported shape");
+  check_split_plan(name, splits, chunk, T, decode_attention_max_splits(), 1);
+  const std::string aligned = what + ": q, k and v";
+  check_aligned16(aligned.c_str(), q);
+  check_aligned16(aligned.c_str(), k);
+  check_aligned16(aligned.c_str(), v);
   const c10::cuda::CUDAGuard guard(q.device());
   auto out = torch::empty_like(q);
   if (B == 0 || H == 0) return out;
-  check_launch("decode_attention", launch_decode_attention(
+  check_launch(name, launch(
       q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
       kv_len.data_ptr<int>(), out.data_ptr<float>(), static_cast<int>(B),
       static_cast<int>(H), static_cast<int>(Hkv), static_cast<int>(T),
@@ -318,6 +334,22 @@ torch::Tensor decode_attention(torch::Tensor q, torch::Tensor k,
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
+}
+
+torch::Tensor decode_attention(torch::Tensor q, torch::Tensor k,
+                               torch::Tensor v, torch::Tensor kv_len,
+                               int64_t splits, int64_t chunk) {
+  return decode_f32("decode_attention", launch_decode_attention, false, q,
+                    k, v, kv_len, splits, chunk);
+}
+
+torch::Tensor decode_attention_group_floor(torch::Tensor q, torch::Tensor k,
+                                           torch::Tensor v,
+                                           torch::Tensor kv_len,
+                                           int64_t splits, int64_t chunk) {
+  return decode_f32("decode_attention_group_floor",
+                    launch_decode_attention_group_floor, true, q, k, v,
+                    kv_len, splits, chunk);
 }
 
 using Int8DecodeLaunch = cudaError_t (*)(const float*, const int8_t*,
@@ -543,6 +575,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("decode_attention", &decode_attention,
         "one-query GQA decode attention over a KV cache, each row's keys "
         "split over a cluster of `splits` blocks of `chunk` keys");
+  m.def("decode_attention_group_floor", &decode_attention_group_floor,
+        "the floor of decode_attention's instance for a GQA group above 8 "
+        "(its grid, clusters, copies and merge, no arithmetic; out zero), "
+        "for measurement only");
   m.def("decode_attention_int8", &decode_attention_int8,
         "decode_attention over int8 K/V with per-KV-vector float32 scales");
   m.def("decode_attention_int8_floor", &decode_attention_int8_floor,

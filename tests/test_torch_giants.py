@@ -3,9 +3,11 @@ llama3-405b (128 over 8: group 16), in the port against the JAX package
 on the CPU, and the decode kernel at their groups on the card.
 
 * The port's configs equal JAX's field by field (served in float32).
-* ``decode_subgroup`` and ``decode_split_plan`` over sub-groups: 48 and
-  16 run as sub-groups of 8, the plan counts Hkv x group / 8 head slots
-  and still partitions the keys.
+* ``decode_subgroup`` and ``decode_split_plan`` at the giants' groups:
+  float32 plans over the (row, KV head) clusters of the group instance
+  (the keys partitioned, at most 8 splits, the grid resident at its
+  shared-memory layout, which fits a block's 227 KB); int8 runs as
+  sub-groups of 8, its plan counting Hkv x group / 8 head slots.
 * Small models that keep head dim 128 and the giants' groups (48 query
   heads over 1 KV head; 16 over 1, llama3's group at one KV head), built
   from JAX's parameters: ``forward`` logits, the slot calls on the kernel
@@ -15,9 +17,10 @@ on the CPU, and the decode kernel at their groups on the card.
 * The kv_fused ``SpecDecServer`` emits JAX's token streams on those
   models (``decode_kernel=True``), float32 and ``quant=True``, exactly.
 * ``cuda``: the float32 and int8 decode at groups 16 and 48 (D = 128)
-  within 1e-4 of plain on the split plan's edges, each launch counted
-  once under ``decode_attention[_int8]_d128_g<group>``, and the paged
-  entry point equal to the contiguous kernel bit for bit.
+  within 1e-4 of plain on the split plan's and tiles' edges, up to 4,096
+  keys, each launch counted once under
+  ``decode_attention[_int8]_d128_g<group>``, and the paged entry point
+  equal to the contiguous kernel bit for bit.
 
 The JAX side is imported inside the CPU fixtures, so the ``cuda`` tests
 run on a machine with the card and no JAX:
@@ -28,10 +31,16 @@ import pytest
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config
-from repro_torch.kernels.decode_attention.ops import (decode_attention,
+from repro_torch.kernels.decode_attention.ops import (SMEM_PER_BLOCK,
+                                                      decode_attention,
                                                       decode_attention_paged,
                                                       decode_split_plan,
-                                                      decode_subgroup)
+                                                      decode_subgroup,
+                                                      group_blocks_per_sm,
+                                                      group_slices,
+                                                      group_slots,
+                                                      group_smem_bytes)
+from repro_torch.kernels.mode import H100_SMS
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 from repro_torch.kernels.mode import MAX_CLUSTER, launch_counts
 
@@ -72,19 +81,68 @@ def test_decode_subgroup(group, sub):
 
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("b,hkv,group", [(32, 1, 48), (32, 8, 16),
-                                         (4, 1, 48), (1, 8, 16)])
+                                         (4, 1, 48), (1, 8, 16),
+                                         (8, 2, 56)])
 @pytest.mark.parametrize("t", [1, 33, 370, 4096])
 def test_decode_split_plan_over_subgroups(b, hkv, group, t, int8):
-    """The plan partitions the keys, and a group above 8 plans as its
-    head slots would: the same plan as group 8 at hkv x group / 8 KV
-    heads."""
+    """The plan partitions the keys.  Float32 plans over the (row, KV
+    head) clusters of the group instance (one a head slot above 48
+    heads): its layout fits a block's 227 KB; one split while the row's
+    32-key tiles are no more than the block's key slices; more splits
+    only with every slice a tile a block and the grid within three
+    quarters of the blocks the SMs hold.  int8 plans as its head slots
+    would: the same plan as group 8 at hkv x group / 8 KV heads."""
     splits, chunk = decode_split_plan(b, hkv, t, head_dim=128, int8=int8,
                                       group=group)
     assert 1 <= splits <= MAX_CLUSTER
     assert (splits - 1) * chunk < t <= splits * chunk
-    slots = hkv * group // decode_subgroup(group)
-    assert (splits, chunk) == decode_split_plan(b, slots, t, head_dim=128,
-                                                int8=int8, group=8)
+    if int8:
+        slots = hkv * group // decode_subgroup(group)
+        assert (splits, chunk) == decode_split_plan(
+            b, slots, t, head_dim=128, int8=int8, group=8)
+        return
+    assert group_smem_bytes(128, group) <= SMEM_PER_BLOCK
+    per_sm = group_blocks_per_sm(128, group)
+    clusters = b * hkv * group_slots(group)[0]
+    slices = group_slices(group)[1]
+    assert clusters * splits <= H100_SMS * per_sm
+    if -(-t // 32) <= slices:
+        assert splits == 1
+    elif splits > 1:
+        assert clusters * splits <= 3 * H100_SMS * per_sm // 4
+        assert chunk >= 32 * slices
+
+
+@pytest.mark.parametrize("group,slots,heads", [(9, 1, 9), (48, 1, 48),
+                                               (49, 2, 25), (56, 2, 28),
+                                               (96, 2, 48), (128, 3, 43)])
+def test_group_slots(group, slots, heads):
+    """A float32 group above 48 runs as the fewest head slots of at most
+    48 heads; the slots cover the group."""
+    assert group_slots(group) == (slots, heads)
+    assert heads <= 48 and (slots - 1) * heads < group <= slots * heads
+
+
+# (head dim, group, bytes, blocks an SM): max(KS stages x 2 x 32 x D,
+# (16 MT KS + 16 MT + 8) x (D + 4)) + 16 MT x (D + 16) floats, then 2 KS
+# mbarriers: granite-34b's group (3 m-tiles, 4 slices: the stages over
+# the partials, one block an SM by its registers), llama3-405b's (1
+# m-tile, 2 slices: 3 blocks an SM by shared memory), 32 heads (2
+# m-tiles), and D = 64 at 3 m-tiles (the partials outgrow the stages).
+GROUP_LAYOUTS = [(128, 48, 4 * (32768 + 6912) + 64, 1),
+                 (128, 16, 4 * (16384 + 2304) + 32, 3),
+                 (128, 32, 4 * (16384 + 4608) + 32, 2),
+                 (64, 48, 4 * (16864 + 3840) + 64, 1)]
+
+
+@pytest.mark.parametrize("head_dim,group,nbytes,blocks", GROUP_LAYOUTS)
+def test_group_smem_bytes_counts_the_layout(head_dim, group, nbytes,
+                                            blocks):
+    """``group_smem_bytes`` counts the group instance's layout (the
+    stages, the warps' and the cluster's partials over them, q, the
+    barriers), and ``group_blocks_per_sm`` the blocks an SM holds."""
+    assert group_smem_bytes(head_dim, group) == nbytes
+    assert group_blocks_per_sm(head_dim, group) == blocks
 
 
 # ---------------------------------------------------------------------------
@@ -245,9 +303,29 @@ def cuda():
 
 
 def _edges(b, t, splits, chunk):
-    edges = [0, 1, chunk, chunk - 1, chunk + 1, (splits - 1) * chunk, 32,
-             33, 64, 65, 128, 129, t - 1, t]
+    """kv_len on the plan's split edges (a boundary, one key either side,
+    the last split's start) and the tiles' (32-key float32 group tiles,
+    128-key int8 tiles at D = 128: one short, on, one past, and a second
+    tile into a split), repeated over the b rows."""
+    edges = [0, 1, chunk, chunk - 1, chunk + 1, (splits - 1) * chunk,
+             (splits - 1) * chunk + 1, 32, 33, 64, 65, 128, 129,
+             chunk + 32, chunk + 33, t - 1, t]
     return np.array([min(max(e, 0), t) for e in edges] * b, np.int32)[:b]
+
+
+def _float64_decode(q, k, v, kv_len):
+    """The decode evaluated in float64 with the plain version's
+    masked-row contract."""
+    from repro_torch.kernels.flash_attention.ref import masked_softmax
+    b, h, d = q.shape
+    hkv, t = k.shape[1:3]
+    s = torch.einsum("bhgd,bhtd->bhgt",
+                     q.double().reshape(b, hkv, h // hkv, d),
+                     k.double()) / d ** 0.5
+    live = (torch.arange(t, device=q.device)[None, :]
+            < kv_len.long()[:, None])[:, None, None, :]
+    return torch.einsum("bhgt,bhtd->bhgd", masked_softmax(s, live),
+                        v.double()).reshape(b, h, d)
 
 
 def _int8_kv(gen, b, hkv, t, dev):
@@ -264,14 +342,16 @@ CARD_CASES = [(32, 1, 48), (32, 8, 16), (5, 1, 48), (3, 8, 16)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("t", [1, 32, 33, 128, 129, 370])
+@pytest.mark.parametrize("t", [1, 32, 33, 128, 129, 370, 4096])
 @pytest.mark.parametrize("b,hkv,group", CARD_CASES)
 def test_decode_kernel_at_giant_groups_on_card(cuda, b, hkv, group, t,
                                                int8):
-    """The D = 128 instance at group 16 and 48 (sub-groups of 8) within
-    1e-4 of plain with kv_len on the plan's split and tile edges; a
-    kv_len == 0 row is exactly zero; the launch counts once under its
-    group's name."""
+    """The D = 128 instance at group 16 and 48 (float32: the group
+    instance; int8: sub-groups of 8) within 1e-4 of plain with kv_len on
+    the plan's split and tile edges; a kv_len == 0 row is exactly zero;
+    the launch counts once under its group's name.  The float32 group
+    instance's 3 TF32 products a product: its error against float64 at
+    most 4x plain's (at least 1e-6: with one key plain is exact)."""
     gen = torch.Generator(device=cuda).manual_seed(t + group + int8)
     q = torch.randn(b, hkv * group, 128, device=cuda, generator=gen)
     if int8:
@@ -292,6 +372,11 @@ def test_decode_kernel_at_giant_groups_on_card(cuda, b, hkv, group, t,
     assert launch_counts[name] == before.get(name, 0) + 1
     plain_name = f"decode_attention{'_int8' if int8 else ''}_d128"
     assert launch_counts[plain_name] == before.get(plain_name, 0)
+    if not int8:
+        want = _float64_decode(q, k, v, kvl)
+        err64 = float((out.double() - want).abs().max())
+        plain64 = float((ref.double() - want).abs().max())
+        assert err64 <= 4 * max(plain64, 1e-6)
 
 
 @pytest.mark.cuda
@@ -330,3 +415,62 @@ def test_paged_decode_at_giant_groups_on_card(cuda, hkv, group, int8):
     assert torch.equal(got, want)
     ref = decode_attention_plain(q, *view[:2], kv_len, *view[2:])
     assert float((got - ref).abs().max()) <= KERNEL_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,hkv,group,t", [(128, 2, 9, 300), (128, 1, 12, 77),
+                                           (64, 2, 16, 200), (64, 1, 48, 65),
+                                           (128, 3, 40, 1000),
+                                           (128, 2, 56, 300),
+                                           (64, 1, 100, 90),
+                                           (128, 1, 128, 4096)])
+def test_decode_group_instance_other_groups_on_card(cuda, d, hkv, group, t):
+    """The float32 group instance at groups that leave warps short of
+    heads (9: warp 4 one head, warps 5-7 none; 12, 40), at D = 64 and
+    above 48 heads (head slots: 56 as 2 of 28, 100 as 3 of 34, 128 as 3
+    of 43, the last slot short), within 1e-4 of plain on its plan's
+    edges; kv_len == 0 rows zero."""
+    gen = torch.Generator(device=cuda).manual_seed(group + d + t)
+    b = 6
+    q = torch.randn(b, hkv * group, d, device=cuda, generator=gen)
+    k, v = (torch.randn(b, hkv, t, d, device=cuda, generator=gen)
+            for _ in range(2))
+    splits, chunk = decode_split_plan(b, hkv, t, head_dim=d, group=group)
+    kvl = torch.from_numpy(_edges(b, t, splits, chunk)).to(cuda)
+    kvl[1:] = torch.tensor([t, chunk + 1, 33, (splits - 1) * chunk + 1,
+                            t - 1][:b - 1], dtype=torch.int32)
+    out = decode_attention(q, k, v, kvl)
+    ref = decode_attention_plain(q, k, v, kvl)
+    assert float((out - ref).abs().max()) <= KERNEL_ATOL
+    assert bool((out[kvl == 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_decode_group_floor_and_limit_on_card(cuda):
+    """The group instance's floor (no arithmetic, out zero) runs at
+    granite-34b's serve shape and counts no launch; it is compiled at
+    head dim 128 only, and a float32 group above 48 runs on head slots,
+    the launch counted under its group's name."""
+    from repro_torch.kernels.build import load_kernels
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(32, 48, 128, device=cuda, generator=gen)
+    k, v = (torch.randn(32, 1, 86, 128, device=cuda, generator=gen)
+            for _ in range(2))
+    kvl = torch.full((32,), 86, dtype=torch.int32, device=cuda)
+    splits, chunk = decode_split_plan(32, 1, 86, head_dim=128, group=48)
+    before = dict(launch_counts)
+    out = load_kernels().decode_attention_group_floor(q, k, v, kvl, splits,
+                                                      chunk)
+    torch.cuda.synchronize()
+    assert bool((out == 0).all())
+    assert dict(launch_counts) == before
+    with pytest.raises(RuntimeError, match="at head dim 128"):
+        load_kernels().decode_attention_group_floor(
+            q[..., :64].contiguous(), k[..., :64].contiguous(),
+            v[..., :64].contiguous(), kvl, splits, chunk)
+    q56 = torch.randn(2, 56, 128, device=cuda, generator=gen)
+    out = decode_attention(q56, k[:2], v[:2], kvl[:2])
+    ref = decode_attention_plain(q56, k[:2], v[:2], kvl[:2])
+    assert float((out - ref).abs().max()) <= KERNEL_ATOL
+    assert launch_counts["decode_attention_d128_g56"] == \
+        before.get("decode_attention_d128_g56", 0) + 1

@@ -1,9 +1,11 @@
 """Time variants of the port's CUDA kernels.
 
   python3 tools/kernel_variants.py [--only KIND ...] [--parent DIR]
+                                   [--match SUFFIX ...]
 
 KIND is one of ssd, flash, flash_int8, flash_d128, flash_int8_d128,
-decode, decode_int8, decode_int8_d128, race, joint (default: all).
+decode, decode_g48, decode_g16, decode_int8, decode_int8_d128, race,
+joint (default: all).
 
 Needs one CUDA card and ``nvcc``.  A variant is a kernel's shipped source
 (``src/repro_torch/kernels/<kernel>/<kernel>.cu``) with a few text
@@ -37,7 +39,14 @@ q (32, 15, 64), four (32, 5, 370, 64) K/V sets and the serve's kv_len;
 its int8 instance: the same q against int8 K/V sets with float32 scales,
 worth three L2 caches, and at D = 128 granite-8b's q (32, 32, 128)
 against (32, 8, 370, 128); ``gls_row_race``: (20, 8, 49152) and (5, 8,
-50280); ``gls_race``: ``chip_smoke.joint_inputs`` at (20, 8, 49152)),
+50280); ``gls_race``: ``chip_smoke.joint_inputs`` at (20, 8, 49152);
+the float32 group instance of ``decode_attention``: granite-34b's q (32,
+48, 128) over (32, 1, T, 128) and llama3-405b's q (32, 128, 128) over
+(32, 8, T, 128), each at T = 86 with the serve's kv_len and at T = 4,096
+with every key live, its check also giving the error against a float64
+evaluation beside the plain version's, beside its floor and, with
+``--parent`` given the tree before it, the sub-group design it
+replaced),
 every variant is checked against the kernel's plain version
 (``ssd_chunk`` 5e-4 abs + rel on y and the states, 1e-5 on the total;
 attention 1e-4 abs; the races bitwise; floors and probes, which drop
@@ -48,10 +57,13 @@ their input sets as ``chip_smoke.py`` does, so each call finds its inputs
 cold in L2, and also report their device time per call from
 ``torch.profiler``.  A variant may fix the split plan (``splits``, or
 the joint race's drafts a block ``kc``) that the wrapper would choose.
-Prints per variant: registers and spills (ptxas), resident blocks per SM
-(the occupancy API), the two times (and the device time) and the max abs
-error, then the card's name and power limit.  Exits non-zero when a
-variant does not build or disagrees with the plain version.
+``--match`` keeps only the variants whose names end with one of the
+given strings.  Prints per variant: registers, stack and spills
+(ptxas), resident blocks per SM (the occupancy API; for the group
+instance also the clusters of 4 the card holds), the two times (and the
+device time) and the max abs error, then the card's name and power
+limit.  Exits non-zero when a variant does not build or disagrees with
+the plain version.
 """
 
 from __future__ import annotations
@@ -362,13 +374,15 @@ DECODE_LIVE_RANGES = [
   const int k0 = first < len ? static_cast<int>(first) : len;
   const int n = min(chunk, len - k0);
   const int n_tiles = (n + tk - 1) / tk;
-  const size_t kv_base =""",
+  const size_t kv_base =
+      ((static_cast<size_t>(b) * Hkv + kvh) * T + k0) * kD;""",
      """  const int cb = (len + splits - 1) / splits;
   const long long first = static_cast<long long>(split) * cb;
   const int k0 = first < len ? static_cast<int>(first) : len;
   const int n = min(cb, len - k0);
   const int n_tiles = (n + tk - 1) / tk;
-  const size_t kv_base ="""),
+  const size_t kv_base =
+      ((static_cast<size_t>(b) * Hkv + kvh) * T + k0) * kD;"""),
 ]
 # Two warps a block: 64 threads, 32-key tiles.
 DECODE_2_WARPS = [("constexpr int kWarps = 4;", "constexpr int kWarps = 2;")]
@@ -400,6 +414,103 @@ DECODE_TWO_PASS_ENTRY = DECODE_ENTRY.replace(
     "                        static_cast<cudaStream_t>(stream)>>>(\n"
     "      out, H, Hkv, splits);\n"
     "  return static_cast<int>(cudaPeekAtLastError());\n}", 1)
+
+# --- decode_attention, float32 group instance (a GQA group above 8) ----------
+
+# At group @G@ (head dim 128) through the shipped launcher.
+DECODE_GROUP_ENTRY = """
+extern "C" int variant_launch(const float* q, const float* k, const float* v,
+                              const int* kv_len, float* out, int B, int H,
+                              int Hkv, int T, int splits, int chunk,
+                              void* stream) {
+  const cudaError_t err = @LAUNCH@(
+      q, k, v, kv_len, out, B, H, Hkv, T, 128, splits, chunk,
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaPeekAtLastError());
+}
+using VariantLayout = GLayout<128, (@G@ + 15) / 16>;
+const auto kVariantKernel =
+    decode_attention_group_kernel<128, (@G@ + 15) / 16, @FLOOR@>;
+extern "C" int variant_blocks_per_sm() {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, kVariantKernel, 32 * VariantLayout::kWarps, VariantLayout::kBytes);
+  return n;
+}
+// Clusters of `splits` blocks the card holds at once.
+extern "C" int variant_max_clusters(int splits) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, 32, 32);
+  cfg.blockDim = dim3(32 * VariantLayout::kWarps);
+  cfg.dynamicSmemBytes = VariantLayout::kBytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  cudaOccupancyMaxActiveClusters(&n, kVariantKernel, &cfg);
+  return n;
+}
+"""
+# The sub-group design the group instance replaced (G = 8 instances over
+# Hkv x group / 8 head slots), from a tree given by ``--parent``.
+PARENT_DECODE_GROUP_ENTRY = """
+extern "C" int variant_launch(const float* q, const float* k, const float* v,
+                              const int* kv_len, float* out, int B, int H,
+                              int Hkv, int T, int splits, int chunk,
+                              void* stream) {
+  const cudaError_t err = launch_decode_attention(
+      q, k, v, kv_len, out, B, H, Hkv, T, 128, splits, chunk,
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaPeekAtLastError());
+}
+extern "C" int variant_blocks_per_sm() {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, decode_attention_kernel<128, 8>, kThreads,
+      Layout<128>{32, 2, 8, 1}.bytes());
+  return n;
+}
+"""
+
+
+def _group_entry(g: int, floor: bool = False) -> str:
+    return (DECODE_GROUP_ENTRY.replace("@G@", str(g))
+            .replace("@FLOOR@", "true" if floor else "false")
+            .replace("@LAUNCH@", "launch_decode_attention_group_floor"
+                     if floor else "launch_decode_attention"))
+
+
+def group_slices(n: int):
+    """``n`` key slices a block of the group instance, whatever its
+    m-tiles (shipped: 4 at 3 m-tiles, 2 below)."""
+    return [("  return mt == 3 ? 4 : 2;", f"  return {n};")]
+
+
+# Probes of where the group instance's time goes (not decodes): the
+# scores' or P V's mma.sync dropped, their operands still loaded and
+# split.
+GROUP_NO_SCORE_MMA = [("""          mma_tf32(sx[nt], al[0], al[1], al[2], al[3], bh[0], bh[1]);
+          mma_tf32(sx[nt], ah[0], ah[1], ah[2], ah[3], bl[0], bl[1]);
+          mma_tf32(sc[nt], ah[0], ah[1], ah[2], ah[3], bh[0], bh[1]);
+          mma_tf32(sx[nt], al[4], al[5], al[6], al[7], bh[2], bh[3]);
+          mma_tf32(sx[nt], ah[4], ah[5], ah[6], ah[7], bl[2], bl[3]);
+          mma_tf32(sc[nt], ah[4], ah[5], ah[6], ah[7], bh[2], bh[3]);""",
+                       """          sc[nt][0] += __uint_as_float(al[0] ^ bh[0] ^ ah[4] ^ bl[2]);
+          sx[nt][1] += __uint_as_float(al[1] ^ bl[1] ^ ah[5] ^ bh[3]);
+          sc[nt][2] += __uint_as_float(ah[2] ^ al[6] ^ bl[0] ^ bh[2]);
+          sx[nt][3] += __uint_as_float(ah[3] ^ al[7] ^ bh[1] ^ bl[3]);""")]
+GROUP_NO_PV_MMA = [("""            mma_tf32(pv[j4], pl[0], pl[1], pl[2], pl[3], h0, h1);
+            mma_tf32(pv[j4], ph[0], ph[1], ph[2], ph[3], lo0, lo1);
+            mma_tf32(pv[j4], ph[0], ph[1], ph[2], ph[3], h0, h1);""",
+                    """            pv[j4][0] += __uint_as_float(h0 ^ pl[0] ^ ph[2]);
+            pv[j4][1] += __uint_as_float(lo0 ^ pl[1] ^ ph[3]);
+            pv[j4][2] += __uint_as_float(h1 ^ pl[2] ^ ph[0]);
+            pv[j4][3] += __uint_as_float(lo1 ^ pl[3] ^ ph[1]);""")]
+
 
 # --- decode_attention, int8 --------------------------------------------------
 
@@ -1101,6 +1212,22 @@ VARIANTS = {
     "decode_attention/2_warps_4_splits": ("decode", DECODE_2_WARPS,
                                           {"splits": 4}),
     "decode_attention/3_stages": ("decode", DECODE_3_STAGES),
+    # The group instance's plan: 1 split at both serve shapes and at
+    # llama3-405b's 4,096 keys, 3 at granite-34b's.
+    "decode_attention_d128_g48": ("decode_g48", []),
+    "decode_attention_d128_g48/floor": ("decode_g48_floor", []),
+    "decode_attention_d128_g48/1_split": ("decode_g48", [], {"splits": 1}),
+    "decode_attention_d128_g48/2_splits": ("decode_g48", [], {"splits": 2}),
+    "decode_attention_d128_g48/4_splits": ("decode_g48", [], {"splits": 4}),
+    "decode_attention_d128_g48/2_slices": ("decode_g48", group_slices(2)),
+    "decode_attention_d128_g48/probe_no_score_mma": ("decode_g48_probe",
+                                                     GROUP_NO_SCORE_MMA),
+    "decode_attention_d128_g48/probe_no_pv_mma": ("decode_g48_probe",
+                                                  GROUP_NO_PV_MMA),
+    "decode_attention_d128_g16": ("decode_g16", []),
+    "decode_attention_d128_g16/floor": ("decode_g16_floor", []),
+    "decode_attention_d128_g16/2_splits": ("decode_g16", [], {"splits": 2}),
+    "decode_attention_d128_g16/4_slices": ("decode_g16", group_slices(4)),
     # The gls_row_race plan: 2 splits at (20, 8, 49152), 8 at (5, 8, 50280).
     "gls_row_race": ("race", []),
     "gls_row_race/1_split": ("race", [], {"splits": 1}),
@@ -1217,6 +1344,13 @@ SOURCES = {"ssd": (SSD, SSD_ENTRY), "flash": (FLASH, FLASH_ENTRY),
                                                 3)),
            "decode_int8_d128_floor": (DECODE, _entry(DECODE_INT8_FLOOR_ENTRY,
                                                      128, 4)),
+           "decode_g48": (DECODE, _group_entry(48)),
+           "decode_g48_probe": (DECODE, _group_entry(48)),
+           "decode_g48_floor": (DECODE, _group_entry(48, True)),
+           "decode_g48_parent": (None, PARENT_DECODE_GROUP_ENTRY),
+           "decode_g16": (DECODE, _group_entry(16)),
+           "decode_g16_floor": (DECODE, _group_entry(16, True)),
+           "decode_g16_parent": (None, PARENT_DECODE_GROUP_ENTRY),
            "race": (RACE, RACE_ENTRY),
            "joint": (JOINT, JOINT_ENTRY),
            "joint_floor": (JOINT, JOINT_FLOOR_ENTRY),
@@ -1249,6 +1383,16 @@ PTXAS_KERNEL = {"ssd": "ssd_chunk_kernel",
                 "decode_int8_floor": "decode_int8_floor_kernelILi64ELi3EEE",
                 "decode_int8_d128_floor":
                     "decode_int8_floor_kernelILi128ELi4EEE",
+                "decode_g48": "decode_attention_group_kernelILi128ELi3ELb0EEE",
+                "decode_g48_probe":
+                    "decode_attention_group_kernelILi128ELi3ELb0EEE",
+                "decode_g48_floor":
+                    "decode_attention_group_kernelILi128ELi3ELb1EEE",
+                "decode_g48_parent": "decode_attention_kernelILi128ELi8EEE",
+                "decode_g16": "decode_attention_group_kernelILi128ELi1ELb0EEE",
+                "decode_g16_floor":
+                    "decode_attention_group_kernelILi128ELi1ELb1EEE",
+                "decode_g16_parent": "decode_attention_kernelILi128ELi8EEE",
                 "race": "gls_row_race_kernel",
                 "joint": "gls_race_kernel",
                 "joint_floor": "gls_race_floor_kernel",
@@ -1272,6 +1416,10 @@ CASE_OF = {"ssd": "ssd", "flash": "flash", "decode": "decode",
            "decode_int8_d128_probe": "decode_int8_d128",
            "decode_int8_floor": "decode_int8",
            "decode_int8_d128_floor": "decode_int8_d128",
+           "decode_g48": "decode_g48", "decode_g48_probe": "decode_g48",
+           "decode_g48_floor": "decode_g48", "decode_g48_parent": "decode_g48",
+           "decode_g16": "decode_g16", "decode_g16_floor": "decode_g16",
+           "decode_g16_parent": "decode_g16",
            "race": "race", "joint": "joint", "joint_floor": "joint",
            "decode_int8_parent": "decode_int8",
            "decode_int8_d128_parent": "decode_int8_d128",
@@ -1282,9 +1430,12 @@ CASE_OF = {"ssd": "ssd", "flash": "flash", "decode": "decode",
            "flash_int8_d128_parent": "flash_int8_d128"}
 # Cases timed as one call on one input set (no cycling, no device time).
 SINGLE_CALL = ("ssd", "flash", "flash_int8", "flash_d128", "flash_int8_d128")
+# Cases whose variants run at several shapes (one list of calls a shape).
+MULTI_SHAPE = ("race", "decode_g48", "decode_g16")
 # Kinds whose output is not the kernel's function (no check).
 UNCHECKED = {"decode_int8_floor", "decode_int8_d128_floor", "joint_floor",
-             "decode_int8_probe", "decode_int8_d128_probe"}
+             "decode_int8_probe", "decode_int8_d128_probe",
+             "decode_g48_floor", "decode_g16_floor", "decode_g48_probe"}
 PARENT_VARIANTS = {
     "decode_attention_int8 (parent)": ("decode_int8_parent", [],
                                        {"splits": 6}),
@@ -1293,13 +1444,19 @@ PARENT_VARIANTS = {
     "gls_race (parent)": ("joint_parent", []),
     "flash_attention_int8 (parent)": ("flash_int8_parent", []),
     "flash_attention_d128 (parent)": ("flash_d128_parent", []),
-    "flash_attention_int8_d128 (parent)": ("flash_int8_d128_parent", [])}
+    "flash_attention_int8_d128 (parent)": ("flash_int8_d128_parent", []),
+    "decode_attention_d128_g48 (parent)": ("decode_g48_parent", [],
+                                           {"plan": "parent"}),
+    "decode_attention_d128_g16 (parent)": ("decode_g16_parent", [],
+                                           {"plan": "parent"})}
 PARENT_FILES = {"decode_int8_parent": DECODE.relative_to(ROOT),
                 "decode_int8_d128_parent": DECODE.relative_to(ROOT),
                 "joint_parent": JOINT.relative_to(ROOT),
                 "flash_int8_parent": FLASH.relative_to(ROOT),
                 "flash_d128_parent": FLASH.relative_to(ROOT),
-                "flash_int8_d128_parent": FLASH.relative_to(ROOT)}
+                "flash_int8_d128_parent": FLASH.relative_to(ROOT),
+                "decode_g48_parent": DECODE.relative_to(ROOT),
+                "decode_g16_parent": DECODE.relative_to(ROOT)}
 
 
 def variant_source(kind: str, subs, parent=None) -> str:
@@ -1317,7 +1474,7 @@ def variant_source(kind: str, subs, parent=None) -> str:
 
 def build_all(names, parent=None):
     """The named variants' nvcc runs at once; returns {name: (lib path,
-    ptxas register and spill lines)}."""
+    ptxas register and spill lines)} and the names that did not build."""
     from torch.utils.cpp_extension import CUDA_HOME
     from repro_torch.kernels.build import CUDA_FLAGS
     nvcc = (os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME
@@ -1336,22 +1493,26 @@ def build_all(names, parent=None):
         procs[name] = (lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
-    built = {}
+    built, failed = {}, []
     for name, (lib, p) in procs.items():
         out, _ = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc failed\n{out}")
+            print(f"{name}: nvcc failed\n{out[-4000:]}", flush=True)
+            failed.append(name)
+            continue
         # ptxas's lines for the kernel that runs at the timed shape.
         entry = out.split(PTXAS_KERNEL[VARIANTS[name][0]], 1)[-1]
         regs = re.findall(r"Used (\d+) registers", entry)
+        stack = re.findall(r"(\d+) bytes stack frame", entry)
         spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
                             r"loads", entry)
         warn = "".join(f"; ptxas: {w.strip()}" for w in out.splitlines()
                        if "Performance Loss" in w)
-        built[name] = (lib, f"{regs[0] if regs else '?'} registers, spill "
+        built[name] = (lib, f"{regs[0] if regs else '?'} registers, "
+                            f"stack {stack[0] if stack else '?'} bytes, spill "
                             f"stores/loads {spills[0] if spills else '?'}"
                             f"{warn}")
-    return built
+    return built, failed
 
 
 def ptr(t):
@@ -1508,6 +1669,75 @@ def decode_case(torch, dev):
     return calls, check, "decode_attention_kernel"
 
 
+def decode_group_case(torch, dev, group: int):
+    """The launcher and check of each variant of the float32 group
+    instance at a giant's shape: granite-34b's q (32, 48, 128) over (32,
+    1, T, 128) (``group`` 48) or llama3-405b's q (32, 128, 128) over (32,
+    8, T, 128) (16); T = 86 with the serve's kv_len and T = 4,096 with
+    every key live, each cycling through K/V sets worth three L2 caches.
+    The plan is the wrapper's unless a variant fixes ``splits``; the
+    parent's sub-groups take the parent's plan (group 8 over Hkv x group
+    / 8 head slots).  The check also
+    returns the error against a float64 evaluation of the first set
+    beside the plain version's, at the shape where their ratio is the
+    largest."""
+    import chip_smoke as C
+    from repro_torch.kernels.decode_attention.ops import decode_split_plan
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_plain)
+    b, d = 32, 128
+    hkv = 1 if group == 48 else 8
+    h = hkv * group
+    shapes = []
+    for t in (86, 4096):
+        q, kv_sets, kv_len = C.decode_inputs(
+            torch, dev, b, h, hkv, d, t, C.cold_sets(8 * b * hkv * t * d),
+            full=t != 86)
+        want = decode_attention_plain(q, *kv_sets[0], kv_len)
+        want64 = C.decode_float64(torch, q, *kv_sets[0], kv_len)
+        shapes.append((t, q, kv_sets, kv_len, want, torch.empty_like(q),
+                       want64, float((want.double() - want64).abs().max())))
+    stream = stream_ptr(torch)
+
+    def splits_of(opts, t):
+        if "splits" in opts:
+            return opts["splits"]
+        if opts.get("plan") == "parent":
+            return decode_split_plan(b, hkv * group // 8, t, head_dim=d,
+                                     group=8)[0]
+        return decode_split_plan(b, hkv, t, head_dim=d, group=group)[0]
+
+    def calls(lib, opts):
+        out = []
+        for t, q, kv_sets, kv_len, _, o, *_ in shapes:
+            splits = splits_of(opts, t)
+
+            def one(k, v, q=q, kv_len=kv_len, o=o, t=t, splits=splits):
+                rc = lib.variant_launch(ptr(q), ptr(k), ptr(v), ptr(kv_len),
+                                        ptr(o), b, h, hkv, t, splits,
+                                        -(-t // splits), stream)
+                if rc:
+                    raise RuntimeError(f"launch failed: cuda error {rc}")
+            out.append([lambda k=k, v=v, one=one: one(k, v)
+                        for k, v in kv_sets])
+        return out
+
+    def check(lib, opts):
+        err, worst = 0.0, (0.0, 1.0)
+        for shape_calls, shape in zip(calls(lib, opts), shapes):
+            shape_calls[0]()
+            torch.cuda.synchronize()
+            err = max(err, float((shape[5] - shape[4]).abs().max()))
+            e64 = float((shape[5].double() - shape[6]).abs().max())
+            if e64 / shape[7] > worst[0] / worst[1]:
+                worst = (e64, shape[7])
+        if err > 1e-4:
+            raise AssertionError(f"max abs err {err}")
+        return (err,) + worst
+
+    return calls, check, "decode_"
+
+
 def int8_decode_calls(torch, lib, q, sets, kv_len, out, splits: int):
     """One call per int8 K/V set through a variant library's
     ``variant_launch`` (the int8 signature) at ``splits`` splits."""
@@ -1652,6 +1882,8 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="+", choices=sorted(set(CASE_OF.values())),
                     default=sorted(set(CASE_OF.values())))
+    ap.add_argument("--match", nargs="+", help="only the variants whose "
+                    "names end with one of these strings")
     ap.add_argument("--parent", help="a parent tree (git archive) whose "
                     "flash kernels (and, from an older tree, int8 decode "
                     "and joint race) run as variants too")
@@ -1665,11 +1897,14 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda")
-    names = [n for n, v in VARIANTS.items() if CASE_OF[v[0]] in args.only]
-    built = build_all(names, args.parent)
+    names = [n for n, v in VARIANTS.items() if CASE_OF[v[0]] in args.only
+             and (not args.match or any(n.endswith(m) for m in args.match))]
+    built, failed = build_all(names, args.parent)
     makers = {"ssd": ssd_case, "flash": flash_case, "decode": decode_case,
               "decode_int8": decode_int8_case,
               "decode_int8_d128": lambda t, d: decode_int8_case(t, d, 128),
+              "decode_g48": lambda t, d: decode_group_case(t, d, 48),
+              "decode_g16": lambda t, d: decode_group_case(t, d, 16),
               "race": race_case, "joint": joint_case,
               "flash_int8": lambda t, d: flash_tc_case(t, d, 64, True),
               "flash_d128": lambda t, d: flash_tc_case(t, d, 128, False),
@@ -1686,9 +1921,9 @@ def main(argv) -> int:
             run = cases[case][0]
             return [[lambda: run(lib)]]
         calls = cases[case][0](lib, opts(name))
-        return calls if case == "race" else [calls]
+        return calls if case in MULTI_SHAPE else [calls]
 
-    libs, errs, failed = {}, {}, []
+    libs, errs = {}, {}
     for name, (lib_path, _) in built.items():
         case = CASE_OF[VARIANTS[name][0]]
         lib = ctypes.CDLL(os.fspath(lib_path))
@@ -1733,9 +1968,14 @@ def main(argv) -> int:
         err = (f"{err[0]:.3g} (against float64 {err[1]:.3g}, the plain "
                f"version's {err[2]:.3g})" if isinstance(err, tuple)
                else f"{err:.3g}")
+        try:
+            clusters = ", clusters of 4 resident " + str(
+                lib.variant_max_clusters(4))
+        except AttributeError:
+            clusters = ""
         print(f"{name}: {built[name][1]}, {lib.variant_blocks_per_sm()} "
-              f"blocks per SM, ms {turns}{dev_ms}, max abs err {err}",
-              flush=True)
+              f"blocks per SM{clusters}, ms {turns}{dev_ms}, max abs err "
+              f"{err}", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,7 +1,7 @@
 """Time the port's small kernels of one or more source trees the way
 ``chip_smoke.py`` times them.
 
-  python3 tools/time_small_kernels.py [--serve] [SRC ...]
+  python3 tools/time_small_kernels.py [--serve | --giants] [SRC ...]
 
 Needs one CUDA card.  Each ``SRC`` is a tree's ``src`` directory (default:
 this repository's ``src``; a parent commit unpacked with ``git archive``
@@ -26,8 +26,13 @@ library call's (SDPA for attention; ``torch.min`` on a precomputed
 score, a note, for the races), and the bound (flash: the tensor-core
 bound, with the float32-FMA bound beside it); with ``--serve``, instead
 of the kernels, ``chip_smoke.py``'s phase 3q serve of smollm-360m (int8
-arenas, W8A8 verify): tok/s, round wall and mean TTFT.  Then the card's
-name and power limit.  Nothing here is imported by the port.
+arenas, W8A8 verify): tok/s, round wall and mean TTFT; with ``--giants``,
+instead, the decode at the dense giants' groups, float32 and int8:
+granite-34b's q (32, 48, 128) over K/V (32, 1, T, 128) and llama3-405b's
+q (32, 128, 128) over (32, 8, T, 128), at T = 86 with the serve's kv_len
+(``chip_smoke.decode_inputs``) and at T = 4,096 with every key live,
+each on K/V sets worth three L2 caches.  Then the card's name and power
+limit.  Nothing here is imported by the port.
 """
 
 from __future__ import annotations
@@ -45,9 +50,43 @@ RACES = ((20, 49152), (5, 50280))      # (rows of K drafts, vocab)
 # (b, h, hkv, d, s, t): the two admission shapes of flash_attention.
 FLASHES = ((32, 15, 5, 64, 256, 370), (32, 32, 8, 128, 256, 370))
 JOINT_VOCAB = 49152
+# (b, h, hkv, d): the giants' decode shapes, at these T (the serve's
+# buffer, then every key live over 4,096).
+GIANT_DECODES = ((32, 48, 1, 128), (32, 128, 8, 128))
+GIANT_TS = (86, 4096)
 
 
-def one_tree(src: str, serve: bool = False) -> dict:
+def giant_decodes(torch, dev) -> dict:
+    """The float32 and int8 decode at the giants' groups and ``GIANT_TS``,
+    through the tree's own wrappers."""
+    import chip_smoke as C
+    res = {}
+    for b, h, hkv, d in GIANT_DECODES:
+        for t in GIANT_TS:
+            full = t != GIANT_TS[0]
+            tag = f"_g{h // hkv} T={t}"
+            q, kv_sets, kv_len = C.decode_inputs(
+                torch, dev, b, h, hkv, d, t, C.cold_sets(8 * b * hkv * t * d),
+                full=full)
+            t_bound, _, t_fma = C.decode_bound(b, h, hkv, d,
+                                               float(kv_len.sum()))
+            res[f"decode_attention_d{d}{tag}"] = {
+                **C.time_decode(torch, q, kv_sets, kv_len),
+                "bound_ms": t_bound, "bound_fma_ms": t_fma}
+            del q, kv_sets
+            q, sets, (kf, vf), kv_len = C.decode_int8_inputs(
+                torch, dev, b, h, hkv, d, t, full=full)
+            t_bound, _, t_fma = C.decode_bound(b, h, hkv, d,
+                                               float(kv_len.sum()), int8=True)
+            res[f"decode_attention_int8_d{d}{tag}"] = {
+                **C.time_decode_int8(torch, q, sets, kv_len, kf, vf),
+                "bound_ms": t_bound, "bound_fma_ms": t_fma}
+            del q, sets, kf, vf
+            C.gc_collect(torch)
+    return res
+
+
+def one_tree(src: str, serve: bool = False, giants: bool = False) -> dict:
     sys.path.insert(0, os.path.abspath(src))
     sys.path.insert(1, os.fspath(ROOT))
     import torch
@@ -64,6 +103,8 @@ def one_tree(src: str, serve: bool = False) -> dict:
         target, drafter = build_pair("smollm-360m", 4, C.SEED, dev)
         _, stats = C.phase_serve(torch, dev, target, drafter, quant=True)
         return {"serve quant": stats}
+    if giants:
+        return giant_decodes(torch, dev)
     for b, h, hkv, d, t in DECODES:
         suffix = "" if d == 64 else f"_d{d}"
         q, kv_sets, kv_len = C.decode_inputs(torch, dev, b, h, hkv, d, t)
@@ -110,16 +151,16 @@ def one_tree(src: str, serve: bool = False) -> dict:
 
 
 def main(argv) -> int:
-    serve = "--serve" in argv
-    argv = [a for a in argv if a != "--serve"]
+    flags = [a for a in argv if a in ("--serve", "--giants")]
+    argv = [a for a in argv if a not in flags]
     if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(one_tree(argv[1], serve)))
+        print(json.dumps(one_tree(argv[1], "--serve" in flags,
+                                  "--giants" in flags)))
         return 0
     trees = argv or [os.fspath(ROOT / "src")]
     rows = []
     for src in trees:
-        r = subprocess.run([sys.executable, __file__, "--one", src]
-                           + (["--serve"] if serve else []),
+        r = subprocess.run([sys.executable, __file__, "--one", src] + flags,
                            capture_output=True, text=True)
         if r.returncode != 0:
             print(f"{src}: failed\n{r.stdout}{r.stderr}", file=sys.stderr)
