@@ -41,10 +41,11 @@ when the port's sources are not beside this file.  Phases:
      boundary), with SDPA over the dequantized K/V (dequantized once,
      untimed) as the yardstick and the int8 bytes read as the bound.
      The tensor-core flash instances (int8 here, and the two of phase
-     granite) and the decode's tensor-core group instance (phase giants,
-     at the serve shape and over ``GIANT_LONG_T`` keys) are also held to
-     a float64 evaluation of the same inputs: the kernel's max error at
-     most 4x the plain version's.  Each flash
+     granite) and the decode's tensor-core group instance, float32 and
+     int8 (phase giants, at the serve shape and over ``GIANT_LONG_T``
+     keys), are also held to a float64 evaluation of the same inputs
+     (int8 K/V dequantized there): the kernel's max error at most 4x the
+     plain version's.  Each flash
      instance is also checked with ``causal=False`` against its plain
      version at the same inputs (1e-4; no served path passes it).
      The int8 decode and the joint race rows also give ``floor_ms``: the
@@ -291,12 +292,13 @@ SSD_TOL, SSD_TOL_TOTAL, SSM_LOGIT_TOL = 5e-4, 1e-5, 2e-3
 # Phase giants: granite-34b (48 query heads over one KV head) and
 # llama3-405b (16 per KV head) at their published widths, depth cut to
 # (target, drafter) layers; kv_fused, 4 requests x 16 tokens, prompts of
-# 16-64 tokens; granite-34b also through kv and with quant=True.
+# 16-64 tokens; granite-34b also through kv and with quant=True (on the
+# kernel and the plain decode route).
 GIANTS = (("granite-34b", 16, 2), ("llama3-405b", 2, 1))
 GIANT_REQUESTS, GIANT_MAX_NEW, GIANT_PROMPTS = 4, 16, (16, 64)
-# The giants' float32 decode is also checked and timed over K/V of this
-# many keys, every key live (134 MB a set for granite-34b, 1.07 GB for
-# llama3-405b).
+# The giants' decode, float32 and int8, is also checked and timed over K/V
+# of this many keys, every key live (a float32 set 134 MB for granite-34b,
+# 1.07 GB for llama3-405b; int8 about a quarter).
 GIANT_LONG_T = 4096
 # Phases moe and hybrid: the reprefill workloads of
 # repro_torch.launch.profile_reprefill.WORKLOADS; mixtral-8x22b's cached
@@ -837,8 +839,10 @@ def time_decode_int8(torch, q, sets, kv_len, kf, vf) -> dict:
             < kv_len.clamp_min(1)[:, None].long())[:, None, None, :]
     calls = [lambda s_=s_: decode_attention(q, s_[0], s_[1], kv_len, s_[2],
                                             s_[3]) for s_ in sets]
+    # The G <= 8 instance (decode_attention_kernel_int8) or the group
+    # instance (decode_attention_group_kernel).
     return {"ms": time_cycled(calls),
-            "device_ms": device_ms(torch, calls, "decode_attention_kernel"),
+            "device_ms": device_ms(torch, calls, "decode_attention_"),
             "plain_ms": time_cycled([
                 lambda s_=s_: decode_attention_plain(q, s_[0], s_[1], kv_len,
                                                      s_[2], s_[3])
@@ -847,31 +851,37 @@ def time_decode_int8(torch, q, sets, kv_len, kf, vf) -> dict:
                 q[:, :, None, :], kf, vf, attn_mask=mask, enable_gqa=True))}
 
 
-def decode_float64(torch, q, k, v, kv_len):
-    """One float32 decode evaluated in float64, with the plain version's
-    masked-row contract (``masked_softmax``)."""
+def decode_float64(torch, q, k, v, kv_len, k_scale=None, v_scale=None):
+    """One decode evaluated in float64 (int8 K/V dequantized there by
+    ``k_scale``/``v_scale``), with the plain version's masked-row contract
+    (``masked_softmax``)."""
     from repro_torch.kernels.flash_attention.ref import masked_softmax
     b, h, d = q.shape
     hkv, t = k.shape[1:3]
+    k, v = k.double(), v.double()
+    if k_scale is not None:
+        k, v = k * k_scale.double(), v * v_scale.double()
     qr = q.double().reshape(b, hkv, h // hkv, d)
-    s = torch.einsum("bhgd,bhtd->bhgt", qr, k.double()) / d ** 0.5
+    s = torch.einsum("bhgd,bhtd->bhgt", qr, k) / d ** 0.5
     live = (torch.arange(t, device=q.device)[None, :]
             < kv_len.long()[:, None])[:, None, None, :]
     w = masked_softmax(s, live)
-    return torch.einsum("bhgt,bhtd->bhgd", w, v.double()).reshape(b, h, d)
+    return torch.einsum("bhgt,bhtd->bhgd", w, v).reshape(b, h, d)
 
 
-def decode_err64(torch, q, k, v, kv_len, name: str):
+def decode_err64(torch, q, k, v, kv_len, name: str, k_scale=None,
+                 v_scale=None):
     """(kernel, plain) max abs error against ``decode_float64`` on one
-    set: the group instance's 3 TF32 products a product are held to 4x
-    the plain version's error, the rule of the tensor-core flash."""
+    set: the group instance's TF32 products (3 a product, 2 over int8
+    K/V) are held to 4x the plain version's error, the rule of the
+    tensor-core flash."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_plain)
-    want = decode_float64(torch, q, k, v, kv_len)
+    want = decode_float64(torch, q, k, v, kv_len, k_scale, v_scale)
     err64 = tuple(float((o.double() - want).abs().max()) for o in (
-        decode_attention(q, k, v, kv_len),
-        decode_attention_plain(q, k, v, kv_len)))
+        decode_attention(q, k, v, kv_len, k_scale, v_scale),
+        decode_attention_plain(q, k, v, kv_len, k_scale, v_scale)))
     assert err64[0] <= 4 * err64[1], \
         f"{name} error against float64 {err64[0]} > 4 x plain's {err64[1]}"
     return err64
@@ -1167,13 +1177,41 @@ def decode_int8_inputs(torch, dev, b: int, h: int, hkv: int, d: int,
     return q, sets, kvf, kv_len
 
 
-def kernel_decode_int8(torch, dev, cfg, t: int):
+def int8_floor_ms(torch, q, sets, kv_len, b: int, hkv: int, t: int,
+                  group: int) -> float:
+    """Device ms per launch of the floor of the int8 design at the
+    wrapper's plan (the extension's ``decode_attention_int8_floor``: the
+    G <= 8 instance's, or above 8 the group instance's, grid, clusters
+    and data movement, no arithmetic), cycling through the K/V ``sets``."""
+    from repro_torch.kernels.build import load_kernels
+    from repro_torch.kernels.decode_attention.ops import (decode_group_plan,
+                                                          decode_split_plan)
+    d = q.shape[-1]
+    if group > 8:
+        slots, splits, chunk = decode_group_plan(b, hkv, t, head_dim=d,
+                                                 group=group, int8=True)
+    else:
+        slots = 1
+        splits, chunk = decode_split_plan(b, hkv, t, head_dim=d, int8=True,
+                                          group=group)
+    floor = load_kernels().decode_attention_int8_floor
+    kvl = kv_len.to(torch.int32)
+    calls = [lambda s_=s_: floor(q, *s_, kvl, splits, chunk, slots)
+             for s_ in sets]
+    return device_ms(torch, calls, "decode_attention_group" if group > 8
+                     else "decode_int8_floor_kernel")
+
+
+def kernel_decode_int8(torch, dev, cfg, t: int, smi: str = "",
+                       long_t: int = 0):
     """The int8 instance of ``decode_attention`` against its plain version
     at the serve shape: the serve's kv_len and the edges of its own split
     plan and tiles; timed on cold K/V (int8 sets worth three L2 caches)
-    beside the floor of its design (the extension's
-    ``decode_attention_int8_floor``) at the same plan."""
-    from repro_torch.kernels.build import load_kernels
+    beside the floor of its design (``int8_floor_ms``) at the same plan.
+    A group above 8 (the group instance) is also held to a float64
+    evaluation of the dequantized attention (``decode_err64``) and, with
+    ``long_t``, checked and timed over K/V of ``long_t`` keys, every key
+    live, logged on a line of its own (``kernel_decode_int8_long``)."""
     from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                           decode_launch_name,
                                                           decode_split_plan)
@@ -1189,8 +1227,9 @@ def kernel_decode_int8(torch, dev, cfg, t: int):
     splits, chunk = decode_split_plan(b, hkv, t, head_dim=d, int8=True,
                                       group=group)
     edges = decode_edges(torch, dev, b, t, d, splits, chunk, int8=True)
-    # T = 370: the scale row of (b, head) starts at (b Hkv + head) * 1480
-    # bytes, 8-byte aligned only for every odd row.
+    # The serve buffers (T = 370, the giants' 86): the scale row of (b,
+    # head) starts at (b Hkv + head) T * 4 bytes, 8-byte aligned only for
+    # every odd row.
     assert (t * 4) % 16 != 0 and hkv * b > 1
     err = 0.0
     for lens in (kv_len, edges):
@@ -1198,16 +1237,14 @@ def kernel_decode_int8(torch, dev, cfg, t: int):
         out_p = decode_attention_plain(q, *sets[0][:2], lens, *sets[0][2:])
         torch.cuda.synchronize()
         err = max(err, float((out_k - out_p).abs().max()))
-        assert err <= 1e-4, f"decode_attention_int8 max abs err {err}"
+        assert err <= 1e-4, f"{name} max abs err {err}"
         assert bool((out_k[lens == 0] == 0).all()), \
             "kv_len == 0 row is not zero"
-    floor = load_kernels().decode_attention_int8_floor
-    kvl = kv_len.to(torch.int32)
-    floor_calls = [lambda s_=s_: floor(q, s_[0], s_[1], s_[2], s_[3], kvl,
-                                       splits, chunk) for s_ in sets]
+    err64 = ({"err64": decode_err64(torch, q, *sets[0][:2], kv_len, name,
+                                    *sets[0][2:])} if group > 8 else {})
     keys = float(kv_len.sum())
     t_bound, by, t_fma = decode_bound(b, h, hkv, d, keys, int8=True)
-    return {
+    kr = {
         "name": name,
         "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attention/"
@@ -1219,12 +1256,57 @@ def kernel_decode_int8(torch, dev, cfg, t: int):
                  f"live keys",
         "max_abs_err": err,
         **time_decode_int8(torch, q, sets, kv_len, kf, vf),
-        "floor_ms": device_ms(torch, floor_calls, "decode_int8_floor_kernel"),
+        "floor_ms": int8_floor_ms(torch, q, sets, kv_len, b, hkv, t, group),
+        **err64,
         "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa) "
                    "on K/V dequantized once beforehand (untimed), one warm "
                    "set",
         "bound_ms": t_bound, "bound_by": by, "bound_fma_ms": t_fma,
     }
+    del q, sets, kf, vf
+    if long_t and group > 8:
+        gc_collect(torch)
+        log_kernel(kernel_decode_int8_long(torch, dev, b, h, hkv, d, long_t,
+                                           name), smi)
+    return kr
+
+
+def kernel_decode_int8_long(torch, dev, b: int, h: int, hkv: int, d: int,
+                            t: int, name: str) -> dict:
+    """The int8 group instance over K/V of ``t`` keys with every key live
+    (int8 sets worth three L2 caches): against plain and float64 on the
+    first set, timed beside its floor, plain, SDPA on K/V dequantized
+    beforehand and bound."""
+    from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_split_plan)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_plain)
+    q, sets, (kf, vf), kv_len = decode_int8_inputs(torch, dev, b, h, hkv, d,
+                                                   t, full=True)
+    group = h // hkv
+    splits, chunk = decode_split_plan(b, hkv, t, head_dim=d, int8=True,
+                                      group=group)
+    err = float((decode_attention(q, *sets[0][:2], kv_len, *sets[0][2:])
+                 - decode_attention_plain(q, *sets[0][:2], kv_len,
+                                          *sets[0][2:])).abs().max())
+    assert err <= 1e-4, f"{name} at T = {t}: max abs err {err}"
+    err64 = decode_err64(torch, q, *sets[0][:2], kv_len, f"{name} at T = {t}",
+                         *sets[0][2:])
+    t_bound, by, t_fma = decode_bound(b, h, hkv, d, float(b * t), int8=True)
+    kr = {"name": f"{name} at T = {t}", "max_abs_err": err, "err64": err64,
+          "shape": f"q ({b}, {h}, {d}) f32, k/v ({b}, {hkv}, {t}, {d}) int8 "
+                   f"+ scales, every key live, {splits} splits of {chunk} "
+                   f"keys, {len(sets)} K/V sets (cold L2)",
+          **time_decode_int8(torch, q, sets, kv_len, kf, vf),
+          "floor_ms": int8_floor_ms(torch, q, sets, kv_len, b, hkv, t,
+                                    group),
+          "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa) "
+                     "on K/V dequantized once beforehand (untimed), one warm "
+                     "set",
+          "bound_ms": t_bound, "bound_by": by, "bound_fma_ms": t_fma}
+    del q, sets, kf, vf
+    gc_collect(torch)
+    return kr
 
 
 def phase_reference(torch, dev, target):
@@ -2712,16 +2794,17 @@ def phase_giant(torch, dev, arch: str, target_layers: int,
                 draft_layers: int, smi: str):
     """One dense giant at its published widths, depth cut: the decode
     kernel's float32 and int8 instances at the model's group against
-    plain at the serve shape (a group above 8: float32 on the group
-    instance, timed beside its floor and also over GIANT_LONG_T keys;
-    int8 as sub-groups of 8),
+    plain at the serve shape (a group above 8: the group instance over
+    either K/V type, held to float64, timed beside its floor and also
+    over GIANT_LONG_T keys),
     the D = 128 flash instances at its admission shape against plain and
     float64 (as phase granite holds them); then the pair (target and
     drafter as separate trees, ``launch.serve.build_pair``) served
     kv_fused on the kernel routes, the same serve with the drafter's
     decode on its plain route (per-uid streams equal), and for
     granite-34b the same workload through kv (streams equal) and with
-    ``quant=True``; the self-draft of one unit (4 prompts x 48 tokens)
+    ``quant=True``, on the kernel and the plain decode route (streams
+    equal); the self-draft of one unit (4 prompts x 48 tokens)
     >= 0.9 L.  Gates: ``draft_syncs == 0``, ``host_syncs == rounds``,
     and exactly (L + 1) x drafter layers x rounds decode launches of the
     model's instance in each kv_fused serve.  Frees the pair (kernel
@@ -2733,7 +2816,7 @@ def phase_giant(torch, dev, arch: str, target_layers: int,
     buf = giant_buf_len()
     group = cfg0.num_heads // cfg0.kv_heads
     kernels = [kernel_decode(torch, dev, cfg0, buf, smi, GIANT_LONG_T),
-               kernel_decode_int8(torch, dev, cfg0, buf)]
+               kernel_decode_int8(torch, dev, cfg0, buf, smi, GIANT_LONG_T)]
     for kr in kernels:
         log_kernel(kr, smi)
     for int8 in (False, True):
@@ -2797,6 +2880,16 @@ def phase_giant(torch, dev, arch: str, target_layers: int,
             + ", ".join(f"{k} {q_stats[k]:.4g} vs {stats[k]:.4g}"
                         for k in ("tok_s", "round_ms", "ttft_ms", "peak_gib",
                                   "arena_mib")))
+        gc_collect(torch)
+        qp_counts, qp_stats = phase_serve(
+            torch, dev, target, drafter, quant=True, decode_kernel=False,
+            label=f"{arch} quant serve, plain decode route", **kw)
+        add_counts(counts, qp_counts)
+        same_streams(qp_stats["streams"], q_stats["streams"],
+                     f"{arch} quant kernel vs plain decode route")
+        compare_serves(q_stats, qp_stats,
+                       f"{arch} quant serve, kernel vs plain decode route",
+                       smi)
         gc_collect(torch)
     per_unit, _ = self_draft_rates(torch, dev, target, "float32", 1)
     acc = sum(a for a, _, _ in per_unit) / sum(b for _, b, _ in per_unit)

@@ -35,18 +35,18 @@ cudaError_t launch_decode_attention_int8(const float* q, const int8_t* k,
                                          const float* v_scale,
                                          const int* kv_len, float* out, int B,
                                          int H, int Hkv, int T, int D,
-                                         int splits, int chunk,
+                                         int splits, int chunk, int slots,
                                          cudaStream_t stream);
 cudaError_t launch_decode_attention_int8_floor(
     const float* q, const int8_t* k, const int8_t* v, const float* k_scale,
     const float* v_scale, const int* kv_len, float* out, int B, int H,
-    int Hkv, int T, int D, int splits, int chunk, cudaStream_t stream);
+    int Hkv, int T, int D, int splits, int chunk, int slots,
+    cudaStream_t stream);
 cudaError_t launch_decode_attention_group_floor(
     const float* q, const float* k, const float* v, const int* kv_len,
     float* out, int B, int H, int Hkv, int T, int D, int splits, int chunk,
     cudaStream_t stream);
 bool decode_attention_has_head_dim(int d);
-int decode_attention_subgroup(int group);
 int decode_attention_max_splits();
 int decode_group_slots(int group);
 cudaError_t launch_flash_attention(const float* q, const float* k,
@@ -356,14 +356,16 @@ using Int8DecodeLaunch = cudaError_t (*)(const float*, const int8_t*,
                                          const int8_t*, const float*,
                                          const float*, const int*, float*,
                                          int, int, int, int, int, int, int,
-                                         cudaStream_t);
+                                         int, cudaStream_t);
 
-// The int8 decode, or its floor, at the split plan (splits, chunk).
+// The int8 decode, or its floor (`floor`: a GQA group above 8 only at head
+// dim 128), at the plan (splits, chunk) over `slots` head slots a KV head
+// (1 for a group of up to 8; above, each slot at most 48 heads).
 torch::Tensor decode_int8(const char* name, Int8DecodeLaunch launch,
-                          torch::Tensor q, torch::Tensor k, torch::Tensor v,
-                          torch::Tensor k_scale, torch::Tensor v_scale,
-                          torch::Tensor kv_len, int64_t splits,
-                          int64_t chunk) {
+                          bool floor, torch::Tensor q, torch::Tensor k,
+                          torch::Tensor v, torch::Tensor k_scale,
+                          torch::Tensor v_scale, torch::Tensor kv_len,
+                          int64_t splits, int64_t chunk, int64_t slots) {
   const std::string what(name);
   check_tensor(q, "q", torch::kFloat32, 3);
   check_tensor(kv_len, "kv_len", torch::kInt32, 1);
@@ -376,10 +378,16 @@ torch::Tensor decode_int8(const char* name, Int8DecodeLaunch launch,
   TORCH_CHECK(Hkv > 0 && H % Hkv == 0, "H must be a multiple of Hkv");
   check_head_dim(name, D,
                  decode_attention_has_head_dim(static_cast<int>(D)));
-  TORCH_CHECK(H / decode_attention_subgroup(static_cast<int>(H / Hkv)) <
-                  65536,
-              what + ": too many head slots");
-  TORCH_CHECK(B < 65536 && Hkv < 65536 && T < (1 << 24),
+  const int64_t group = H / Hkv;
+  TORCH_CHECK(!floor || group <= 8 || D == 128,
+              what + ": compiled for a GQA group above 8 at head dim 128");
+  TORCH_CHECK(group > 8 ? slots >= decode_group_slots(static_cast<int>(group))
+                              && slots <= group
+                        : slots == 1,
+              what + ": " + std::to_string(slots) + " head slots do not "
+              "hold a group of " + std::to_string(group) + " in slots of at "
+              "most 48 heads (1 slot up to 8)");
+  TORCH_CHECK(B < 65536 && Hkv * slots < 65536 && T < (1 << 24),
               what + ": unsupported shape");
   check_split_plan(name, splits, chunk, T,
                    decode_attention_max_splits(), 1);
@@ -396,7 +404,7 @@ torch::Tensor decode_int8(const char* name, Int8DecodeLaunch launch,
       kv_len.data_ptr<int>(), out.data_ptr<float>(), static_cast<int>(B),
       static_cast<int>(H), static_cast<int>(Hkv), static_cast<int>(T),
       static_cast<int>(D), static_cast<int>(splits), static_cast<int>(chunk),
-      c10::cuda::getCurrentCUDAStream()));
+      static_cast<int>(slots), c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
@@ -405,9 +413,10 @@ torch::Tensor decode_attention_int8(torch::Tensor q, torch::Tensor k,
                                     torch::Tensor v, torch::Tensor k_scale,
                                     torch::Tensor v_scale,
                                     torch::Tensor kv_len, int64_t splits,
-                                    int64_t chunk) {
+                                    int64_t chunk, int64_t slots) {
   return decode_int8("decode_attention_int8", launch_decode_attention_int8,
-                     q, k, v, k_scale, v_scale, kv_len, splits, chunk);
+                     false, q, k, v, k_scale, v_scale, kv_len, splits, chunk,
+                     slots);
 }
 
 torch::Tensor decode_attention_int8_floor(torch::Tensor q, torch::Tensor k,
@@ -415,10 +424,11 @@ torch::Tensor decode_attention_int8_floor(torch::Tensor q, torch::Tensor k,
                                           torch::Tensor k_scale,
                                           torch::Tensor v_scale,
                                           torch::Tensor kv_len,
-                                          int64_t splits, int64_t chunk) {
+                                          int64_t splits, int64_t chunk,
+                                          int64_t slots) {
   return decode_int8("decode_attention_int8_floor",
-                     launch_decode_attention_int8_floor, q, k, v, k_scale,
-                     v_scale, kv_len, splits, chunk);
+                     launch_decode_attention_int8_floor, true, q, k, v,
+                     k_scale, v_scale, kv_len, splits, chunk, slots);
 }
 
 torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
@@ -580,11 +590,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "(its grid, clusters, copies and merge, no arithmetic; out zero), "
         "for measurement only");
   m.def("decode_attention_int8", &decode_attention_int8,
-        "decode_attention over int8 K/V with per-KV-vector float32 scales");
+        "decode_attention over int8 K/V with per-KV-vector float32 scales, "
+        "a GQA group above 8 over `slots` head slots a KV head");
   m.def("decode_attention_int8_floor", &decode_attention_int8_floor,
-        "the floor of decode_attention_int8's design (its grid, clusters "
-        "and data movement, no arithmetic; out zero), for measurement "
-        "only");
+        "the floor of decode_attention_int8's designs (the G <= 8 instance's "
+        "and, at head dim 128, the group instance's: grid, clusters and "
+        "data movement, no arithmetic; out zero), for measurement only");
   m.def("flash_attention", &flash_attention,
         "causal or non-causal (optionally windowed) prefill attention with "
         "per-row offsets");

@@ -4,10 +4,11 @@
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/decode_attention/kernel.py:83 (`decode_attention` ->
 // `pl.pallas_call` at :128, body `_kernel`), both of its branches: float32
-// K/V (`decode_attention_kernel<D, G>`; above 8 query heads a KV head
-// `decode_attention_group_kernel<D, MT>`), and int8 K/V with per-KV-vector
+// K/V (`decode_attention_kernel<D, G>`), and int8 K/V with per-KV-vector
 // float32 scales (kernel.py:53-55, the scale BlockSpecs at :122-127;
-// `decode_attention_kernel_int8<D, G>`, a design of its own, below).
+// `decode_attention_kernel_int8<D, G>`, a design of its own, below); above
+// 8 query heads a KV head both on `decode_attention_group_kernel<D, MT,
+// KV>`.
 //
 //   q (B, H, D), k/v (B, Hkv, T, D), kv_len (B,) -> out (B, H, D)
 //   out[b, h] = softmax_t(q[b,h] . k[b, h/G, t] / sqrt(D), t < kv_len[b])
@@ -22,20 +23,15 @@
 // GQA groups.  The G <= 8 instances hold the softmax state and the P V
 // accumulators of all G heads in each warp's registers (at D = 128, G = 8
 // already spills a little under the 128-register cap).  A larger group
-// (granite-34b's 48 query heads over one KV head, llama3-405b's 16):
-//   * float32: the group instance (`decode_attention_group_kernel<D,
-//     MT>`, below), which, as the Pallas kernel's grid step does, holds
-//     the whole group against each K/V tile: one block, or one cluster of
-//     key splits, per (row, KV head), so each key is copied into shared
-//     memory once per KV head, and q K^T and P V run on the tensor cores
-//     with the group's heads as M (MT = ceil(G / 16) m-tiles, at most 3;
-//     a group above 48 runs as head slots of at most 48);
-//   * int8: sub-groups of G' heads, G' the largest divisor of the group at
-//     most 8 (48 -> 6 x 8, 16 -> 2 x 8; `decode_attention_subgroup`),
-//     the G' instance serving each: the grid's y runs over Hkv x (group /
-//     G') head slots, slot y taking query heads [y G', y G' + G') against
-//     the K/V row of KV head y / (group / G'), each slot streaming the row
-//     through its own stages (the second and later from L2).
+// (granite-34b's 48 query heads over one KV head, llama3-405b's 16) runs on
+// the group instance (`decode_attention_group_kernel<D, MT, KV>`, below,
+// KV float or int8_t), which, as the Pallas kernel's grid step does, holds
+// the whole group against each K/V tile: one block, or one cluster of key
+// splits, per (row, KV head), so each key (and, int8, its scales) is
+// copied into shared memory once per KV head, and q K^T and P V run on the
+// tensor cores with the group's heads as M (MT = ceil(G / 16) m-tiles, at
+// most 3; a group above 48 runs as head slots of at most 48, and the int8
+// plan may take slots of 16 heads over a short row).
 //
 // What bounds it on the card: bytes.  One query per head does ~4 D flops
 // per key against the K and V bytes that its G heads share, so the time
@@ -83,33 +79,47 @@
 // max and a sum tree per tile and head; P V takes each key's weight from
 // its lane by a shuffle.
 //
-// The float32 group instance (a GQA group above 8).  What bounds it on
-// this card: bytes.  The arithmetic per K/V byte is G / 2 flops (4 G
-// flops a key against 8 D bytes), so at granite-34b's G = 48 and 4,096
-// keys a row the 3.2 GFLOP take 48 us on the FMA pipes, more than the
-// 40 us of bytes, and 20 us on the tensor cores at float32 accuracy (3
-// TF32 products a product), less.  A first design on the FMA pipes (8
-// warps dividing the heads, q and the accumulators in registers) ran at
-// about a fifth of the float32 rate: 245 us there, whatever its warps,
-// unrolling, stages or shared-memory reads (`tools/kernel_variants.py
-// --only decode_g48 decode_g16`, PERF.md).  So:
+// The group instance (a GQA group above 8).  What bounds it on this card:
+// float32, bytes.  The arithmetic per K/V byte is G / 2 flops (4 G flops
+// a key against 8 D bytes), so at granite-34b's G = 48 and 4,096 keys a
+// row the 3.2 GFLOP take 48 us on the FMA pipes, more than the 40 us of
+// bytes, and 20 us on the tensor cores at float32 accuracy (3 TF32
+// products a product), less.  A first design on the FMA pipes (8 warps
+// dividing the heads, q and the accumulators in registers) ran at about a
+// fifth of the float32 rate: 245 us there, whatever its warps, unrolling,
+// stages or shared-memory reads (`tools/kernel_variants.py --only
+// decode_g48 decode_g16`, PERF.md).  int8 K/V are a quarter of the bytes
+// (10 us there) and their values exact in TF32, so 2 products a product
+// (13 us): the products bound it on paper.  Measured, the conversions
+// bind it: int8 to float by byte permutes runs on the integer pipes at
+// half the FMA rate, and over 4,096 keys a probe without V's conversions
+// took 22-25 % less time, one without the scores' or P V's mma.sync 2-14
+// % less (`tools/kernel_variants.py`, PERF.md).  Both types run one
+// design:
 //   * grid (splits, Hkv x slots, B) in clusters of `splits`; MT x KS
-//     warps a block (KS = 4 key slices at MT = 3, 2 below), warp (mt,
-//     ks) taking m-tile mt (16 heads) against the 32-key tiles j = ks
-//     (mod KS);
-//   * each tile's K and V arrive by one bulk copy each (`load_tile`) into
-//     its slice's stage, refilled by warp (0, ks) once the slice's MT
-//     warps are done with it (a full and an empty mbarrier a stage);
+//     warps a block (KS = 4 key slices at MT = 3 and for int8 K/V, 2
+//     below), warp (mt, ks) taking m-tile mt (16 heads) against the
+//     32-key tiles j = ks (mod KS);
+//   * each tile arrives on one mbarrier into stage j % (KS St), St
+//     stages a slice (float32 1: K and V by one bulk copy each,
+//     `load_tile`; int8 2, a quarter of the bytes a stage: K and V and
+//     the 16-byte aligned spans of their scale rows, `load_tile_int8`),
+//     refilled by warp (0, ks) once the slice's MT warps are done with it
+//     (a full and an empty mbarrier a stage);
 //   * q of the slot's heads sits in shared memory, rows padded to D + 16
 //     floats; S = q K^T and out += P V by mma.sync m16n8k8 TF32, every
-//     operand split hi + lo and 3 products a product (lo hi, hi lo, hi
-//     hi), which holds the error against float64 within 4x the plain
+//     float32 operand split hi + lo: 3 products a product (lo hi, hi lo,
+//     hi hi) for float32 K/V, 2 for int8 (q lo K8, q hi K8; p lo V8, p hi
+//     V8, the V scale folded into the weight p and the K scale into the
+//     score), which holds the error against float64 within 4x the plain
 //     version's (the rule of the flash instance);
 //   * the k dims are permuted so that a lane's q and K fragments of two
-//     k-steps are one 16-byte load; S's accumulator is P V's A fragment
-//     as it stands (P V's k index t is the n-tile's key 2 t, t + 4 its
-//     key 2 t + 1); out's dims are permuted so that a lane's V fragments
-//     of four n-tiles are one 16-byte load a key.  K and V rows are not
+//     k-steps are one 16-byte load (int8: one 16-byte load of its K row
+//     feeds 8 k-steps, and q's chunks are stored swizzled to match); S's
+//     accumulator is P V's A fragment as it stands (P V's k index t is
+//     the n-tile's key 2 t, t + 4 its key 2 t + 1); out's dims are
+//     permuted so that a lane's V fragments of four n-tiles are one
+//     16-byte load a key (int8: one 4-byte load).  K and V rows are not
 //     padded: a bulk copy a row into padded rows, or cp.async, cost more
 //     than the bank conflicts they remove;
 //   * each tile's P V lands in fresh accumulators, added to out by one
@@ -122,11 +132,12 @@
 //     its peers push into its shared memory after a cluster barrier.
 // At MT = 3 a block takes one SM (12 warps of 168 registers, 158 KB), and
 // the card holds only 30 clusters of 4 such blocks, so the wrapper's
-// plan (`ops.py::decode_split_plan`) splits a row only when its tiles
+// plan (`ops.py::decode_group_plan`) splits a row only when its tiles
 // outnumber the slices, and then into clusters that three quarters of the
-// SMs hold.
+// SMs hold; over a short int8 row it takes head slots of 16 heads (MT =
+// 1) instead, for more blocks.
 //
-// The int8 instance is sized to its own bytes.  Its float32-sized
+// The int8 instance (G <= 8) is sized to its own bytes.  Its float32-sized
 // chain (a shuffle sum per key, two trees per 16 keys and head, one
 // shuffle per key and head in P V) and its float32 tiles (8 KB a stage)
 // left it at 7-10x its bound.  Here, with 8 warps a block taking a tile's
@@ -560,389 +571,8 @@ decode_attention_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// The float32 instance for a GQA group above 8
-// ---------------------------------------------------------------------------
-
-constexpr int kGTK = 32;     // keys of a tile
-constexpr int kGMaxMT = 3;   // m-tiles of 16 query heads: 48 heads a slot
-constexpr int kGQPad = 16;   // floats past D in a q row (distinct banks)
-
-// The key slices of a block (its warps of one m-tile take the tiles j =
-// slice (mod slices), one stage a slice): 4 at 3 m-tiles (12 warps, one
-// block an SM under its registers), else 2.
-__host__ __device__ constexpr int group_slices(int mt) {
-  return mt == 3 ? 4 : 2;
-}
-
-template <int D>
-struct GDims {
-  static_assert(D == 64 || D == 128, "compiled for head dims 64 and 128");
-  static constexpr int kP = D / 16;         // 16-dim blocks: 2 k-steps
-  static constexpr int kC = D / 32;         // 32-dim blocks of out
-  static constexpr int kQStr = D + kGQPad;  // floats of a q row
-  static constexpr int kPart = D + 4;       // a head's (m, l, -, -, acc)
-  static constexpr int kStage = 2 * kGTK * D;  // K, then V, of a tile
-};
-
-// Its dynamic shared memory, in floats: one stage a slice (as
-// `load_tile` fills it), over which, once every warp is done with its
-// keys, each warp's partials of its 16 heads land and, with more than
-// one split, the partials the cluster's blocks push to this one (`splits`
-// slots of the heads it merges); q of the slot's 16 MT heads; then a full
-// and an empty mbarrier per stage.
-template <int D, int MT>
-struct GLayout {
-  using Dm = GDims<D>;
-  static constexpr int kS = group_slices(MT), kWarps = MT * kS,
-                       kG = 16 * MT;
-  static constexpr int kWpart = kWarps * 16 * Dm::kPart;
-  static constexpr int kRecv = (kG + kMaxSplits) * Dm::kPart;
-  static constexpr int kArea = kS * Dm::kStage > kWpart + kRecv
-                                   ? kS * Dm::kStage
-                                   : kWpart + kRecv;
-  static constexpr int kBar = (kArea + kG * Dm::kQStr + 1) & ~1;
-  static constexpr size_t kBytes =
-      sizeof(float) * static_cast<size_t>(kBar) + 2 * sizeof(uint64_t) * kS;
-};
-
-// x = hi + lo: hi = x rounded to TF32 (nearest, ties away from zero, as
-// cvt.rna.tf32.f32, in two integer operations), lo = x - hi exact and
-// handed to the tensor cores unrounded (they read its top 19 bits).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// c += a b, one m16n8k8 TF32 product (float32 accumulate).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// MT m-tiles of 16 query heads, group_slices(MT) key slices; warp w takes
-// m-tile w / slices against the tiles of slice w % slices.  The grid's y
-// runs over Hkv x `slots` head slots: slot y holds query heads [sl Gs,
-// sl Gs + Gs) of KV head y / slots (sl = y % slots), Gs = ceil(G /
-// slots) at most 16 MT (one slot a KV head up to 48 heads; each slot
-// reads the K/V row).  Lane (g, t) = (lane / 4, lane % 4) holds the mma
-// fragments: scores S = q K^T of heads 16 mt + g (+ 8) against keys
-// 8 nt + 2 t (+ 1) of the tile, out of the same heads at dims 32 c +
-// 8 t + j4 (+ 4).  `kFloor` keeps the grid, q, the copies, the barriers
-// and the merges and drops the arithmetic: the floor of this design, for
-// measurement only (its output is zero, not a decode).
-template <int D, int MT, bool kFloor>
-__global__ void __launch_bounds__(32 * MT * group_slices(MT), 1)
-decode_attention_group_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
-                              const int* __restrict__ kv_len,
-                              float* __restrict__ out, int H, int Hkv, int T,
-                              int chunk) {
-  using Dm = GDims<D>;
-  using L = GLayout<D, MT>;
-  constexpr int kS = L::kS, kThr = 32 * L::kWarps, kPart = Dm::kPart;
-  constexpr float kScale = D == 64 ? 0.125f : 0.08838834764831845f;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int split = blockIdx.x;  // the block's rank in its cluster
-  const int splits = gridDim.x;
-  const int slots = gridDim.y / Hkv, kvh = blockIdx.y / slots;
-  const int b = blockIdx.z, G = H / Hkv, Gs = (G + slots - 1) / slots;
-  const int g_first = (blockIdx.y % slots) * Gs, gb = min(Gs, G - g_first);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3, mt = warp / kS, ks = warp % kS;
-  extern __shared__ __align__(16) float gsmem[];
-  float* qs = gsmem + L::kArea;
-  uint64_t* full = reinterpret_cast<uint64_t*>(gsmem + L::kBar);
-  uint64_t* empty = full + kS;
-
-  // This block's live keys: [k0, k0 + n) of the row.
-  const int len = max(0, min(kv_len[b], T));
-  const long long first = static_cast<long long>(split) * chunk;
-  const int k0 = first < len ? static_cast<int>(first) : len;
-  const int n = min(chunk, len - k0);
-  const int n_tiles = (n + kGTK - 1) / kGTK;
-  const size_t kv_base =
-      ((static_cast<size_t>(b) * Hkv + kvh) * T + k0) * D;
-  const size_t q_base =
-      (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G + g_first) *
-      D;
-  if (tid == 0) {
-    for (int s = 0; s < kS; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], MT);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  // q of the slot's heads, rows past gb zero.
-  const float4* q4 = reinterpret_cast<const float4*>(q + q_base);
-  for (int i = tid; i < L::kG * D / 4; i += kThr) {
-    const int row = i / (D / 4);
-    reinterpret_cast<float4*>(qs + row * Dm::kQStr)[i % (D / 4)] =
-        row < gb ? __ldg(q4 + i) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  __syncthreads();  // the barriers' initialisation, q
-  if (mt == 0 && lane == 0 && ks < n_tiles) {
-    load_tile<D>(gsmem, full, k + kv_base, v + kv_base, ks, n, kGTK, kS);
-  }
-
-  // Rows g and g + 8 of the m-tile: the online softmax (m; l per lane
-  // until the end) and out's accumulators, acc[c][j4] = the fragment of
-  // dims 32 c + 4 n + j4 (n = 2 t, 2 t + 1).
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float acc[Dm::kC][4][4];
-#pragma unroll
-  for (int c = 0; c < Dm::kC; ++c) {
-#pragma unroll
-    for (int j4 = 0; j4 < 4; ++j4) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][j4][e] = 0.f;
-    }
-  }
-  const float* qa_row = qs + (16 * mt + g) * Dm::kQStr + 4 * t;
-  const float* qb_row = qa_row + 8 * Dm::kQStr;
-  for (int j = ks; j < n_tiles; j += kS) {
-    const uint32_t parity = (j / kS) & 1;
-    const int nk = min(kGTK, n - j * kGTK);
-    const float* kst = gsmem + ks * Dm::kStage;
-    const float* vst = kst + kGTK * D;
-    mbar_wait(&full[ks], parity);
-    if constexpr (!kFloor) {
-      // S: k-step 2p takes dims 16 p + 4 t (k index t) and + 1 (t + 4),
-      // k-step 2p + 1 the next two, so each lane's q and K fragments of
-      // two k-steps are one 16-byte load; 3 TF32 products a product (lo
-      // hi and hi lo into sx, hi hi into sc).  Keys past the tile read
-      // its last row.
-      float sc[4][4], sx[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[nt][e] = sx[nt][e] = 0.f;
-      }
-#pragma unroll
-      for (int p = 0; p < Dm::kP; ++p) {
-        const float4 qa = *reinterpret_cast<const float4*>(qa_row + 16 * p);
-        const float4 qb = *reinterpret_cast<const float4*>(qb_row + 16 * p);
-        uint32_t ah[8], al[8];
-        split_tf32(qa.x, ah[0], al[0]);
-        split_tf32(qb.x, ah[1], al[1]);
-        split_tf32(qa.y, ah[2], al[2]);
-        split_tf32(qb.y, ah[3], al[3]);
-        split_tf32(qa.z, ah[4], al[4]);
-        split_tf32(qb.z, ah[5], al[5]);
-        split_tf32(qa.w, ah[6], al[6]);
-        split_tf32(qb.w, ah[7], al[7]);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int r = min(8 * nt + g, nk - 1);
-          const float4 kk = *reinterpret_cast<const float4*>(
-              kst + r * D + 16 * p + 4 * t);
-          uint32_t bh[4], bl[4];
-          split_tf32(kk.x, bh[0], bl[0]);
-          split_tf32(kk.y, bh[1], bl[1]);
-          split_tf32(kk.z, bh[2], bl[2]);
-          split_tf32(kk.w, bh[3], bl[3]);
-          mma_tf32(sx[nt], al[0], al[1], al[2], al[3], bh[0], bh[1]);
-          mma_tf32(sx[nt], ah[0], ah[1], ah[2], ah[3], bl[0], bl[1]);
-          mma_tf32(sc[nt], ah[0], ah[1], ah[2], ah[3], bh[0], bh[1]);
-          mma_tf32(sx[nt], al[4], al[5], al[6], al[7], bh[2], bh[3]);
-          mma_tf32(sx[nt], ah[4], ah[5], ah[6], ah[7], bl[2], bl[3]);
-          mma_tf32(sc[nt], ah[4], ah[5], ah[6], ah[7], bh[2], bh[3]);
-        }
-      }
-      // Masked scores, the tile's max per row (the lane's 8 keys, then
-      // the row's 4 lanes), the online softmax.
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int key = 8 * nt + 2 * t;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[nt][e] = key + (e & 1) < nk
-                          ? (sc[nt][e] + sx[nt][e]) * kScale
-                          : -INFINITY;
-        }
-        mx0 = fmaxf(mx0, fmaxf(sc[nt][0], sc[nt][1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[nt][2], sc[nt][3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float ms0 = isfinite(mn0) ? mn0 : 0.f;
-      const float ms1 = isfinite(mn1) ? mn1 : 0.f;
-      const float al0 = isfinite(m0) ? expf(m0 - ms0) : 0.f;
-      const float al1 = isfinite(m1) ? expf(m1 - ms1) : 0.f;
-      m0 = mn0;
-      m1 = mn1;
-      l0 *= al0;
-      l1 *= al1;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        sc[nt][0] = expf(sc[nt][0] - ms0);
-        sc[nt][1] = expf(sc[nt][1] - ms0);
-        sc[nt][2] = expf(sc[nt][2] - ms1);
-        sc[nt][3] = expf(sc[nt][3] - ms1);
-        l0 += sc[nt][0] + sc[nt][1];
-        l1 += sc[nt][2] + sc[nt][3];
-      }
-      // out = out alpha + P V, per 32-dim block c: the tile's products
-      // in fresh accumulators (the tensor cores' float32 sums truncate,
-      // so no chain of them runs past one tile), added to out by one
-      // rounded FMA each.  K-step nt: S's accumulator is P's A fragment
-      // as is (k index t: key 8 nt + 2 t; t + 4: key 8 nt + 2 t + 1); V's
-      // B fragments of n-tiles (c, 0..3), one 16-byte load a key.  A key
-      // past the tile has weight 0 and reads its last row.
-#pragma unroll
-      for (int c = 0; c < Dm::kC; ++c) {
-        float pv[4][4];
-#pragma unroll
-        for (int j4 = 0; j4 < 4; ++j4) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) pv[j4][e] = 0.f;
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          uint32_t ph[4], pl[4];
-          split_tf32(sc[nt][0], ph[0], pl[0]);
-          split_tf32(sc[nt][2], ph[1], pl[1]);
-          split_tf32(sc[nt][1], ph[2], pl[2]);
-          split_tf32(sc[nt][3], ph[3], pl[3]);
-          const float4 va = *reinterpret_cast<const float4*>(
-              vst + min(8 * nt + 2 * t, nk - 1) * D + 32 * c + 4 * g);
-          const float4 vb = *reinterpret_cast<const float4*>(
-              vst + min(8 * nt + 2 * t + 1, nk - 1) * D + 32 * c + 4 * g);
-          const float xa[4] = {va.x, va.y, va.z, va.w};
-          const float xb[4] = {vb.x, vb.y, vb.z, vb.w};
-#pragma unroll
-          for (int j4 = 0; j4 < 4; ++j4) {
-            uint32_t h0, lo0, h1, lo1;
-            split_tf32(xa[j4], h0, lo0);
-            split_tf32(xb[j4], h1, lo1);
-            mma_tf32(pv[j4], pl[0], pl[1], pl[2], pl[3], h0, h1);
-            mma_tf32(pv[j4], ph[0], ph[1], ph[2], ph[3], lo0, lo1);
-            mma_tf32(pv[j4], ph[0], ph[1], ph[2], ph[3], h0, h1);
-          }
-        }
-#pragma unroll
-        for (int j4 = 0; j4 < 4; ++j4) {
-          acc[c][j4][0] = fmaf(acc[c][j4][0], al0, pv[j4][0]);
-          acc[c][j4][1] = fmaf(acc[c][j4][1], al0, pv[j4][1]);
-          acc[c][j4][2] = fmaf(acc[c][j4][2], al1, pv[j4][2]);
-          acc[c][j4][3] = fmaf(acc[c][j4][3], al1, pv[j4][3]);
-        }
-      }
-    }
-    // The stage is free once the slice's MT warps are done with it; warp
-    // (0, slice) then refills it with the slice's next tile.
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[ks]);
-    if (mt == 0 && lane == 0 && j + kS < n_tiles) {
-      mbar_wait(&empty[ks], parity);
-      load_tile<D>(gsmem, full, k + kv_base, v + kv_base, j + kS, n, kGTK,
-                   kS);
-    }
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  __syncthreads();  // every warp is done with the stages
-  // The warp's partials of its 16 heads, over the stages.
-  float* wp = gsmem + warp * 16 * kPart;
-  if (t == 0) {
-    wp[g * kPart] = m0;
-    wp[g * kPart + 1] = l0;
-    wp[(g + 8) * kPart] = m1;
-    wp[(g + 8) * kPart + 1] = l1;
-  }
-#pragma unroll
-  for (int c = 0; c < Dm::kC; ++c) {
-    float* ra = wp + g * kPart + 4 + 32 * c + 8 * t;
-    float* rb = ra + 8 * kPart;
-    *reinterpret_cast<float4*>(ra) = make_float4(
-        acc[c][0][0], acc[c][1][0], acc[c][2][0], acc[c][3][0]);
-    *reinterpret_cast<float4*>(ra + 4) = make_float4(
-        acc[c][0][1], acc[c][1][1], acc[c][2][1], acc[c][3][1]);
-    *reinterpret_cast<float4*>(rb) = make_float4(
-        acc[c][0][2], acc[c][1][2], acc[c][2][2], acc[c][3][2]);
-    *reinterpret_cast<float4*>(rb + 4) = make_float4(
-        acc[c][0][3], acc[c][1][3], acc[c][2][3], acc[c][3][3]);
-  }
-  __syncthreads();
-  // The slices merge per head; with one split that is the output.  With
-  // more, rank r merges heads [r hpr, (r + 1) hpr): once every block of
-  // the cluster is done with its keys (its stages free: one cluster
-  // barrier), each block pushes its heads' partials into their rank's
-  // shared memory, beside the warps' partials, in this block's slot, and
-  // after a second barrier each rank merges its own.
-  const int hpr = (gb + splits - 1) / splits;
-  float* recv = gsmem + L::kWpart;
-  if (splits > 1) {
-    cluster_arrive();
-    cluster_wait();
-  }
-  float* orow = out + q_base;
-  for (int i = tid; i < gb * D; i += kThr) {
-    const int hh = i / D, d = i % D;
-    const float* p0 = gsmem + ((hh / 16) * kS * 16 + hh % 16) * kPart;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int s2 = 0; s2 < kS; ++s2) mx = fmaxf(mx, p0[s2 * 16 * kPart]);
-    const float m_safe = isfinite(mx) ? mx : 0.f;
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int s2 = 0; s2 < kS; ++s2) {
-      const float* pr = p0 + s2 * 16 * kPart;
-      const float w = isfinite(pr[0]) ? expf(pr[0] - m_safe) : 0.f;
-      den = fmaf(w, pr[1], den);
-      num = fmaf(w, pr[4 + d], num);
-    }
-    if (splits == 1) {
-      orow[i] = num / fmaxf(den, 1e-30f);
-    } else {
-      const int owner = hh / hpr;
-      float* dst = cluster.map_shared_rank(recv, owner) +
-                   (split * hpr + hh - owner * hpr) * kPart;
-      dst[4 + d] = num;
-      if (d == 0) {
-        dst[0] = mx;
-        dst[1] = den;
-      }
-    }
-  }
-  if (splits == 1) return;
-  cluster_arrive();
-  cluster_wait();
-  const int g0 = split * hpr, ng = min(hpr, gb - g0);
-  for (int i = tid; i < ng * D; i += kThr) {
-    const int gg = i / D, d = i % D;
-    float mx = -INFINITY;
-    for (int r = 0; r < splits; ++r) {
-      mx = fmaxf(mx, recv[(r * hpr + gg) * kPart]);
-    }
-    const float m_safe = isfinite(mx) ? mx : 0.f;
-    float den = 0.f, num = 0.f;
-    for (int r = 0; r < splits; ++r) {
-      const float* pr = recv + (r * hpr + gg) * kPart;
-      const float w = isfinite(pr[0]) ? expf(pr[0] - m_safe) : 0.f;
-      den = fmaf(w, pr[1], den);
-      num = fmaf(w, pr[4 + d], num);
-    }
-    orow[(g0 + gg) * D + d] = num / fmaxf(den, 1e-30f);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The int8 instance
+// The int8 pieces: the G <= 8 instance's tiles, their scale spans and the
+// int8-to-float conversion (the group instance takes them too)
 // ---------------------------------------------------------------------------
 
 constexpr int kQWarps = 8;
@@ -975,8 +605,10 @@ struct QLayout {
   // A scale array holds the tile's keys at offsets e0 % 4 ..
   // e0 % 4 + tk - 1 (e0: the first key's index in the scale tensor),
   // rounded up to 16 bytes.
-  __host__ __device__ int scale_floats() const { return (tk + 6) & ~3; }
-  __host__ __device__ int stage_bytes() const {
+  __host__ __device__ constexpr int scale_floats() const {
+    return (tk + 6) & ~3;
+  }
+  __host__ __device__ constexpr int stage_bytes() const {
     return 2 * tk * D + 8 * scale_floats();
   }
   __host__ __device__ int q_off() const {
@@ -1065,6 +697,602 @@ __device__ __forceinline__ float lane_of(const float4& f, int u) {
   return u == 0 ? f.x : u == 1 ? f.y : u == 2 ? f.z : f.w;
 }
 
+// ---------------------------------------------------------------------------
+// The group instance for a GQA group above 8, float32 and int8 K/V
+// ---------------------------------------------------------------------------
+
+constexpr int kGTK = 32;     // keys of a tile
+constexpr int kGMaxMT = 3;   // m-tiles of 16 query heads: 48 heads a slot
+constexpr int kGQPad = 16;   // floats past D in a q row (distinct banks)
+constexpr int kGInt8Stages = 2;  // stages a key slice, int8 K/V
+
+// The key slices of a block (its warps of one m-tile take the tiles j =
+// slice (mod slices)): 4 at 3 m-tiles (12 warps, one block an SM under
+// its registers) and for int8 K/V, else 2 (float32 K/V: 4 slices of one
+// m-tile measured slower, int8 faster, `tools/kernel_variants.py`).
+__host__ __device__ constexpr int group_slices(int mt, bool int8) {
+  return int8 || mt == 3 ? 4 : 2;
+}
+
+template <int D>
+struct GDims {
+  static_assert(D == 64 || D == 128, "compiled for head dims 64 and 128");
+  static constexpr int kP = D / 16;         // 16-dim blocks: 2 k-steps
+  static constexpr int kC = D / 32;         // 32-dim blocks of out
+  static constexpr int kQStr = D + kGQPad;  // floats of a q row
+  static constexpr int kPart = D + 4;       // a head's (m, l, -, -, acc)
+};
+
+// Its dynamic shared memory, in bytes: kSt stages a slice, tile j in
+// stage j % (slices kSt) (float32: K then V of the tile, as `load_tile`
+// fills it; int8: K, V and their scale spans, as `load_tile_int8` fills
+// it), over which, once every warp is done with its keys, each warp's
+// partials of its 16 heads land and, with more than one split, the
+// partials the cluster's blocks push to this one (`splits` slots of the
+// heads it merges); q of the slot's 16 MT heads; then a full and an empty
+// mbarrier per stage.
+template <int D, int MT, typename KV>
+struct GLayout {
+  using Dm = GDims<D>;
+  static constexpr bool kInt8 = sizeof(KV) == 1;
+  static constexpr int kS = group_slices(MT, kInt8), kWarps = MT * kS,
+                       kG = 16 * MT;
+  static constexpr int kSt = kInt8 ? kGInt8Stages : 1;
+  static constexpr int kStages = kS * kSt;
+  static constexpr int kStageBytes =
+      kInt8 ? QLayout<D>{kGTK, kStages, 0, 1}.stage_bytes()
+            : static_cast<int>(sizeof(float)) * 2 * kGTK * D;
+  static constexpr int kWpart = 4 * kWarps * 16 * Dm::kPart;
+  static constexpr int kRecv = 4 * (kG + kMaxSplits) * Dm::kPart;
+  static constexpr int kArea = kStages * kStageBytes > kWpart + kRecv
+                                   ? kStages * kStageBytes
+                                   : kWpart + kRecv;
+  static constexpr int kBar = (kArea + 4 * kG * Dm::kQStr + 7) & ~7;
+  static constexpr size_t kBytes =
+      static_cast<size_t>(kBar) + 2 * sizeof(uint64_t) * kStages;
+};
+
+// x = hi + lo: hi = x rounded to TF32 (nearest, ties away from zero, as
+// cvt.rna.tf32.f32, in two integer operations), lo = x - hi exact and
+// handed to the tensor cores unrounded (they read its top 19 bits).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b, one m16n8k8 TF32 product (float32 accumulate).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The A fragments of q's rows g (qa) and g + 8 (qb) for two k-steps (k
+// indices t, t + 4 of the first at .x, .y; of the second at .z, .w),
+// split hi + lo.
+__device__ __forceinline__ void split_q(const float4& qa, const float4& qb,
+                                        uint32_t (&ah)[8],
+                                        uint32_t (&al)[8]) {
+  split_tf32(qa.x, ah[0], al[0]);
+  split_tf32(qb.x, ah[1], al[1]);
+  split_tf32(qa.y, ah[2], al[2]);
+  split_tf32(qb.y, ah[3], al[3]);
+  split_tf32(qa.z, ah[4], al[4]);
+  split_tf32(qb.z, ah[5], al[5]);
+  split_tf32(qa.w, ah[6], al[6]);
+  split_tf32(qb.w, ah[7], al[7]);
+}
+
+// S = q K^T of a tile of float32 K: k-step 2p takes dims 16 p + 4 t (k
+// index t) and + 1 (t + 4), k-step 2p + 1 the next two, so each lane's q
+// and K fragments of two k-steps are one 16-byte load; 3 TF32 products a
+// product (lo hi and hi lo into sx, hi hi into sc).  Keys past the tile
+// read its last row.
+template <int D>
+__device__ __forceinline__ void group_scores(const float* kst,
+                                             const float* qa_row,
+                                             const float* qb_row, int g,
+                                             int t, int nk,
+                                             float (&sc)[4][4],
+                                             float (&sx)[4][4]) {
+#pragma unroll
+  for (int p = 0; p < GDims<D>::kP; ++p) {
+    const float4 qa =
+        *reinterpret_cast<const float4*>(qa_row + 16 * p + 4 * t);
+    const float4 qb =
+        *reinterpret_cast<const float4*>(qb_row + 16 * p + 4 * t);
+    uint32_t ah[8], al[8];
+    split_q(qa, qb, ah, al);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int r = min(8 * nt + g, nk - 1);
+      const float4 kk = *reinterpret_cast<const float4*>(
+          kst + r * D + 16 * p + 4 * t);
+      uint32_t bh[4], bl[4];
+      split_tf32(kk.x, bh[0], bl[0]);
+      split_tf32(kk.y, bh[1], bl[1]);
+      split_tf32(kk.z, bh[2], bl[2]);
+      split_tf32(kk.w, bh[3], bl[3]);
+      mma_tf32(sx[nt], al[0], al[1], al[2], al[3], bh[0], bh[1]);
+      mma_tf32(sx[nt], ah[0], ah[1], ah[2], ah[3], bl[0], bl[1]);
+      mma_tf32(sc[nt], ah[0], ah[1], ah[2], ah[3], bh[0], bh[1]);
+      mma_tf32(sx[nt], al[4], al[5], al[6], al[7], bh[2], bh[3]);
+      mma_tf32(sx[nt], ah[4], ah[5], ah[6], ah[7], bl[2], bl[3]);
+      mma_tf32(sc[nt], ah[4], ah[5], ah[6], ah[7], bh[2], bh[3]);
+    }
+  }
+}
+
+// S = q K8^T of a tile of int8 K, whose values are exact in TF32: 2 TF32
+// products a product (q lo K8 into sx, q hi K8 into sc).  One 16-byte
+// load of a lane's K row, bytes [64 P + 16 t, + 16) of 64-dim block P,
+// feeds 8 k-steps: its word c gives k-step 2 (4 P + c) dims 64 P + 16 t
+// + 4 c (k index t) and + 1 (t + 4), k-step 2 (4 P + c) + 1 the next two.
+// q's float4 of the same dims is its row's 16-byte chunk 16 P + 4 t + c,
+// stored at 16 P + 4 t + (c ^ t) so that a quarter-warp's loads hit 8
+// distinct bank groups.  Keys past the tile read its last row.
+template <int D>
+__device__ __forceinline__ void group_scores(const int8_t* kst,
+                                             const float* qa_row,
+                                             const float* qb_row, int g,
+                                             int t, int nk,
+                                             float (&sc)[4][4],
+                                             float (&sx)[4][4]) {
+#pragma unroll
+  for (int P = 0; P < D / 64; ++P) {
+    int4 kw[4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int r = min(8 * nt + g, nk - 1);
+      kw[nt] = *reinterpret_cast<const int4*>(kst + r * D + 64 * P + 16 * t);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int at = 4 * (16 * P + 4 * t + (c ^ t));
+      uint32_t ah[8], al[8];
+      split_q(*reinterpret_cast<const float4*>(qa_row + at),
+              *reinterpret_cast<const float4*>(qb_row + at), ah, al);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int w = c == 0 ? kw[nt].x : c == 1 ? kw[nt].y
+                      : c == 2 ? kw[nt].z : kw[nt].w;
+        float kf[4];
+        s8x4_to_f32(static_cast<uint32_t>(w), kf);
+        const uint32_t b0 = __float_as_uint(kf[0]),
+                       b1 = __float_as_uint(kf[1]),
+                       b2 = __float_as_uint(kf[2]),
+                       b3 = __float_as_uint(kf[3]);
+        mma_tf32(sx[nt], al[0], al[1], al[2], al[3], b0, b1);
+        mma_tf32(sc[nt], ah[0], ah[1], ah[2], ah[3], b0, b1);
+        mma_tf32(sx[nt], al[4], al[5], al[6], al[7], b2, b3);
+        mma_tf32(sc[nt], ah[4], ah[5], ah[6], ah[7], b2, b3);
+      }
+    }
+  }
+}
+
+// out = out alpha + P V of a tile of float32 V, per 32-dim block c: the
+// tile's products in fresh accumulators (the tensor cores' float32 sums
+// truncate, so no chain of them runs past one tile), added to out by one
+// rounded FMA each.  K-step nt: S's accumulator is P's A fragment as is
+// (k index t: key 8 nt + 2 t; t + 4: key 8 nt + 2 t + 1); V's B fragments
+// of n-tiles (c, 0..3), one 16-byte load a key; 3 TF32 products a
+// product.  A key past the tile has weight 0 and reads its last row.
+template <int D>
+__device__ __forceinline__ void group_pv(const float* vst, int g, int t,
+                                         int nk, const float (&p)[4][4],
+                                         float al0, float al1,
+                                         float (&acc)[D / 32][4][4]) {
+#pragma unroll
+  for (int c = 0; c < GDims<D>::kC; ++c) {
+    float pv[4][4];
+#pragma unroll
+    for (int j4 = 0; j4 < 4; ++j4) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[j4][e] = 0.f;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      uint32_t ph[4], pl[4];
+      split_tf32(p[nt][0], ph[0], pl[0]);
+      split_tf32(p[nt][2], ph[1], pl[1]);
+      split_tf32(p[nt][1], ph[2], pl[2]);
+      split_tf32(p[nt][3], ph[3], pl[3]);
+      const float4 va = *reinterpret_cast<const float4*>(
+          vst + min(8 * nt + 2 * t, nk - 1) * D + 32 * c + 4 * g);
+      const float4 vb = *reinterpret_cast<const float4*>(
+          vst + min(8 * nt + 2 * t + 1, nk - 1) * D + 32 * c + 4 * g);
+      const float xa[4] = {va.x, va.y, va.z, va.w};
+      const float xb[4] = {vb.x, vb.y, vb.z, vb.w};
+#pragma unroll
+      for (int j4 = 0; j4 < 4; ++j4) {
+        uint32_t h0, lo0, h1, lo1;
+        split_tf32(xa[j4], h0, lo0);
+        split_tf32(xb[j4], h1, lo1);
+        mma_tf32(pv[j4], pl[0], pl[1], pl[2], pl[3], h0, h1);
+        mma_tf32(pv[j4], ph[0], ph[1], ph[2], ph[3], lo0, lo1);
+        mma_tf32(pv[j4], ph[0], ph[1], ph[2], ph[3], h0, h1);
+      }
+    }
+#pragma unroll
+    for (int j4 = 0; j4 < 4; ++j4) {
+      acc[c][j4][0] = fmaf(acc[c][j4][0], al0, pv[j4][0]);
+      acc[c][j4][1] = fmaf(acc[c][j4][1], al0, pv[j4][1]);
+      acc[c][j4][2] = fmaf(acc[c][j4][2], al1, pv[j4][2]);
+      acc[c][j4][3] = fmaf(acc[c][j4][3], al1, pv[j4][3]);
+    }
+  }
+}
+
+// The same over a tile of int8 V, exact in TF32: each weight times its
+// key's V scale (vmul[nt][i]: key 8 nt + 2 t + i), split hi + lo once a
+// tile, 2 TF32 products a product (p lo V8, p hi V8); V's B fragments of
+// n-tiles (c, 0..3) are one 4-byte word a key.
+template <int D>
+__device__ __forceinline__ void group_pv(const int8_t* vst, int g, int t,
+                                         int nk, const float (&p)[4][4],
+                                         const float (&vmul)[4][2],
+                                         float al0, float al1,
+                                         float (&acc)[D / 32][4][4]) {
+  uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    split_tf32(p[nt][0] * vmul[nt][0], ph[nt][0], pl[nt][0]);
+    split_tf32(p[nt][2] * vmul[nt][0], ph[nt][1], pl[nt][1]);
+    split_tf32(p[nt][1] * vmul[nt][1], ph[nt][2], pl[nt][2]);
+    split_tf32(p[nt][3] * vmul[nt][1], ph[nt][3], pl[nt][3]);
+  }
+#pragma unroll
+  for (int c = 0; c < GDims<D>::kC; ++c) {
+    float pv[4][4];
+#pragma unroll
+    for (int j4 = 0; j4 < 4; ++j4) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[j4][e] = 0.f;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float xa[4], xb[4];
+      s8x4_to_f32(*reinterpret_cast<const uint32_t*>(
+                      vst + min(8 * nt + 2 * t, nk - 1) * D + 32 * c + 4 * g),
+                  xa);
+      s8x4_to_f32(
+          *reinterpret_cast<const uint32_t*>(
+              vst + min(8 * nt + 2 * t + 1, nk - 1) * D + 32 * c + 4 * g),
+          xb);
+#pragma unroll
+      for (int j4 = 0; j4 < 4; ++j4) {
+        const uint32_t b0 = __float_as_uint(xa[j4]),
+                       b1 = __float_as_uint(xb[j4]);
+        mma_tf32(pv[j4], pl[nt][0], pl[nt][1], pl[nt][2], pl[nt][3], b0,
+                 b1);
+        mma_tf32(pv[j4], ph[nt][0], ph[nt][1], ph[nt][2], ph[nt][3], b0,
+                 b1);
+      }
+    }
+#pragma unroll
+    for (int j4 = 0; j4 < 4; ++j4) {
+      acc[c][j4][0] = fmaf(acc[c][j4][0], al0, pv[j4][0]);
+      acc[c][j4][1] = fmaf(acc[c][j4][1], al0, pv[j4][1]);
+      acc[c][j4][2] = fmaf(acc[c][j4][2], al1, pv[j4][2]);
+      acc[c][j4][3] = fmaf(acc[c][j4][3], al1, pv[j4][3]);
+    }
+  }
+}
+
+// MT m-tiles of 16 query heads, group_slices(MT, int8) key slices; warp w
+// takes m-tile w / slices against the tiles of slice w % slices.  The
+// grid's y runs over Hkv x `slots` head slots: slot y holds query heads [sl Gs,
+// sl Gs + Gs) of KV head y / slots (sl = y % slots), Gs = ceil(G /
+// slots) at most 16 MT (each slot reads the K/V row).  Lane (g, t) =
+// (lane / 4, lane % 4) holds the mma fragments: scores S = q K^T of heads
+// 16 mt + g (+ 8) against keys 8 nt + 2 t (+ 1) of the tile, out of the
+// same heads at dims 32 c + 8 t + j4 (+ 4).  KV is float or int8_t: int8
+// K/V come with their per-key float32 scales (k_scale, v_scale: (B, Hkv,
+// T), the K scale folded into the score, the V scale into the weight);
+// float32 passes none.  `kFloor` keeps the grid, q, the copies, the
+// barriers and the merges and drops the arithmetic: the floor of this
+// design, for measurement only (its output is zero, not a decode).
+template <int D, int MT, typename KV, bool kFloor>
+__global__ void __launch_bounds__(32 * MT *
+                                  group_slices(MT, sizeof(KV) == 1), 1)
+decode_attention_group_kernel(const float* __restrict__ q,
+                              const KV* __restrict__ k,
+                              const KV* __restrict__ v,
+                              const float* __restrict__ k_scale,
+                              const float* __restrict__ v_scale,
+                              const int* __restrict__ kv_len,
+                              float* __restrict__ out, int H, int Hkv, int T,
+                              int chunk) {
+  using Dm = GDims<D>;
+  using L = GLayout<D, MT, KV>;
+  constexpr bool kInt8 = L::kInt8;
+  constexpr int kS = L::kS, kNS = L::kStages, kThr = 32 * L::kWarps;
+  constexpr int kPart = Dm::kPart;
+  constexpr float kScale = D == 64 ? 0.125f : 0.08838834764831845f;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = blockIdx.x;  // the block's rank in its cluster
+  const int splits = gridDim.x;
+  const int slots = gridDim.y / Hkv, kvh = blockIdx.y / slots;
+  const int b = blockIdx.z, G = H / Hkv, Gs = (G + slots - 1) / slots;
+  const int g_first = (blockIdx.y % slots) * Gs, gb = min(Gs, G - g_first);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3, mt = warp / kS, ks = warp % kS;
+  extern __shared__ __align__(16) unsigned char gsmem[];
+  float* parts = reinterpret_cast<float*>(gsmem);
+  float* qs = reinterpret_cast<float*>(gsmem + L::kArea);
+  uint64_t* full = reinterpret_cast<uint64_t*>(gsmem + L::kBar);
+  uint64_t* empty = full + kNS;
+
+  // This block's live keys: [k0, k0 + n) of the row; e_base is k0's
+  // index in the (B, Hkv, T) keys (and scales) of `numel`.
+  const int len = max(0, min(kv_len[b], T));
+  const long long first = static_cast<long long>(split) * chunk;
+  const int k0 = first < len ? static_cast<int>(first) : len;
+  const int n = min(chunk, len - k0);
+  const int n_tiles = (n + kGTK - 1) / kGTK;
+  const size_t e_base = (static_cast<size_t>(b) * Hkv + kvh) * T + k0;
+  const size_t numel = static_cast<size_t>(gridDim.z) * Hkv * T;
+  const size_t q_base =
+      (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G + g_first) *
+      D;
+  // Tile j of the block's keys into its stage, j % kNS.
+  const auto load = [&](int j) {
+    if constexpr (kInt8) {
+      load_tile_int8<D>(gsmem, QLayout<D>{kGTK, kNS, 0, 1}, full, k, v,
+                        k_scale, v_scale, e_base, numel, j, n);
+    } else {
+      load_tile<D>(parts, full, k + e_base * D, v + e_base * D, j, n, kGTK,
+                   kNS);
+    }
+  };
+  // Thread 0 starts the first tile of every stage before q is loaded.
+  if (tid == 0) {
+    for (int s = 0; s < kNS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], MT);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int j = 0; j < min(n_tiles, kNS); ++j) load(j);
+  }
+  // q of the slot's heads, rows past gb zero, every load in flight before
+  // the stores; for int8 K/V each row's 16-byte chunk i at i ^ ((i >> 2)
+  // & 3) (see group_scores).
+  {
+    constexpr int kQ4 = L::kG * D / 4, kPer = (kQ4 + kThr - 1) / kThr;
+    const float4* q4 = reinterpret_cast<const float4*>(q + q_base);
+    float4 qv[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = tid + u * kThr;
+      qv[u] = i < kQ4 && i / (D / 4) < gb ? __ldg(q4 + i)
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = tid + u * kThr, c4 = i % (D / 4);
+      if (i < kQ4) {
+        reinterpret_cast<float4*>(qs + (i / (D / 4)) * Dm::kQStr)
+            [kInt8 ? c4 ^ ((c4 >> 2) & 3) : c4] = qv[u];
+      }
+    }
+  }
+  __syncthreads();  // the barriers' initialisation, q
+
+  // Rows g and g + 8 of the m-tile: the online softmax (m; l per lane
+  // until the end) and out's accumulators, acc[c][j4] = the fragment of
+  // dims 32 c + 4 n + j4 (n = 2 t, 2 t + 1).
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[Dm::kC][4][4];
+#pragma unroll
+  for (int c = 0; c < Dm::kC; ++c) {
+#pragma unroll
+    for (int j4 = 0; j4 < 4; ++j4) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][j4][e] = 0.f;
+    }
+  }
+  const float* qa_row = qs + (16 * mt + g) * Dm::kQStr;
+  const float* qb_row = qa_row + 8 * Dm::kQStr;
+  for (int j = ks; j < n_tiles; j += kS) {
+    const int s = j % kNS;
+    const uint32_t parity = (j / kNS) & 1;
+    const int nk = min(kGTK, n - j * kGTK);
+    const KV* kst = reinterpret_cast<const KV*>(gsmem + s * L::kStageBytes);
+    const KV* vst = kst + kGTK * D;
+    mbar_wait(&full[s], parity);
+    if constexpr (!kFloor) {
+      float sc[4][4], sx[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = sx[nt][e] = 0.f;
+      }
+      group_scores<D>(kst, qa_row, qb_row, g, t, nk, sc, sx);
+      // int8: the scales of the lane's keys 8 nt + 2 t + i (a key past
+      // the tile takes its last key's), the K scale times 1 / sqrt(D).
+      float kmul[4][2], vmul[4][2];
+      if constexpr (kInt8) {
+        const ScaleSpan sp(e_base, numel, j, kGTK, nk);
+        const float* kss =
+            reinterpret_cast<const float*>(kst + 2 * kGTK * D) + (sp.e0 & 3);
+        const float* vss = kss + QLayout<D>{kGTK, kNS, 0, 1}.scale_floats();
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int key = min(8 * nt + 2 * t + i, nk - 1);
+            const size_t e = sp.e0 + key;
+            kmul[nt][i] = (e < sp.hi ? kss[key] : __ldg(k_scale + e)) * kScale;
+            vmul[nt][i] = e < sp.hi ? vss[key] : __ldg(v_scale + e);
+          }
+        }
+      }
+      // Masked scores, the tile's max per row (the lane's 8 keys, then
+      // the row's 4 lanes), the online softmax.
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int key = 8 * nt + 2 * t;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[nt][e] = key + (e & 1) < nk
+                          ? (sc[nt][e] + sx[nt][e]) *
+                                (kInt8 ? kmul[nt][e & 1] : kScale)
+                          : -INFINITY;
+        }
+        mx0 = fmaxf(mx0, fmaxf(sc[nt][0], sc[nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[nt][2], sc[nt][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float ms0 = isfinite(mn0) ? mn0 : 0.f;
+      const float ms1 = isfinite(mn1) ? mn1 : 0.f;
+      const float al0 = isfinite(m0) ? expf(m0 - ms0) : 0.f;
+      const float al1 = isfinite(m1) ? expf(m1 - ms1) : 0.f;
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= al0;
+      l1 *= al1;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        sc[nt][0] = expf(sc[nt][0] - ms0);
+        sc[nt][1] = expf(sc[nt][1] - ms0);
+        sc[nt][2] = expf(sc[nt][2] - ms1);
+        sc[nt][3] = expf(sc[nt][3] - ms1);
+        l0 += sc[nt][0] + sc[nt][1];
+        l1 += sc[nt][2] + sc[nt][3];
+      }
+      if constexpr (kInt8) {
+        group_pv<D>(vst, g, t, nk, sc, vmul, al0, al1, acc);
+      } else {
+        group_pv<D>(vst, g, t, nk, sc, al0, al1, acc);
+      }
+    }
+    // The stage is free once the slice's MT warps are done with it; warp
+    // (0, slice) then refills it with the tile kNS on.
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (mt == 0 && lane == 0 && j + kNS < n_tiles) {
+      mbar_wait(&empty[s], parity);
+      load(j + kNS);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  __syncthreads();  // every warp is done with the stages
+  // The warp's partials of its 16 heads, over the stages.
+  float* wp = parts + warp * 16 * kPart;
+  if (t == 0) {
+    wp[g * kPart] = m0;
+    wp[g * kPart + 1] = l0;
+    wp[(g + 8) * kPart] = m1;
+    wp[(g + 8) * kPart + 1] = l1;
+  }
+#pragma unroll
+  for (int c = 0; c < Dm::kC; ++c) {
+    float* ra = wp + g * kPart + 4 + 32 * c + 8 * t;
+    float* rb = ra + 8 * kPart;
+    *reinterpret_cast<float4*>(ra) = make_float4(
+        acc[c][0][0], acc[c][1][0], acc[c][2][0], acc[c][3][0]);
+    *reinterpret_cast<float4*>(ra + 4) = make_float4(
+        acc[c][0][1], acc[c][1][1], acc[c][2][1], acc[c][3][1]);
+    *reinterpret_cast<float4*>(rb) = make_float4(
+        acc[c][0][2], acc[c][1][2], acc[c][2][2], acc[c][3][2]);
+    *reinterpret_cast<float4*>(rb + 4) = make_float4(
+        acc[c][0][3], acc[c][1][3], acc[c][2][3], acc[c][3][3]);
+  }
+  __syncthreads();
+  // The slices merge per head; with one split that is the output.  With
+  // more, rank r merges heads [r hpr, (r + 1) hpr): once every block of
+  // the cluster is done with its keys (its stages free: one cluster
+  // barrier), each block pushes its heads' partials into their rank's
+  // shared memory, beside the warps' partials, in this block's slot, and
+  // after a second barrier each rank merges its own.
+  const int hpr = (gb + splits - 1) / splits;
+  float* recv = parts + L::kWpart / 4;
+  if (splits > 1) {
+    cluster_arrive();
+    cluster_wait();
+  }
+  // Four dims a thread: the weights once per head and four columns.
+  float* orow = out + q_base;
+  for (int i = tid; i < gb * D / 4; i += kThr) {
+    const int hh = i / (D / 4), d = 4 * (i % (D / 4));
+    const float* p0 = parts + ((hh / 16) * kS * 16 + hh % 16) * kPart;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int s2 = 0; s2 < kS; ++s2) mx = fmaxf(mx, p0[s2 * 16 * kPart]);
+    const float m_safe = isfinite(mx) ? mx : 0.f;
+    float den = 0.f;
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s2 = 0; s2 < kS; ++s2) {
+      const float* pr = p0 + s2 * 16 * kPart;
+      const float w = isfinite(pr[0]) ? expf(pr[0] - m_safe) : 0.f;
+      const float4 a = *reinterpret_cast<const float4*>(pr + 4 + d);
+      den = fmaf(w, pr[1], den);
+      num = make_float4(fmaf(w, a.x, num.x), fmaf(w, a.y, num.y),
+                        fmaf(w, a.z, num.z), fmaf(w, a.w, num.w));
+    }
+    if (splits == 1) {
+      const float dd = fmaxf(den, 1e-30f);
+      *reinterpret_cast<float4*>(orow + hh * D + d) = make_float4(
+          num.x / dd, num.y / dd, num.z / dd, num.w / dd);
+    } else {
+      const int owner = hh / hpr;
+      float* dst = cluster.map_shared_rank(recv, owner) +
+                   (split * hpr + hh - owner * hpr) * kPart;
+      *reinterpret_cast<float4*>(dst + 4 + d) = num;
+      if (d == 0) {
+        dst[0] = mx;
+        dst[1] = den;
+      }
+    }
+  }
+  if (splits == 1) return;
+  cluster_arrive();
+  cluster_wait();
+  const int g0 = split * hpr, ng = min(hpr, gb - g0);
+  for (int i = tid; i < ng * D / 4; i += kThr) {
+    const int gg = i / (D / 4), d = 4 * (i % (D / 4));
+    float mx = -INFINITY;
+    for (int r = 0; r < splits; ++r) {
+      mx = fmaxf(mx, recv[(r * hpr + gg) * kPart]);
+    }
+    const float m_safe = isfinite(mx) ? mx : 0.f;
+    float den = 0.f;
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < splits; ++r) {
+      const float* pr = recv + (r * hpr + gg) * kPart;
+      const float w = isfinite(pr[0]) ? expf(pr[0] - m_safe) : 0.f;
+      const float4 a = *reinterpret_cast<const float4*>(pr + 4 + d);
+      den = fmaf(w, pr[1], den);
+      num = make_float4(fmaf(w, a.x, num.x), fmaf(w, a.y, num.y),
+                        fmaf(w, a.z, num.z), fmaf(w, a.w, num.w));
+    }
+    const float dd = fmaxf(den, 1e-30f);
+    *reinterpret_cast<float4*>(orow + (g0 + gg) * D + d) = make_float4(
+        num.x / dd, num.y / dd, num.z / dd, num.w / dd);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The int8 instance, G <= 8
+// ---------------------------------------------------------------------------
+
 // Eight warps: the register cap of 128 allows two blocks of 256 threads
 // per SM (`ops.py::decode_split_plan` counts blocks per SM with it).
 template <int D, int G>
@@ -1076,7 +1304,7 @@ decode_attention_kernel_int8(const float* __restrict__ q,
                              const float* __restrict__ v_scale,
                              const int* __restrict__ kv_len,
                              float* __restrict__ out, int H, int Hkv, int T,
-                             int chunk, int tk, int stages, int sub) {
+                             int chunk, int tk, int stages) {
   using QD = QDims<D>;
   constexpr int kKL = QD::kKeyLanes;   // lanes per key
   constexpr int kKeys = 32 / kKL;      // keys a warp scores per pass
@@ -1090,8 +1318,7 @@ decode_attention_kernel_int8(const float* __restrict__ q,
   // As in the float32 instance: the first phase is arrived at now and
   // waited on after the keys.  One split needs no cluster barrier.
   if (splits > 1) cluster_arrive_relaxed();
-  // Head slot y serves query heads [y G, y G + G) of KV head y / sub.
-  const int slot = blockIdx.y, kvh = slot / sub, b = blockIdx.z;
+  const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   extern __shared__ __align__(16) unsigned char qsmem[];
   const QLayout<D> lay{tk, stages, G, splits};
@@ -1127,7 +1354,7 @@ decode_attention_kernel_int8(const float* __restrict__ q,
   // lanes of a quarter-warp read chunks r = 0..3 (at D = 128, 4 h + r)
   // at 80 r bytes, 8 distinct bank groups.
   const float4* qb = reinterpret_cast<const float4*>(
-      q + (static_cast<size_t>(b) * H + static_cast<size_t>(slot) * G) * D);
+      q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D);
   for (int i = tid; i < G * D / 4; i += kQThreads) {
     const int g = i / (D / 4), c4 = i % (D / 4);
     reinterpret_cast<float4*>(q_s + (g * kNC + c4 / 4) * kQPad)[c4 % 4] =
@@ -1331,7 +1558,7 @@ decode_attention_kernel_int8(const float* __restrict__ q,
   }
   __syncthreads();
   float* orow =
-      out + (static_cast<size_t>(b) * H + static_cast<size_t>(slot) * G) * D;
+      out + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D;
   float* rpart = bpart;
   if (splits > 1) {
     cluster_wait();
@@ -1402,11 +1629,10 @@ decode_int8_floor_kernel(const float* __restrict__ q,
                          const float* __restrict__ v_scale,
                          const int* __restrict__ kv_len,
                          float* __restrict__ out, int H, int Hkv, int T,
-                         int chunk, int tk, int stages, int sub) {
+                         int chunk, int tk, int stages) {
   const int split = blockIdx.x, splits = gridDim.x;
   if (splits > 1) cluster_arrive_relaxed();
-  // Head slot y serves query heads [y G, y G + G) of KV head y / sub.
-  const int slot = blockIdx.y, kvh = slot / sub, b = blockIdx.z;
+  const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32;
   extern __shared__ __align__(16) unsigned char qsmem[];
   const QLayout<D> lay{tk, stages, G, splits};
@@ -1432,7 +1658,7 @@ decode_int8_floor_kernel(const float* __restrict__ q,
     }
   }
   const float4* qb = reinterpret_cast<const float4*>(
-      q + (static_cast<size_t>(b) * H + static_cast<size_t>(slot) * G) * D);
+      q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D);
   for (int i = tid; i < G * D / 4; i += kQThreads) {
     reinterpret_cast<float4*>(q_s)[i] = __ldg(qb + i);
   }
@@ -1457,14 +1683,14 @@ decode_int8_floor_kernel(const float* __restrict__ q,
   }
   if (split == 0) {
     float* orow = out +
-        (static_cast<size_t>(b) * H + static_cast<size_t>(slot) * G) * D;
+        (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D;
     for (int i = tid; i < G * D; i += kQThreads) orow[i] = 0.f;
   }
 }
 
 using Int8Kernel = void (*)(const float*, const int8_t*, const int8_t*,
                             const float*, const float*, const int*, float*,
-                            int, int, int, int, int, int, int);
+                            int, int, int, int, int, int);
 
 // The int8 instances, and their floors, by group size at head dim D.
 template <int D>
@@ -1483,17 +1709,11 @@ constexpr Int8Kernel kInt8Floors[kMaxG] = {
 }  // namespace
 
 bool decode_attention_has_head_dim(int d) { return d == 64 || d == 128; }
-// The heads of a sub-group: the largest divisor of the group at most
-// kMaxG, the instance that serves it.
-int decode_attention_subgroup(int group) {
-  int g = group < kMaxG ? group : kMaxG;
-  while (g > 1 && group % g) --g;
-  return g < 1 ? 1 : g;
-}
 int decode_attention_max_splits() { return kMaxSplits; }
 // The head slots of a KV head in the float32 group instance: one for a
 // group of up to 16 kGMaxMT heads, else the fewest of at most as many
-// heads each.
+// heads each (the int8 one takes its slots from the wrapper's plan, as
+// many or more).
 int decode_group_slots(int group) {
   constexpr int kMost = 16 * kGMaxMT;
   return group > kMost ? (group + kMost - 1) / kMost : 1;
@@ -1539,26 +1759,55 @@ cudaError_t launch_clusters(Kernel kernel, int splits, int slots, int B,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// The group instance (or its floor) at head dim D and MT m-tiles.
-template <int D, int MT, bool kFloor>
-cudaError_t launch_group(const float* q, const float* k, const float* v,
+// The group instance (or its floor) at head dim D, MT m-tiles and K/V
+// type KV over `slots` head slots a KV head.
+template <int D, int MT, typename KV, bool kFloor>
+cudaError_t launch_group(const float* q, const KV* k, const KV* v,
+                         const float* k_scale, const float* v_scale,
                          const int* kv_len, float* out, int B, int H,
                          int Hkv, int T, int splits, int chunk, int slots,
                          cudaStream_t stream) {
-  using L = GLayout<D, MT>;
-  const auto kernel = decode_attention_group_kernel<D, MT, kFloor>;
+  using L = GLayout<D, MT, KV>;
+  const auto kernel = decode_attention_group_kernel<D, MT, KV, kFloor>;
   static bool granted[64][1] = {};
   const cudaError_t err = grant_smem(kernel, granted, 0, L::kBytes);
   if (err != cudaSuccess) return err;
   return launch_clusters(kernel, splits, Hkv * slots, B, 32 * L::kWarps,
-                         L::kBytes, stream, q, k, v, kv_len, out, H, Hkv, T,
-                         chunk);
+                         L::kBytes, stream, q, k, v, k_scale, v_scale,
+                         kv_len, out, H, Hkv, T, chunk);
+}
+
+// The group instance (or its floor) over `slots` head slots a KV head, at
+// the m-tiles of its slots' heads (at most 16 kGMaxMT each).
+template <int D, typename KV, bool kFloor>
+cudaError_t launch_group_slots(const float* q, const KV* k, const KV* v,
+                               const float* k_scale, const float* v_scale,
+                               const int* kv_len, float* out, int B, int H,
+                               int Hkv, int T, int splits, int chunk,
+                               int slots, cudaStream_t stream) {
+  const int G = H / Hkv;
+  if (slots < 1 || slots > G) return cudaErrorInvalidValue;
+  switch (((G + slots - 1) / slots + 15) / 16) {
+    case 1:
+      return launch_group<D, 1, KV, kFloor>(q, k, v, k_scale, v_scale,
+                                            kv_len, out, B, H, Hkv, T,
+                                            splits, chunk, slots, stream);
+    case 2:
+      return launch_group<D, 2, KV, kFloor>(q, k, v, k_scale, v_scale,
+                                            kv_len, out, B, H, Hkv, T,
+                                            splits, chunk, slots, stream);
+    case 3:
+      return launch_group<D, 3, KV, kFloor>(q, k, v, k_scale, v_scale,
+                                            kv_len, out, B, H, Hkv, T,
+                                            splits, chunk, slots, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The float32 launch at head dim D: a group above kMaxG on the group
-// instance (or its floor) at the m-tiles of its slots' heads (one slot a
-// KV head up to 16 kGMaxMT heads, `decode_group_slots`), else the G <= 8
-// instance.
+// instance (or its floor) over its slots (one a KV head up to 16 kGMaxMT
+// heads, `decode_group_slots`), else the G <= 8 instance.
 template <int D, bool kFloor = false>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const int* kv_len, float* out, int B, int H, int Hkv,
@@ -1574,20 +1823,9 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   const int G = H / Hkv;
   if (G > kMaxG || kFloor) {
     if (G <= kMaxG) return cudaErrorInvalidValue;
-    const int slots = decode_group_slots(G), Gs = (G + slots - 1) / slots;
-    switch ((Gs + 15) / 16) {
-      case 1:
-        return launch_group<D, 1, kFloor>(q, k, v, kv_len, out, B, H, Hkv,
-                                          T, splits, chunk, slots, stream);
-      case 2:
-        return launch_group<D, 2, kFloor>(q, k, v, kv_len, out, B, H, Hkv,
-                                          T, splits, chunk, slots, stream);
-      case 3:
-        return launch_group<D, 3, kFloor>(q, k, v, kv_len, out, B, H, Hkv,
-                                          T, splits, chunk, slots, stream);
-      default:
-        return cudaErrorInvalidValue;
-    }
+    return launch_group_slots<D, float, kFloor>(
+        q, k, v, nullptr, nullptr, kv_len, out, B, H, Hkv, T, splits, chunk,
+        decode_group_slots(G), stream);
   }
   constexpr int kTK = Dims<D>::kTK;
   const Kernel kernel = kKernels[G - 1];
@@ -1603,9 +1841,9 @@ cudaError_t launch(const float* q, const float* k, const float* v,
                          q, k, v, kv_len, out, H, Hkv, T, chunk, tk, stages);
 }
 
-// The int8 launch at head dim D of one of `kernels` (by group size:
-// the int8 instances or their floors); `granted` holds their shared
-// memory grants.
+// The int8 launch at head dim D for a group of up to kMaxG, of one of
+// `kernels` (by group size: the int8 instances or their floors);
+// `granted` holds their shared memory grants.
 template <int D>
 cudaError_t launch_int8(const Int8Kernel (&kernels)[kMaxG],
                         bool (&granted)[64][kMaxG], const float* q,
@@ -1614,8 +1852,8 @@ cudaError_t launch_int8(const Int8Kernel (&kernels)[kMaxG],
                         const int* kv_len, float* out, int B, int H, int Hkv,
                         int T, int splits, int chunk, cudaStream_t stream) {
   constexpr int kTK = QDims<D>::kTK;
-  if (Hkv < 1 || H % Hkv) return cudaErrorInvalidValue;
-  const int G = decode_attention_subgroup(H / Hkv), sub = H / Hkv / G;
+  if (Hkv < 1 || H % Hkv || H / Hkv > kMaxG) return cudaErrorInvalidValue;
+  const int G = H / Hkv;
   const Int8Kernel kernel = kernels[G - 1];
   cudaError_t err = grant_smem(
       kernel, granted, G - 1,
@@ -1624,10 +1862,38 @@ cudaError_t launch_int8(const Int8Kernel (&kernels)[kMaxG],
   // A range of one tile or less is one stage, sized to the range.
   const int tk = chunk < kTK ? chunk : kTK;
   const int stages = chunk > tk ? kQStages : 1;
-  return launch_clusters(kernel, splits, Hkv * sub, B, kQThreads,
+  return launch_clusters(kernel, splits, Hkv, B, kQThreads,
                          QLayout<D>{tk, stages, G, splits}.bytes(), stream,
                          q, k, v, k_scale, v_scale, kv_len, out, H, Hkv, T,
-                         chunk, tk, stages, sub);
+                         chunk, tk, stages);
+}
+
+// The int8 launch at head dim D: a group above kMaxG on the group
+// instance over `slots` head slots a KV head (its floor at head dim 128
+// only), else the G <= 8 instance (or its floor), whose slot is the KV
+// head.
+template <int D, bool kFloor>
+cudaError_t launch_int8_any(const float* q, const int8_t* k,
+                            const int8_t* v, const float* k_scale,
+                            const float* v_scale, const int* kv_len,
+                            float* out, int B, int H, int Hkv, int T,
+                            int splits, int chunk, int slots,
+                            cudaStream_t stream) {
+  if (Hkv < 1 || H % Hkv) return cudaErrorInvalidValue;
+  if (H / Hkv > kMaxG) {
+    if constexpr (kFloor && D != 128) {
+      return cudaErrorInvalidValue;
+    } else {
+      return launch_group_slots<D, int8_t, kFloor>(
+          q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv, T, splits,
+          chunk, slots, stream);
+    }
+  }
+  if (slots != 1) return cudaErrorInvalidValue;
+  static bool granted[64][kMaxG] = {};
+  return launch_int8<D>(kFloor ? kInt8Floors<D> : kInt8Kernels<D>, granted,
+                        q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv,
+                        T, splits, chunk, stream);
 }
 
 }  // namespace
@@ -1666,36 +1932,37 @@ cudaError_t launch_decode_attention_int8(const float* q, const int8_t* k,
                                          const float* v_scale,
                                          const int* kv_len, float* out, int B,
                                          int H, int Hkv, int T, int D,
-                                         int splits, int chunk,
+                                         int splits, int chunk, int slots,
                                          cudaStream_t stream) {
-  static bool granted[2][64][kMaxG] = {};
   if (D == 64) {
-    return launch_int8<64>(kInt8Kernels<64>, granted[0], q, k, v, k_scale,
-                           v_scale, kv_len, out, B, H, Hkv, T, splits, chunk,
-                           stream);
+    return launch_int8_any<64, false>(q, k, v, k_scale, v_scale, kv_len,
+                                      out, B, H, Hkv, T, splits, chunk,
+                                      slots, stream);
   }
   if (D == 128) {
-    return launch_int8<128>(kInt8Kernels<128>, granted[1], q, k, v, k_scale,
-                            v_scale, kv_len, out, B, H, Hkv, T, splits,
-                            chunk, stream);
+    return launch_int8_any<128, false>(q, k, v, k_scale, v_scale, kv_len,
+                                       out, B, H, Hkv, T, splits, chunk,
+                                       slots, stream);
   }
   return cudaErrorInvalidValue;
 }
 
+// The floors of the int8 designs: the G <= 8 instance's at both head
+// dims, the group instance's at head dim 128 only.
 cudaError_t launch_decode_attention_int8_floor(
     const float* q, const int8_t* k, const int8_t* v, const float* k_scale,
     const float* v_scale, const int* kv_len, float* out, int B, int H,
-    int Hkv, int T, int D, int splits, int chunk, cudaStream_t stream) {
-  static bool granted[2][64][kMaxG] = {};
+    int Hkv, int T, int D, int splits, int chunk, int slots,
+    cudaStream_t stream) {
   if (D == 64) {
-    return launch_int8<64>(kInt8Floors<64>, granted[0], q, k, v, k_scale,
-                           v_scale, kv_len, out, B, H, Hkv, T, splits, chunk,
-                           stream);
+    return launch_int8_any<64, true>(q, k, v, k_scale, v_scale, kv_len, out,
+                                     B, H, Hkv, T, splits, chunk, slots,
+                                     stream);
   }
   if (D == 128) {
-    return launch_int8<128>(kInt8Floors<128>, granted[1], q, k, v, k_scale,
-                            v_scale, kv_len, out, B, H, Hkv, T, splits,
-                            chunk, stream);
+    return launch_int8_any<128, true>(q, k, v, k_scale, v_scale, kv_len,
+                                      out, B, H, Hkv, T, splits, chunk,
+                                      slots, stream);
   }
   return cudaErrorInvalidValue;
 }

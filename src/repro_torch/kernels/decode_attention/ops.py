@@ -30,56 +30,70 @@ SMEM_PER_BLOCK = 227 * 1024
 # blocks of 8 warps an SM (its register cap).
 INT8_TILE_KEYS = {64: 256, 128: 128}
 _INT8_MAX_BLOCKS = 2
-# The float32 instance for a group above 8 (``decode_attention.cu``'s
-# group instance): one block, or one cluster of key splits, per (row, KV
-# head) holding all the group's query heads as MT m-tiles of 16 on the
-# tensor cores (at most 3: a group above 48 runs as head slots of at most
-# 48 heads, ``group_slots``), MT x KS warps taking 32-key tiles in KS
-# slices (``group_slices``); ``group_smem_bytes`` counts its shared
-# memory.  Blocks an SM at most (the registers): 1 at MT = 3 (12 warps of
-# 168), 5 and 2 below (2 and 4 warps of up to 185).
-GROUP_TILE_KEYS, GROUP_SLOT_HEADS = 32, 48
-_GROUP_MAX_BLOCKS = {1: 5, 2: 2, 3: 1}
+# The group instance for a group above 8 (``decode_attention.cu``'s
+# ``decode_attention_group_kernel``, float32 or int8 K/V): one block, or one
+# cluster of key splits, per (row, KV head slot) holding the slot's query
+# heads as MT m-tiles of 16 on the tensor cores (at most 3: a group above
+# 48 runs as head slots of at most 48 heads, ``group_slots``; the int8 plan
+# takes slots of 16 heads over a short row), MT x KS warps taking 32-key
+# tiles in KS slices (``group_slices``), 1 stage a slice for float32 K/V
+# and ``GROUP_INT8_STAGES`` for int8; ``group_smem_bytes`` counts its
+# shared memory.  Blocks an SM at most (the registers, by int8 and MT):
+# float32 1 at MT = 3 (12 warps of 168), 5 and 2 below (2 and 4 warps of
+# 183 registers at D = 64; at D = 128, 246, the shared memory binds
+# first); int8 1 at MT = 3, 2 and 1 below (4 and 8 warps of up to 255).
+GROUP_TILE_KEYS, GROUP_SLOT_HEADS, GROUP_INT8_STAGES = 32, 48, 2
+_GROUP_MAX_BLOCKS = {False: {1: 5, 2: 2, 3: 1}, True: {1: 2, 2: 1, 3: 1}}
 
 
-def group_slots(group: int) -> tuple[int, int]:
+def group_slots(group: int, most: int = GROUP_SLOT_HEADS
+                ) -> tuple[int, int]:
     """(slots, heads): the group instance's head slots a KV head and the
-    most query heads of one (``decode_attention.cu::decode_group_slots``):
-    one slot of the whole group up to 48 heads, else the fewest slots of
-    at most 48 (56 -> 2 of 28, 128 -> 3 of 43), each reading the K/V
-    row."""
-    slots = max(1, -(-group // GROUP_SLOT_HEADS))
+    most query heads of one: one slot of the whole group up to ``most``
+    heads, else the fewest slots of at most ``most`` (48, the float32
+    instance's, ``decode_attention.cu::decode_group_slots``: 56 -> 2 of
+    28, 128 -> 3 of 43; 16, the int8 plan's over a short row: 48 -> 3 of
+    16), each reading the K/V row."""
+    slots = max(1, -(-group // most))
     return slots, -(-group // slots)
 
 
-def group_slices(group: int) -> tuple[int, int]:
+def group_slices(group: int, slots: int = 0,
+                 int8: bool = False) -> tuple[int, int]:
     """(m-tiles, key slices) of the group instance for ``group`` query
-    heads a KV head (``decode_attention.cu::group_slices``): 16 heads an
-    m-tile of a slot; 4 slices at 3 m-tiles, else 2."""
-    mt = -(-group_slots(group)[1] // 16)
-    return mt, 4 if mt == 3 else 2
+    heads a KV head over ``slots`` head slots (default ``group_slots``'s)
+    (``decode_attention.cu::group_slices``): 16 heads an m-tile of a slot;
+    4 slices at 3 m-tiles and for int8 K/V, else 2."""
+    heads = -(-group // (slots or group_slots(group)[0]))
+    mt = -(-heads // 16)
+    return mt, 4 if int8 or mt == 3 else 2
 
 
-def group_smem_bytes(head_dim: int, group: int) -> int:
+def group_smem_bytes(head_dim: int, group: int, int8: bool = False,
+                     slots: int = 0) -> int:
     """Dynamic shared memory of the group instance (``GLayout`` in
-    ``decode_attention.cu``), whatever the plan: one stage a slice (K then
-    V of 32 keys, D floats a row), over which the warps' partials (16
-    heads a warp: m, l, two floats of padding and D accumulators) and the
-    cluster's pushed partials (up to 16 MT + 8 heads) land; q of 16 MT
-    heads in rows of D + 16 floats; then 2 mbarriers a stage."""
-    mt, ks = group_slices(group)
-    part = head_dim + 4
-    area = max(ks * 2 * GROUP_TILE_KEYS * head_dim,
-               (mt * ks * 16 + 16 * mt + MAX_CLUSTER) * part)
-    floats = (area + 16 * mt * (head_dim + 16) + 1) & ~1
-    return 4 * floats + 16 * ks
+    ``decode_attention.cu``), whatever the plan: stages of 32-key tiles
+    (float32: 1 a slice, K then V, D floats a row; int8: 2 a slice, K and V
+    of D bytes a row and the two scale spans of 36 floats), over which the
+    warps' partials (16 heads a warp: m, l, two floats of padding and D
+    accumulators) and the cluster's pushed partials (up to 16 MT + 8 heads)
+    land; q of 16 MT heads in rows of D + 16 floats; then 2 mbarriers a
+    stage."""
+    mt, ks = group_slices(group, slots, int8)
+    stages = ks * (GROUP_INT8_STAGES if int8 else 1)
+    stage = (2 * GROUP_TILE_KEYS * head_dim + 8 * ((GROUP_TILE_KEYS + 6) & ~3)
+             if int8 else 8 * GROUP_TILE_KEYS * head_dim)
+    area = max(stages * stage,
+               4 * (mt * ks * 16 + 16 * mt + MAX_CLUSTER) * (head_dim + 4))
+    return ((area + 4 * 16 * mt * (head_dim + 16) + 7) & ~7) + 16 * stages
 
 
-def group_blocks_per_sm(head_dim: int, group: int) -> int:
+def group_blocks_per_sm(head_dim: int, group: int, int8: bool = False,
+                        slots: int = 0) -> int:
     """Resident blocks per SM of the group instance: its shared memory
     against the SM's, at most its register cap."""
-    smem = group_smem_bytes(head_dim, group)
-    return min(_GROUP_MAX_BLOCKS[group_slices(group)[0]],
+    smem = group_smem_bytes(head_dim, group, int8, slots)
+    return min(_GROUP_MAX_BLOCKS[int8][group_slices(group, slots)[0]],
                _SMEM_PER_SM // (smem + _SMEM_PER_BLOCK_RESERVED))
 
 
@@ -91,8 +105,8 @@ def bytes_per_key(head_dim: int, int8: bool = False) -> int:
 
 def resident_blocks_per_sm(chunk: int, head_dim: int, int8: bool) -> int:
     """Resident blocks per SM of a plan with ranges of ``chunk`` keys (a
-    group of up to 8, or int8 sub-groups): a range of one tile or less is
-    one stage sized to it, a longer one two full stages."""
+    group of up to 8): a range of one tile or less is one stage sized to
+    it, a longer one two full stages."""
     tile_keys = (INT8_TILE_KEYS if int8 else _TILE_KEYS)[head_dim]
     tile = min(chunk, tile_keys)
     stages = 2 if chunk > tile else 1
@@ -101,33 +115,59 @@ def resident_blocks_per_sm(chunk: int, head_dim: int, int8: bool) -> int:
     return min(cap, _SMEM_PER_SM // (smem + _SMEM_PER_BLOCK_RESERVED))
 
 
-# The query heads of one instance of the G <= 8 kernels
-# (decode_attention.cu): the int8 branch runs a larger GQA group as
-# sub-groups of this many heads or fewer.
-MAX_SUBGROUP = 8
+# The most query heads a KV head of the G <= 8 instances
+# (decode_attention.cu); a larger group runs on the group instance.
+MAX_SMALL_GROUP = 8
 
 
-def decode_subgroup(group: int) -> int:
-    """Query heads of a sub-group of the int8 branch for a GQA group of
-    ``group`` heads: the largest divisor of ``group`` at most 8, the
-    compiled instance that serves it
-    (``decode_attention.cu::decode_attention_subgroup``; 16 -> 8, 48 ->
-    8, 3 -> 3).  The float32 branch runs a group above 8 on its group
-    instance, whole."""
-    g = max(1, min(group, MAX_SUBGROUP))
-    while group % g:
-        g -= 1
-    return g
+def decode_group_plan(b: int, hkv: int, t: int, sms: int = H100_SMS,
+                      head_dim: int = 64, group: int = 9,
+                      int8: bool = False) -> tuple[int, int, int]:
+    """(slots, splits, chunk) of the group instance (a group above 8):
+    ``slots`` head slots a KV head, each (row, slot) a cluster of
+    ``splits`` blocks, block i owning keys [i chunk, min((i + 1) chunk,
+    t)).  Depends on shapes only.
+
+    Slots: float32 ``group_slots(group)`` (one slot up to 48 heads); int8
+    the same, except over a short row, one whose 32-key tiles a 16-head
+    block's stages hold at once (t <= 256): then slots of 16 heads (48 ->
+    3), for three times the blocks over a row that L2 serves again
+    (granite-34b's serve shape: 6.9 against 10.7 us in one slot,
+    ``tools/kernel_variants.py``).
+
+    Splits: one while the row's tiles are no more than the block's key
+    slices (its slices take them at once); else the most (at most 8, one
+    per 16 keys) whose ranges still give every slice a tile and whose
+    clusters fit three quarters of the blocks the SMs hold (a cluster
+    takes its SMs in one GPC: at one block an SM the card held 30 clusters
+    of 4, not 33).  Float32: 1 split at granite-34b's serve shape (3
+    tiles, 4 slices) and 3 of 1,366 keys over 4,096 keys (32 clusters, one
+    block an SM); 1 at llama3-405b's (256 clusters, 3 blocks an SM)."""
+    tiles = -(-t // GROUP_TILE_KEYS)
+    slots = group_slots(group)[0]
+    if int8:
+        short = group_slots(group, 16)[0]
+        if tiles <= group_slices(group, short, True)[1] * GROUP_INT8_STAGES:
+            slots = short
+    rows = max(1, b * hkv * slots)
+    ks = group_slices(group, slots, int8)[1]
+    if tiles <= ks:
+        return slots, 1, max(1, t)
+    most = min(MAX_CLUSTER, max(1, -(-t // 16)))
+    cap = 3 * sms * group_blocks_per_sm(head_dim, group, int8, slots) // 4
+    best = max([s for s in range(1, most + 1) if rows * s <= cap
+                and -(-t // s) >= ks * GROUP_TILE_KEYS], default=1)
+    return slots, best, max(1, -(-t // best))
 
 
 def decode_split_plan(b: int, hkv: int, t: int, sms: int = H100_SMS,
                       head_dim: int = 64, int8: bool = False,
                       group: int = 1) -> tuple[int, int]:
-    """(splits, chunk): each (row, KV head), or each head slot of the
-    int8 branch's sub-groups, runs as a cluster of ``splits`` blocks,
-    block i owning keys [i chunk, min((i + 1) chunk, t)) (empty where it
-    starts at or past t).  ``head_dim`` picks the instance (64 or 128),
-    ``int8`` its int8 K/V, ``group`` the query heads of a KV head.
+    """(splits, chunk): each (row, KV head), or each (row, head slot) of
+    the group instance, runs as a cluster of ``splits`` blocks, block i
+    owning keys [i chunk, min((i + 1) chunk, t)) (empty where it starts at
+    or past t).  ``head_dim`` picks the instance (64 or 128), ``int8`` its
+    int8 K/V, ``group`` the query heads of a KV head.
 
     Float32, group of up to 8: the most splits (at most 8, at most one
     per 16 keys) whose whole grid is resident on the card at once: a
@@ -135,36 +175,20 @@ def decode_split_plan(b: int, hkv: int, t: int, sms: int = H100_SMS,
     smollm-360m's serve shape, 2 splits: 320 blocks of two 64-key stages,
     3 per SM).
 
-    Float32, group above 8 (the group instance): a plan over the b x hkv
-    (x ``group_slots``, above 48 heads) clusters.  One split while the
-    row's 32-key tiles are no more than the block's key slices (its
-    slices take them at once); else the most splits (the same caps)
-    whose ranges still give every slice a tile and whose clusters fit
-    three quarters of the blocks the SMs hold (a cluster takes its SMs in
-    one GPC: at one block an SM the card held 30 clusters of 4, not 33).
-    1 split at granite-34b's serve shape (3 tiles, 4 slices) and 3 of
-    1,366 keys over 4,096 keys (32 clusters, one block an SM); 1 at
-    llama3-405b's (256 clusters, 3 blocks an SM).
+    int8, group of up to 8: the fewest splits whose grid covers every SM
+    (one split where the clusters alone do), at most the most whose grid
+    is resident: its blocks carry 32 KB tiles, and a cluster's fixed
+    costs (a barrier, rank 0's merge) outweigh shorter ranges.  One split
+    at both serve shapes (smollm-360m's 160 rows, granite-8b's 256), where
+    2 splits measured 32-51 % slower and 4 splits 87-93 %
+    (``tools/kernel_variants.py``).
 
-    int8: the fewest splits whose grid covers every SM (one split where
-    the clusters alone do), at most the most whose grid is resident: its
-    blocks carry 32 KB tiles, and a cluster's fixed costs (a barrier,
-    rank 0's merge) outweigh shorter ranges.  One split at both serve
-    shapes (smollm-360m's 160 rows, granite-8b's 256), where 2 splits
-    measured 32-51 % slower and 4 splits 87-93 %
-    (``tools/kernel_variants.py``).  A group above 8 plans over its head
-    slots: hkv x group / G', G' the sub-group's heads."""
+    A group above 8, float32 or int8, runs on the group instance:
+    ``decode_group_plan``'s splits over its head slots."""
+    if group > MAX_SMALL_GROUP:
+        return decode_group_plan(b, hkv, t, sms, head_dim, group, int8)[1:]
     most = min(MAX_CLUSTER, max(1, -(-t // 16)))
-    if group > MAX_SUBGROUP and not int8:
-        rows = max(1, b * hkv * group_slots(group)[0])
-        slices = group_slices(group)[1]
-        if -(-t // GROUP_TILE_KEYS) <= slices:
-            return 1, max(1, t)
-        cap = 3 * sms * group_blocks_per_sm(head_dim, group) // 4
-        best = max([s for s in range(1, most + 1) if rows * s <= cap
-                    and -(-t // s) >= slices * GROUP_TILE_KEYS], default=1)
-        return best, max(1, -(-t // best))
-    rows = max(1, b * hkv * (group // decode_subgroup(group)))
+    rows = max(1, b * hkv)
     resident = [s for s in range(1, most + 1)
                 if rows * s <= sms * resident_blocks_per_sm(
                     -(-t // s), head_dim, int8)]
@@ -180,12 +204,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, H, D); k/v: (B, Hkv, T, D) f32, or int8 with ``k_scale``/
     ``v_scale`` (B, Hkv, T, 1) f32 (both or neither); kv_len: (B,) ->
-    (B, H, D).  Any GQA group H / Hkv: float32 above 8 on the group
-    instance, one block or cluster per (row, KV head) holding the whole
-    group on the tensor cores (3 TF32 products a product; above 48 heads,
-    per head slot of at most 48), int8 above 8 by sub-groups of up to
-    8.  The two
-    routes agree to float32 summation order.  Launches count under
+    (B, H, D).  Any GQA group H / Hkv: above 8 on the group instance, one
+    block or cluster per (row, KV head slot) holding the slot's heads on
+    the tensor cores (3 TF32 products a product for float32 K/V, 2 for
+    int8; ``decode_group_plan``'s slots and splits).  The two routes
+    agree to float32 summation order.  Launches count under
     ``decode_launch_name``: ``decode_attention`` and
     ``decode_attention_int8`` at D = 64, ``..._d128`` at D = 128, and
     ``..._g<group>`` for a group above 8."""
@@ -196,12 +219,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ext = load_kernels()
     kvl = kv_len.to(torch.int32).contiguous()
     d, int8 = q.shape[-1], k_scale is not None
-    group = q.shape[1] // max(1, k.shape[1])
+    b, hkv, t = k.shape[:3]
+    group = q.shape[1] // max(1, hkv)
     # A head dim the kernel is not compiled for gets the smallest plan;
     # the binding then raises.
-    splits, chunk = (decode_split_plan(
-        k.shape[0], k.shape[1], k.shape[2], sm_count(q.device), d, int8,
-        group) if d in _TILE_KEYS else (1, max(1, k.shape[2])))
+    slots, splits, chunk = 1, 1, max(1, t)
+    if d in _TILE_KEYS and group > MAX_SMALL_GROUP:
+        slots, splits, chunk = decode_group_plan(b, hkv, t, sm_count(q.device),
+                                                 d, group, int8)
+    elif d in _TILE_KEYS:
+        splits, chunk = decode_split_plan(b, hkv, t, sm_count(q.device), d,
+                                          int8, group)
     if not int8:
         out = ext.decode_attention(aligned16(q), aligned16(k), aligned16(v),
                                    kvl, splits, chunk)
@@ -209,18 +237,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = ext.decode_attention_int8(aligned16(q), aligned16(k),
                                         aligned16(v), aligned16(k_scale),
                                         aligned16(v_scale), kvl, splits,
-                                        chunk)
+                                        chunk, slots)
     launch_counts[decode_launch_name(d, int8, group)] += 1
     return out
 
 
 def decode_launch_name(head_dim: int, int8: bool, group: int) -> str:
     """The ``launch_counts`` key of a decode launch: ``launch_name``'s,
-    with ``_g<group>`` for a group above 8 (``decode_attention_d128_g48``:
-    the float32 group instance; ``decode_attention_int8_d128_g48``: the
-    int8 sub-groups)."""
+    with ``_g<group>`` for a group above 8 (the group instance:
+    ``decode_attention_d128_g48`` over float32 K/V,
+    ``decode_attention_int8_d128_g48`` over int8)."""
     name = launch_name("decode_attention", head_dim, int8)
-    return name if group <= MAX_SUBGROUP else f"{name}_g{group}"
+    return name if group <= MAX_SMALL_GROUP else f"{name}_g{group}"
 
 
 def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,

@@ -117,8 +117,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sliding window, recurrentgemma's local attention) run the dense
     path.  Both kernels are compiled for head dims 64 (smollm-360m) and
     128 (granite-8b), decode at any GQA group (above 8 query heads per
-    KV head: float32 on its tensor-core group instance, int8 by
-    sub-groups); on the card any other head dim raises (there
+    KV head, float32 or int8, on its tensor-core group instance); on the
+    card any other head dim raises (there
     is no fallback to the dense path), on the CPU every head dim takes
     the kernels' plain versions.
 

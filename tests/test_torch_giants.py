@@ -3,11 +3,11 @@ llama3-405b (128 over 8: group 16), in the port against the JAX package
 on the CPU, and the decode kernel at their groups on the card.
 
 * The port's configs equal JAX's field by field (served in float32).
-* ``decode_subgroup`` and ``decode_split_plan`` at the giants' groups:
-  float32 plans over the (row, KV head) clusters of the group instance
-  (the keys partitioned, at most 8 splits, the grid resident at its
-  shared-memory layout, which fits a block's 227 KB); int8 runs as
-  sub-groups of 8, its plan counting Hkv x group / 8 head slots.
+* ``decode_group_plan`` and ``decode_split_plan`` at the giants' groups:
+  both K/V types plan over the (row, KV head slot) clusters of the group
+  instance (the keys partitioned, at most 8 splits, the grid resident at
+  its shared-memory layout, which fits a block's 227 KB); int8 takes
+  slots of 16 heads over a short row.
 * Small models that keep head dim 128 and the giants' groups (48 query
   heads over 1 KV head; 16 over 1, llama3's group at one KV head), built
   from JAX's parameters: ``forward`` logits, the slot calls on the kernel
@@ -18,8 +18,8 @@ on the CPU, and the decode kernel at their groups on the card.
   models (``decode_kernel=True``), float32 and ``quant=True``, exactly.
 * ``cuda``: the float32 and int8 decode at groups 16 and 48 (D = 128)
   within 1e-4 of plain on the split plan's and tiles' edges, up to 4,096
-  keys, each launch counted once under
-  ``decode_attention[_int8]_d128_g<group>``, and the paged entry point
+  keys, and within 4x plain's error of float64, each launch counted once
+  under ``decode_attention[_int8]_d128_g<group>``; the paged entry point
   equal to the contiguous kernel bit for bit.
 
 The JAX side is imported inside the CPU fixtures, so the ``cuda`` tests
@@ -34,8 +34,8 @@ from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.kernels.decode_attention.ops import (SMEM_PER_BLOCK,
                                                       decode_attention,
                                                       decode_attention_paged,
+                                                      decode_group_plan,
                                                       decode_split_plan,
-                                                      decode_subgroup,
                                                       group_blocks_per_sm,
                                                       group_slices,
                                                       group_slots,
@@ -71,40 +71,32 @@ def test_config_matches_jax(arch):
     assert ours.resolved_head_dim == 128 and ours.dtype == "float32"
 
 
-@pytest.mark.parametrize("group,sub", [(1, 1), (3, 3), (8, 8), (10, 5),
-                                       (12, 6), (16, 8), (48, 8), (13, 1),
-                                       (128, 8)])
-def test_decode_subgroup(group, sub):
-    assert decode_subgroup(group) == sub
-    assert group % sub == 0 and sub <= 8
-
-
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("b,hkv,group", [(32, 1, 48), (32, 8, 16),
                                          (4, 1, 48), (1, 8, 16),
                                          (8, 2, 56)])
 @pytest.mark.parametrize("t", [1, 33, 370, 4096])
 def test_decode_split_plan_over_subgroups(b, hkv, group, t, int8):
-    """The plan partitions the keys.  Float32 plans over the (row, KV
-    head) clusters of the group instance (one a head slot above 48
-    heads): its layout fits a block's 227 KB; one split while the row's
+    """The plan partitions the keys.  Both K/V types plan over the (row,
+    KV head slot) clusters of the group instance (float32: one slot up to
+    48 heads; int8: the same, or slots of 16 heads over a row of at most
+    8 tiles): its layout fits a block's 227 KB; one split while the row's
     32-key tiles are no more than the block's key slices; more splits
     only with every slice a tile a block and the grid within three
-    quarters of the blocks the SMs hold.  int8 plans as its head slots
-    would: the same plan as group 8 at hkv x group / 8 KV heads."""
+    quarters of the blocks the SMs hold."""
     splits, chunk = decode_split_plan(b, hkv, t, head_dim=128, int8=int8,
                                       group=group)
     assert 1 <= splits <= MAX_CLUSTER
     assert (splits - 1) * chunk < t <= splits * chunk
-    if int8:
-        slots = hkv * group // decode_subgroup(group)
-        assert (splits, chunk) == decode_split_plan(
-            b, slots, t, head_dim=128, int8=int8, group=8)
-        return
-    assert group_smem_bytes(128, group) <= SMEM_PER_BLOCK
-    per_sm = group_blocks_per_sm(128, group)
-    clusters = b * hkv * group_slots(group)[0]
-    slices = group_slices(group)[1]
+    slots = decode_group_plan(b, hkv, t, head_dim=128, group=group,
+                              int8=int8)[0]
+    assert (slots, splits, chunk) == decode_group_plan(
+        b, hkv, t, head_dim=128, group=group, int8=int8)
+    assert slots == group_slots(group, 16 if int8 and t <= 256 else 48)[0]
+    assert group_smem_bytes(128, group, int8, slots) <= SMEM_PER_BLOCK
+    per_sm = group_blocks_per_sm(128, group, int8, slots)
+    clusters = b * hkv * slots
+    slices = group_slices(group, slots, int8)[1]
     assert clusters * splits <= H100_SMS * per_sm
     if -(-t // 32) <= slices:
         assert splits == 1
@@ -123,26 +115,54 @@ def test_group_slots(group, slots, heads):
     assert heads <= 48 and (slots - 1) * heads < group <= slots * heads
 
 
-# (head dim, group, bytes, blocks an SM): max(KS stages x 2 x 32 x D,
-# (16 MT KS + 16 MT + 8) x (D + 4)) + 16 MT x (D + 16) floats, then 2 KS
-# mbarriers: granite-34b's group (3 m-tiles, 4 slices: the stages over
-# the partials, one block an SM by its registers), llama3-405b's (1
-# m-tile, 2 slices: 3 blocks an SM by shared memory), 32 heads (2
-# m-tiles), and D = 64 at 3 m-tiles (the partials outgrow the stages).
-GROUP_LAYOUTS = [(128, 48, 4 * (32768 + 6912) + 64, 1),
-                 (128, 16, 4 * (16384 + 2304) + 32, 3),
-                 (128, 32, 4 * (16384 + 4608) + 32, 2),
-                 (64, 48, 4 * (16864 + 3840) + 64, 1)]
+# (head dim, group, int8, slots, bytes, blocks an SM).  Float32: max(KS
+# stages x 2 x 32 x D, (16 MT KS + 16 MT + 8) x (D + 4)) + 16 MT x (D +
+# 16) floats, then 2 KS mbarriers: granite-34b's group (3 m-tiles, 4
+# slices: the stages over the partials, one block an SM by its
+# registers), llama3-405b's (1 m-tile, 2 slices: 3 blocks an SM by shared
+# memory), 32 heads (2 m-tiles), and D = 64 at 3 m-tiles (the partials
+# outgrow the stages).  int8: 4 slices, 2 KS stages of 2 x 32 x D bytes
+# and two 36-float scale spans, the same partials and q, 4 KS mbarriers:
+# granite-34b's group in one slot (the partials over the stages) and in 3
+# slots of 16 heads (1 m-tile: the stages over the partials, 2 blocks an
+# SM by registers and shared memory), llama3-405b's, and D = 64.
+GROUP_LAYOUTS = [(128, 48, False, 0, 4 * (32768 + 6912) + 64, 1),
+                 (128, 16, False, 0, 4 * (16384 + 2304) + 32, 3),
+                 (128, 32, False, 0, 4 * (16384 + 4608) + 32, 2),
+                 (64, 48, False, 0, 4 * (16864 + 3840) + 64, 1),
+                 (128, 48, True, 1, 4 * (32736 + 6912) + 128, 1),
+                 (128, 48, True, 3, 4 * (16960 + 2304) + 128, 2),
+                 (128, 16, True, 0, 4 * (16960 + 2304) + 128, 2),
+                 (64, 48, True, 0, 4 * (16864 + 3840) + 128, 1)]
 
 
-@pytest.mark.parametrize("head_dim,group,nbytes,blocks", GROUP_LAYOUTS)
-def test_group_smem_bytes_counts_the_layout(head_dim, group, nbytes,
-                                            blocks):
+@pytest.mark.parametrize("head_dim,group,int8,slots,nbytes,blocks",
+                         GROUP_LAYOUTS)
+def test_group_smem_bytes_counts_the_layout(head_dim, group, int8, slots,
+                                            nbytes, blocks):
     """``group_smem_bytes`` counts the group instance's layout (the
     stages, the warps' and the cluster's partials over them, q, the
     barriers), and ``group_blocks_per_sm`` the blocks an SM holds."""
-    assert group_smem_bytes(head_dim, group) == nbytes
-    assert group_blocks_per_sm(head_dim, group) == blocks
+    assert group_smem_bytes(head_dim, group, int8, slots) == nbytes
+    assert group_blocks_per_sm(head_dim, group, int8, slots) == blocks
+
+
+# (rows, KV heads, keys, group, int8) -> (slots, splits, chunk): the
+# giants' serve shapes (T = 86) and 4,096 keys.  int8 over a short row
+# takes slots of 16 heads (granite-34b's 48 -> 3 slots, 96 blocks); over
+# a long one, as float32, one slot with key splits.
+GROUP_PLANS = [((32, 1, 86, 48, True), (3, 1, 86)),
+               ((32, 1, 86, 48, False), (1, 1, 86)),
+               ((32, 1, 4096, 48, True), (1, 3, 1366)),
+               ((32, 8, 86, 16, True), (1, 1, 86)),
+               ((32, 8, 4096, 16, True), (1, 1, 4096))]
+
+
+@pytest.mark.parametrize("args,plan", GROUP_PLANS)
+def test_decode_group_plan_at_the_giants_shapes(args, plan):
+    b, hkv, t, group, int8 = args
+    assert decode_group_plan(b, hkv, t, head_dim=128, group=group,
+                             int8=int8) == plan
 
 
 # ---------------------------------------------------------------------------
@@ -313,25 +333,27 @@ def _edges(b, t, splits, chunk):
     return np.array([min(max(e, 0), t) for e in edges] * b, np.int32)[:b]
 
 
-def _float64_decode(q, k, v, kv_len):
-    """The decode evaluated in float64 with the plain version's
-    masked-row contract."""
+def _float64_decode(q, k, v, kv_len, ks=None, vs=None):
+    """The decode evaluated in float64 (int8 K/V dequantized there by
+    their scales) with the plain version's masked-row contract."""
     from repro_torch.kernels.flash_attention.ref import masked_softmax
     b, h, d = q.shape
     hkv, t = k.shape[1:3]
+    k, v = k.double(), v.double()
+    if ks is not None:
+        k, v = k * ks.double(), v * vs.double()
     s = torch.einsum("bhgd,bhtd->bhgt",
-                     q.double().reshape(b, hkv, h // hkv, d),
-                     k.double()) / d ** 0.5
+                     q.double().reshape(b, hkv, h // hkv, d), k) / d ** 0.5
     live = (torch.arange(t, device=q.device)[None, :]
             < kv_len.long()[:, None])[:, None, None, :]
     return torch.einsum("bhgt,bhtd->bhgd", masked_softmax(s, live),
-                        v.double()).reshape(b, h, d)
+                        v).reshape(b, h, d)
 
 
-def _int8_kv(gen, b, hkv, t, dev):
+def _int8_kv(gen, b, hkv, t, dev, d=128):
     from repro_torch.serving.quant import quantize_kv
     (k8, ks), (v8, vs) = (quantize_kv(torch.randn(
-        b, hkv, t, 128, device=dev, generator=gen)) for _ in range(2))
+        b, hkv, t, d, device=dev, generator=gen)) for _ in range(2))
     return k8, v8, ks, vs
 
 
@@ -346,11 +368,11 @@ CARD_CASES = [(32, 1, 48), (32, 8, 16), (5, 1, 48), (3, 8, 16)]
 @pytest.mark.parametrize("b,hkv,group", CARD_CASES)
 def test_decode_kernel_at_giant_groups_on_card(cuda, b, hkv, group, t,
                                                int8):
-    """The D = 128 instance at group 16 and 48 (float32: the group
-    instance; int8: sub-groups of 8) within 1e-4 of plain with kv_len on
-    the plan's split and tile edges; a kv_len == 0 row is exactly zero;
-    the launch counts once under its group's name.  The float32 group
-    instance's 3 TF32 products a product: its error against float64 at
+    """The D = 128 group instance at group 16 and 48, float32 and int8
+    K/V, within 1e-4 of plain with kv_len on the plan's split and tile
+    edges; a kv_len == 0 row is exactly zero; the launch counts once under
+    its group's name.  Its TF32 products (3 a product, 2 over int8 K/V):
+    its error against float64 (of the dequantized attention for int8) at
     most 4x plain's (at least 1e-6: with one key plain is exact)."""
     gen = torch.Generator(device=cuda).manual_seed(t + group + int8)
     q = torch.randn(b, hkv * group, 128, device=cuda, generator=gen)
@@ -372,11 +394,10 @@ def test_decode_kernel_at_giant_groups_on_card(cuda, b, hkv, group, t,
     assert launch_counts[name] == before.get(name, 0) + 1
     plain_name = f"decode_attention{'_int8' if int8 else ''}_d128"
     assert launch_counts[plain_name] == before.get(plain_name, 0)
-    if not int8:
-        want = _float64_decode(q, k, v, kvl)
-        err64 = float((out.double() - want).abs().max())
-        plain64 = float((ref.double() - want).abs().max())
-        assert err64 <= 4 * max(plain64, 1e-6)
+    want = _float64_decode(q, k, v, kvl, ks, vs)
+    err64 = float((out.double() - want).abs().max())
+    plain64 = float((ref.double() - want).abs().max())
+    assert err64 <= 4 * max(plain64, 1e-6)
 
 
 @pytest.mark.cuda
@@ -418,29 +439,37 @@ def test_paged_decode_at_giant_groups_on_card(cuda, hkv, group, int8):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("d,hkv,group,t", [(128, 2, 9, 300), (128, 1, 12, 77),
                                            (64, 2, 16, 200), (64, 1, 48, 65),
                                            (128, 3, 40, 1000),
                                            (128, 2, 56, 300),
                                            (64, 1, 100, 90),
                                            (128, 1, 128, 4096)])
-def test_decode_group_instance_other_groups_on_card(cuda, d, hkv, group, t):
-    """The float32 group instance at groups that leave warps short of
-    heads (9: warp 4 one head, warps 5-7 none; 12, 40), at D = 64 and
-    above 48 heads (head slots: 56 as 2 of 28, 100 as 3 of 34, 128 as 3
-    of 43, the last slot short), within 1e-4 of plain on its plan's
-    edges; kv_len == 0 rows zero."""
-    gen = torch.Generator(device=cuda).manual_seed(group + d + t)
+def test_decode_group_instance_other_groups_on_card(cuda, d, hkv, group, t,
+                                                    int8):
+    """The group instance, float32 and int8 K/V, at groups that leave
+    warps short of heads (9: warp 4 one head, warps 5-7 none; 12, 40), at
+    D = 64 and above 48 heads (head slots: 56 as 2 of 28, 100 as 3 of 34,
+    128 as 3 of 43, the last slot short; int8 over a short row in slots
+    of 16: 100 as 7 of 15), within 1e-4 of plain on its plan's edges;
+    kv_len == 0 rows zero."""
+    gen = torch.Generator(device=cuda).manual_seed(group + d + t + int8)
     b = 6
     q = torch.randn(b, hkv * group, d, device=cuda, generator=gen)
-    k, v = (torch.randn(b, hkv, t, d, device=cuda, generator=gen)
-            for _ in range(2))
-    splits, chunk = decode_split_plan(b, hkv, t, head_dim=d, group=group)
+    if int8:
+        k, v, ks, vs = _int8_kv(gen, b, hkv, t, cuda, d)
+    else:
+        k, v = (torch.randn(b, hkv, t, d, device=cuda, generator=gen)
+                for _ in range(2))
+        ks = vs = None
+    splits, chunk = decode_split_plan(b, hkv, t, head_dim=d, int8=int8,
+                                      group=group)
     kvl = torch.from_numpy(_edges(b, t, splits, chunk)).to(cuda)
     kvl[1:] = torch.tensor([t, chunk + 1, 33, (splits - 1) * chunk + 1,
                             t - 1][:b - 1], dtype=torch.int32)
-    out = decode_attention(q, k, v, kvl)
-    ref = decode_attention_plain(q, k, v, kvl)
+    out = decode_attention(q, k, v, kvl, ks, vs)
+    ref = decode_attention_plain(q, k, v, kvl, ks, vs)
     assert float((out - ref).abs().max()) <= KERNEL_ATOL
     assert bool((out[kvl == 0] == 0).all())
 
@@ -474,3 +503,32 @@ def test_decode_group_floor_and_limit_on_card(cuda):
     assert float((out - ref).abs().max()) <= KERNEL_ATOL
     assert launch_counts["decode_attention_d128_g56"] == \
         before.get("decode_attention_d128_g56", 0) + 1
+
+
+@pytest.mark.cuda
+def test_decode_int8_group_floor_on_card(cuda):
+    """The int8 group instance's floor (no arithmetic, out zero) runs at
+    granite-34b's serve shape on the wrapper's plan (3 slots of 16 heads)
+    and counts no launch; above 8 heads it is compiled at head dim 128
+    only, and a slot count that leaves a slot above 48 heads raises."""
+    from repro_torch.kernels.build import load_kernels
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(32, 48, 128, device=cuda, generator=gen)
+    k, v, ks, vs = _int8_kv(gen, 32, 1, 86, cuda)
+    kvl = torch.full((32,), 86, dtype=torch.int32, device=cuda)
+    slots, splits, chunk = decode_group_plan(32, 1, 86, head_dim=128,
+                                             group=48, int8=True)
+    assert slots == 3
+    floor = load_kernels().decode_attention_int8_floor
+    before = dict(launch_counts)
+    out = floor(q, k, v, ks, vs, kvl, splits, chunk, slots)
+    torch.cuda.synchronize()
+    assert bool((out == 0).all())
+    assert dict(launch_counts) == before
+    with pytest.raises(RuntimeError, match="at head dim 128"):
+        floor(q[..., :64].contiguous(), k[..., :64].contiguous(),
+              v[..., :64].contiguous(), ks, vs, kvl, splits, chunk, slots)
+    q56 = torch.randn(2, 56, 128, device=cuda, generator=gen)
+    with pytest.raises(RuntimeError, match="head slots"):
+        load_kernels().decode_attention_int8(q56, k[:2], v[:2], ks[:2],
+                                             vs[:2], kvl[:2], 1, 86, 1)

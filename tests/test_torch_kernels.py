@@ -267,6 +267,31 @@ def test_decode_plain_matches_interpret_kernel(jx, t, d, h):
     assert np.isnan(ref[0]).all()
 
 
+@pytest.mark.parametrize("g", [48, 16])
+@pytest.mark.parametrize("t", [40, 130])
+def test_decode_int8_plain_matches_interpret_kernel_at_giant_groups(jx, t,
+                                                                    g):
+    """The int8 branch at the giants' groups (granite-34b's 48 and
+    llama3-405b's 16 query heads over one KV head, D = 128): int8 K/V with
+    per-vector scales, ragged kv_len and a kv_len = 0 row; the plain
+    version against the Pallas kernel in interpret mode with scales on
+    every row, and against ``decode_attention_ref`` on the rows with a
+    live key."""
+    rng = np.random.RandomState(t + g)
+    b, hkv, d = 4, 1, 128
+    q = rng.randn(b, g, d).astype(np.float32)
+    k, v, ks, vs = (x.numpy() for x in _int8_kv(rng, b, hkv, t, d, "cpu"))
+    kv_len = np.array([0, 1, t // 3, t], np.int32)
+    plain = decode_attention_plain(
+        *[torch.from_numpy(x) for x in (q, k, v, kv_len, ks, vs)]).numpy()
+    args = [jx.jnp.asarray(x) for x in (q, k, v, kv_len, ks, vs)]
+    kern = np.asarray(jx.decode(*args, tk=32, interpret=True))
+    ref = np.asarray(jx.decode_ref(*args))
+    np.testing.assert_allclose(plain, kern, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(plain[1:], ref[1:], rtol=RTOL, atol=ATOL)
+    assert (plain[0] == 0).all() and (kern[0] == 0).all()
+
+
 @pytest.mark.parametrize("d,h", ATTN_DIMS)
 @pytest.mark.parametrize("window,causal", [(0, True), (7, True), (0, False)],
                          ids=["0", "7", "0-noncausal"])
@@ -798,6 +823,55 @@ def test_tf32_split_attention_holds_float32_accuracy(int8, d, g):
         q[bi, hi * g:(hi + 1) * g].astype(np.float64) / np.sqrt(d),
         k64[bi, hi], v64[bi, hi], None, None, mask[bi], 0)
         for hi in range(hkv)]).reshape(hkv * g, s, d) for bi in range(b)])
+    split = outs[2 if int8 else 3]
+    assert np.abs(split - exact).max() <= 1e-5
+    assert np.abs(split - plain).max() <= 1e-5
+    assert (split[2] == 0).all() and (plain[2] == 0).all()
+    assert np.abs(outs[1] - exact).max() > 1e-4
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("g", [48, 16])
+def test_tf32_split_group_decode_holds_float32_accuracy(g, int8):
+    """The arithmetic of the decode's group instance at the giants'
+    groups (one query a head, granite-34b's 48 and llama3-405b's 16 query
+    heads over one KV head, D = 128), emulated in numpy on three rows, the
+    last fully masked: 3 TF32 products a product for float32 K/V, 2 for
+    int8 K/V (exact in TF32) with the per-key scales (the K scale on the
+    score, the V scale on the weight).  Within 1e-5 of float64 attention
+    (of the dequantized K/V) and of ``decode_attention_plain``, as the
+    flash kernel's split (``test_tf32_split_attention_holds_float32_
+    accuracy``); one TF32 product misses 1e-4."""
+    rng = np.random.RandomState(30 + g)
+    b, d, t = 3, 128, 40
+    q = rng.randn(b, g, d).astype(np.float32)
+    kv_len = np.array([40, 17, 0], np.int32)
+    if int8:
+        k, v, ks, vs = (x.numpy() for x in _int8_kv(rng, b, 1, t, d, "cpu"))
+        kf, vf = k.astype(np.float32), v.astype(np.float32)
+        k64 = kf.astype(np.float64) * ks.astype(np.float64)
+        v64 = vf.astype(np.float64) * vs.astype(np.float64)
+    else:
+        k, v = (rng.randn(b, 1, t, d).astype(np.float32) for _ in range(2))
+        kf, vf, ks, vs = k, v, None, None
+        k64, v64 = k.astype(np.float64), v.astype(np.float64)
+    plain = decode_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(kv_len),
+        None if ks is None else torch.from_numpy(ks),
+        None if vs is None else torch.from_numpy(vs)).double().numpy()
+    qs = q * np.float32(1 / np.sqrt(d))
+    mask = np.arange(t)[None, None, :] < kv_len[:, None, None]   # (B, 1, T)
+    outs = {}
+    for n in (1, 2 if int8 else 3):
+        outs[n] = np.stack([_split_attention(
+            qs[bi][:, None], kf[bi, 0], vf[bi, 0],
+            None if ks is None else ks[bi, 0],
+            None if vs is None else vs[bi, 0], mask[bi], n)[:, 0]
+            for bi in range(b)])
+    exact = np.stack([_split_attention(
+        q[bi][:, None].astype(np.float64) / np.sqrt(d), k64[bi, 0],
+        v64[bi, 0], None, None, mask[bi], 0)[:, 0] for bi in range(b)])
     split = outs[2 if int8 else 3]
     assert np.abs(split - exact).max() <= 1e-5
     assert np.abs(split - plain).max() <= 1e-5

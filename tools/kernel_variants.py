@@ -4,8 +4,8 @@
                                    [--match SUFFIX ...]
 
 KIND is one of ssd, flash, flash_int8, flash_d128, flash_int8_d128,
-decode, decode_g48, decode_g16, decode_int8, decode_int8_d128, race,
-joint (default: all).
+decode, decode_g48, decode_g16, decode_int8, decode_int8_d128,
+decode_int8_g48, decode_int8_g16, race, joint (default: all).
 
 Needs one CUDA card and ``nvcc``.  A variant is a kernel's shipped source
 (``src/repro_torch/kernels/<kernel>/<kernel>.cu``) with a few text
@@ -46,7 +46,10 @@ the float32 group instance of ``decode_attention``: granite-34b's q (32,
 with every key live, its check also giving the error against a float64
 evaluation beside the plain version's, beside its floor and, with
 ``--parent`` given the tree before it, the sub-group design it
-replaced),
+replaced; its int8 instance likewise, over int8 K/V with float32 scales
+(``chip_smoke.decode_int8_inputs``), against float64 of the dequantized
+attention, beside its floor and, with ``--parent``, the int8 sub-groups
+it replaced),
 every variant is checked against the kernel's plain version
 (``ssd_chunk`` 5e-4 abs + rel on y and the states, 1e-5 on the total;
 attention 1e-4 abs; the races bitwise; floors and probes, which drop
@@ -428,9 +431,9 @@ extern "C" int variant_launch(const float* q, const float* k, const float* v,
       static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaPeekAtLastError());
 }
-using VariantLayout = GLayout<128, (@G@ + 15) / 16>;
+using VariantLayout = GLayout<128, (@G@ + 15) / 16, float>;
 const auto kVariantKernel =
-    decode_attention_group_kernel<128, (@G@ + 15) / 16, @FLOOR@>;
+    decode_attention_group_kernel<128, (@G@ + 15) / 16, float, @FLOOR@>;
 extern "C" int variant_blocks_per_sm() {
   int n = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -486,30 +489,139 @@ def _group_entry(g: int, floor: bool = False) -> str:
 
 def group_slices(n: int):
     """``n`` key slices a block of the group instance, whatever its
-    m-tiles (shipped: 4 at 3 m-tiles, 2 below)."""
-    return [("  return mt == 3 ? 4 : 2;", f"  return {n};")]
+    m-tiles and K/V type (shipped: 4 at 3 m-tiles and for int8, 2
+    below)."""
+    return [("  return int8 || mt == 3 ? 4 : 2;", f"  return {n};")]
 
 
 # Probes of where the group instance's time goes (not decodes): the
 # scores' or P V's mma.sync dropped, their operands still loaded and
 # split.
-GROUP_NO_SCORE_MMA = [("""          mma_tf32(sx[nt], al[0], al[1], al[2], al[3], bh[0], bh[1]);
-          mma_tf32(sx[nt], ah[0], ah[1], ah[2], ah[3], bl[0], bl[1]);
-          mma_tf32(sc[nt], ah[0], ah[1], ah[2], ah[3], bh[0], bh[1]);
-          mma_tf32(sx[nt], al[4], al[5], al[6], al[7], bh[2], bh[3]);
-          mma_tf32(sx[nt], ah[4], ah[5], ah[6], ah[7], bl[2], bl[3]);
-          mma_tf32(sc[nt], ah[4], ah[5], ah[6], ah[7], bh[2], bh[3]);""",
-                       """          sc[nt][0] += __uint_as_float(al[0] ^ bh[0] ^ ah[4] ^ bl[2]);
-          sx[nt][1] += __uint_as_float(al[1] ^ bl[1] ^ ah[5] ^ bh[3]);
-          sc[nt][2] += __uint_as_float(ah[2] ^ al[6] ^ bl[0] ^ bh[2]);
-          sx[nt][3] += __uint_as_float(ah[3] ^ al[7] ^ bh[1] ^ bl[3]);""")]
-GROUP_NO_PV_MMA = [("""            mma_tf32(pv[j4], pl[0], pl[1], pl[2], pl[3], h0, h1);
-            mma_tf32(pv[j4], ph[0], ph[1], ph[2], ph[3], lo0, lo1);
-            mma_tf32(pv[j4], ph[0], ph[1], ph[2], ph[3], h0, h1);""",
-                    """            pv[j4][0] += __uint_as_float(h0 ^ pl[0] ^ ph[2]);
-            pv[j4][1] += __uint_as_float(lo0 ^ pl[1] ^ ph[3]);
-            pv[j4][2] += __uint_as_float(h1 ^ pl[2] ^ ph[0]);
-            pv[j4][3] += __uint_as_float(lo1 ^ pl[3] ^ ph[1]);""")]
+GROUP_NO_SCORE_MMA = [("""      mma_tf32(sx[nt], al[0], al[1], al[2], al[3], bh[0], bh[1]);
+      mma_tf32(sx[nt], ah[0], ah[1], ah[2], ah[3], bl[0], bl[1]);
+      mma_tf32(sc[nt], ah[0], ah[1], ah[2], ah[3], bh[0], bh[1]);
+      mma_tf32(sx[nt], al[4], al[5], al[6], al[7], bh[2], bh[3]);
+      mma_tf32(sx[nt], ah[4], ah[5], ah[6], ah[7], bl[2], bl[3]);
+      mma_tf32(sc[nt], ah[4], ah[5], ah[6], ah[7], bh[2], bh[3]);""",
+                       """      sc[nt][0] += __uint_as_float(al[0] ^ bh[0] ^ ah[4] ^ bl[2]);
+      sx[nt][1] += __uint_as_float(al[1] ^ bl[1] ^ ah[5] ^ bh[3]);
+      sc[nt][2] += __uint_as_float(ah[2] ^ al[6] ^ bl[0] ^ bh[2]);
+      sx[nt][3] += __uint_as_float(ah[3] ^ al[7] ^ bh[1] ^ bl[3]);""")]
+GROUP_NO_PV_MMA = [("""        mma_tf32(pv[j4], pl[0], pl[1], pl[2], pl[3], h0, h1);
+        mma_tf32(pv[j4], ph[0], ph[1], ph[2], ph[3], lo0, lo1);
+        mma_tf32(pv[j4], ph[0], ph[1], ph[2], ph[3], h0, h1);""",
+                    """        pv[j4][0] += __uint_as_float(h0 ^ pl[0] ^ ph[2]);
+        pv[j4][1] += __uint_as_float(lo0 ^ pl[1] ^ ph[3]);
+        pv[j4][2] += __uint_as_float(h1 ^ pl[2] ^ ph[0]);
+        pv[j4][3] += __uint_as_float(lo1 ^ pl[3] ^ ph[1]);""")]
+
+
+# --- decode_attention, int8 group instance (a GQA group above 8) -------------
+
+# At group @G@ (head dim 128, @MT@ m-tiles: the instance of the plan over
+# 4,096 keys) through the shipped launcher, `slots` head slots a KV head.
+DECODE_INT8_GROUP_ENTRY = """
+extern "C" int variant_launch(const float* q, const int8_t* k,
+                              const int8_t* v, const float* k_scale,
+                              const float* v_scale, const int* kv_len,
+                              float* out, int B, int H, int Hkv, int T,
+                              int splits, int chunk, int slots,
+                              void* stream) {
+  const cudaError_t err = @LAUNCH@(
+      q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv, T, 128, splits,
+      chunk, slots, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaPeekAtLastError());
+}
+using VariantLayout = GLayout<128, @MT@, int8_t>;
+const auto kVariantKernel =
+    decode_attention_group_kernel<128, @MT@, int8_t, @FLOOR@>;
+""" + DECODE_GROUP_ENTRY[DECODE_GROUP_ENTRY.index(
+    'extern "C" int variant_blocks_per_sm'):]
+# The sub-group design the int8 group instance replaced (the G = 8 int8
+# instance over Hkv x group / 8 head slots, each streaming the K/V row),
+# from a tree given by ``--parent`` (`slots` unused).
+PARENT_DECODE_INT8_GROUP_ENTRY = """
+extern "C" int variant_launch(const float* q, const int8_t* k,
+                              const int8_t* v, const float* k_scale,
+                              const float* v_scale, const int* kv_len,
+                              float* out, int B, int H, int Hkv, int T,
+                              int splits, int chunk, int slots,
+                              void* stream) {
+  const cudaError_t err = launch_decode_attention_int8(
+      q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv, T, 128, splits,
+      chunk, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaPeekAtLastError());
+}
+extern "C" int variant_blocks_per_sm() {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, decode_attention_kernel_int8<128, 8>, kQThreads,
+      QLayout<128>{QDims<128>::kTK, kQStages, 8, 1}.bytes());
+  return n;
+}
+"""
+
+
+def _int8_group_entry(g: int, floor: bool = False) -> str:
+    return (DECODE_INT8_GROUP_ENTRY.replace("@MT@", "3" if g == 48 else "1")
+            .replace("@FLOOR@", "true" if floor else "false")
+            .replace("@LAUNCH@", "launch_decode_attention_int8_floor"
+                     if floor else "launch_decode_attention_int8"))
+
+
+# Three blocks an SM of one m-tile under the register cap (170 a thread).
+GROUP_3_BLOCKS = [("group_slices(MT, sizeof(KV) == 1), 1)",
+                   "group_slices(MT, sizeof(KV) == 1), MT == 1 ? 3 : 1)")]
+
+
+def int8_group_stages(n: int):
+    """``n`` stages a key slice of the int8 group instance (shipped 2)."""
+    return [("constexpr int kGInt8Stages = 2;",
+             f"constexpr int kGInt8Stages = {n};")]
+
+
+# Probes of the int8 group instance (not decodes): the scores' or P V's
+# mma.sync dropped, their operands still loaded, converted and split.
+INT8_GROUP_NO_SCORE_MMA = [("""        mma_tf32(sx[nt], al[0], al[1], al[2], al[3], b0, b1);
+        mma_tf32(sc[nt], ah[0], ah[1], ah[2], ah[3], b0, b1);
+        mma_tf32(sx[nt], al[4], al[5], al[6], al[7], b2, b3);
+        mma_tf32(sc[nt], ah[4], ah[5], ah[6], ah[7], b2, b3);""",
+                            """        sc[nt][0] += __uint_as_float(al[0] ^ b0 ^ ah[4] ^ b2);
+        sx[nt][1] += __uint_as_float(al[1] ^ b1 ^ ah[5] ^ b3);
+        sc[nt][2] += __uint_as_float(ah[2] ^ al[6] ^ b0 ^ b2);
+        sx[nt][3] += __uint_as_float(ah[3] ^ al[7] ^ b1 ^ b3);""")]
+INT8_GROUP_NO_PV_MMA = [("""        mma_tf32(pv[j4], pl[nt][0], pl[nt][1], pl[nt][2], pl[nt][3], b0,
+                 b1);
+        mma_tf32(pv[j4], ph[nt][0], ph[nt][1], ph[nt][2], ph[nt][3], b0,
+                 b1);""", """        pv[j4][0] += __uint_as_float(b0 ^ pl[nt][0] ^ ph[nt][2]);
+        pv[j4][1] += __uint_as_float(b1 ^ pl[nt][1] ^ ph[nt][3]);
+        pv[j4][2] += __uint_as_float(b0 ^ pl[nt][2] ^ ph[nt][0]);
+        pv[j4][3] += __uint_as_float(b1 ^ pl[nt][3] ^ ph[nt][1]);""")]
+# ... the int8-to-float conversions of K or of V dropped (the words' bits
+# taken as they are), or q's hi + lo split (q's bits as both).
+INT8_GROUP_NO_K_CONVERT = [("""        s8x4_to_f32(static_cast<uint32_t>(w), kf);""",
+                            """        kf[0] = kf[1] = kf[2] = kf[3] = __int_as_float(w);""")]
+INT8_GROUP_NO_V_CONVERT = [("""      s8x4_to_f32(*reinterpret_cast<const uint32_t*>(
+                      vst + min(8 * nt + 2 * t, nk - 1) * D + 32 * c + 4 * g),
+                  xa);
+      s8x4_to_f32(
+          *reinterpret_cast<const uint32_t*>(
+              vst + min(8 * nt + 2 * t + 1, nk - 1) * D + 32 * c + 4 * g),
+          xb);""", """      xa[0] = xa[1] = xa[2] = xa[3] = __uint_as_float(
+          *reinterpret_cast<const uint32_t*>(
+              vst + min(8 * nt + 2 * t, nk - 1) * D + 32 * c + 4 * g));
+      xb[0] = xb[1] = xb[2] = xb[3] = __uint_as_float(
+          *reinterpret_cast<const uint32_t*>(
+              vst + min(8 * nt + 2 * t + 1, nk - 1) * D + 32 * c + 4 * g));""")]
+INT8_GROUP_NO_Q_SPLIT = [("""      split_q(*reinterpret_cast<const float4*>(qa_row + at),
+              *reinterpret_cast<const float4*>(qb_row + at), ah, al);""",
+                          """      {
+        const float4 qa = *reinterpret_cast<const float4*>(qa_row + at);
+        const float4 qb = *reinterpret_cast<const float4*>(qb_row + at);
+        const float qf[8] = {qa.x, qb.x, qa.y, qb.y, qa.z, qb.z, qa.w, qb.w};
+#pragma unroll
+        for (int u = 0; u < 8; ++u) ah[u] = al[u] = __float_as_uint(qf[u]);
+      }""")]
 
 
 # --- decode_attention, int8 --------------------------------------------------
@@ -524,7 +636,7 @@ extern "C" int variant_launch(const float* q, const int8_t* k,
                               int splits, int chunk, void* stream) {
   const cudaError_t err = launch_decode_attention_int8(
       q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv, T, @D@, splits,
-      chunk, static_cast<cudaStream_t>(stream));
+      chunk, 1, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaPeekAtLastError());
 }
 extern "C" int variant_blocks_per_sm() {
@@ -546,7 +658,7 @@ extern "C" int variant_launch(const float* q, const int8_t* k,
                               int splits, int chunk, void* stream) {
   const cudaError_t err = launch_decode_attention_int8_floor(
       q, k, v, k_scale, v_scale, kv_len, out, B, H, Hkv, T, @D@, splits,
-      chunk, static_cast<cudaStream_t>(stream));
+      chunk, 1, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaPeekAtLastError());
 }
 extern "C" int variant_blocks_per_sm() {
@@ -652,7 +764,7 @@ decode_int8_mma_kernel(const float* __restrict__ q,
                        const float* __restrict__ v_scale,
                        const int* __restrict__ kv_len,
                        float* __restrict__ out, int H, int Hkv, int T,
-                       int chunk, int tk, int stages, int sub) {
+                       int chunk, int tk, int stages) {
   using QD = QDims<D>;
   constexpr int kKS = D / 16;   // k-steps of S, m-tiles of out^T
   constexpr int kNC = QD::kChunks, kPart = QD::kPart;
@@ -663,7 +775,7 @@ decode_int8_mma_kernel(const float* __restrict__ q,
   const int split = blockIdx.x;
   const int splits = gridDim.x;
   if (splits > 1) cluster_arrive_relaxed();
-  const int slot = blockIdx.y, kvh = slot / sub, b = blockIdx.z;
+  const int slot = blockIdx.y, kvh = slot, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tig = lane & 3;
   extern __shared__ __align__(16) unsigned char qsmem[];
@@ -1228,6 +1340,63 @@ VARIANTS = {
     "decode_attention_d128_g16/floor": ("decode_g16_floor", []),
     "decode_attention_d128_g16/2_splits": ("decode_g16", [], {"splits": 2}),
     "decode_attention_d128_g16/4_slices": ("decode_g16", group_slices(4)),
+    # The int8 group instance's plan: 3 slots of 16 heads at granite-34b's
+    # serve shape, one slot of 48 and 3 splits over its 4,096 keys; 1
+    # slot and 1 split at both of llama3-405b's.
+    "decode_attention_int8_d128_g48": ("decode_int8_g48", []),
+    "decode_attention_int8_d128_g48/floor": ("decode_int8_g48_floor", []),
+    "decode_attention_int8_d128_g48/1_slot": ("decode_int8_g48", [],
+                                              {"slots": 1}),
+    "decode_attention_int8_d128_g48/3_slots": ("decode_int8_g48", [],
+                                               {"slots": 3}),
+    "decode_attention_int8_d128_g48/1_split": ("decode_int8_g48", [],
+                                               {"splits": 1}),
+    "decode_attention_int8_d128_g48/2_splits": ("decode_int8_g48", [],
+                                                {"splits": 2}),
+    "decode_attention_int8_d128_g48/4_splits": ("decode_int8_g48", [],
+                                                {"splits": 4}),
+    "decode_attention_int8_d128_g48/1_stage": ("decode_int8_g48",
+                                               int8_group_stages(1)),
+    "decode_attention_int8_d128_g48/4_stages": ("decode_int8_g48",
+                                                int8_group_stages(4)),
+    "decode_attention_int8_d128_g48/2_slices": ("decode_int8_g48",
+                                                group_slices(2)),
+    "decode_attention_int8_d128_g48/3_slots_2_splits": (
+        "decode_int8_g48", [], {"slots": 3, "splits": 2}),
+    "decode_attention_int8_d128_g48/2_slots_2_splits": (
+        "decode_int8_g48", [], {"slots": 2, "splits": 2}),
+    "decode_attention_int8_d128_g48/probe_no_score_mma": (
+        "decode_int8_g48_probe", INT8_GROUP_NO_SCORE_MMA),
+    "decode_attention_int8_d128_g48/probe_no_pv_mma": (
+        "decode_int8_g48_probe", INT8_GROUP_NO_PV_MMA),
+    "decode_attention_int8_d128_g48/probe_no_k_convert": (
+        "decode_int8_g48_probe", INT8_GROUP_NO_K_CONVERT),
+    "decode_attention_int8_d128_g48/probe_no_v_convert": (
+        "decode_int8_g48_probe", INT8_GROUP_NO_V_CONVERT),
+    "decode_attention_int8_d128_g48/probe_no_q_split": (
+        "decode_int8_g48_probe", INT8_GROUP_NO_Q_SPLIT),
+    "decode_attention_int8_d128_g16": ("decode_int8_g16", []),
+    "decode_attention_int8_d128_g16/floor": ("decode_int8_g16_floor", []),
+    "decode_attention_int8_d128_g16/2_splits": ("decode_int8_g16", [],
+                                                {"splits": 2}),
+    "decode_attention_int8_d128_g16/1_stage": ("decode_int8_g16",
+                                               int8_group_stages(1)),
+    "decode_attention_int8_d128_g16/4_stages": ("decode_int8_g16",
+                                                int8_group_stages(4)),
+    "decode_attention_int8_d128_g16/2_slices": ("decode_int8_g16",
+                                                group_slices(2)),
+    "decode_attention_int8_d128_g16/1_stage_3_blocks": (
+        "decode_int8_g16", int8_group_stages(1) + GROUP_3_BLOCKS),
+    "decode_attention_int8_d128_g16/probe_no_score_mma": (
+        "decode_int8_g16_probe", INT8_GROUP_NO_SCORE_MMA),
+    "decode_attention_int8_d128_g16/probe_no_pv_mma": (
+        "decode_int8_g16_probe", INT8_GROUP_NO_PV_MMA),
+    "decode_attention_int8_d128_g16/probe_no_k_convert": (
+        "decode_int8_g16_probe", INT8_GROUP_NO_K_CONVERT),
+    "decode_attention_int8_d128_g16/probe_no_v_convert": (
+        "decode_int8_g16_probe", INT8_GROUP_NO_V_CONVERT),
+    "decode_attention_int8_d128_g16/probe_no_q_split": (
+        "decode_int8_g16_probe", INT8_GROUP_NO_Q_SPLIT),
     # The gls_row_race plan: 2 splits at (20, 8, 49152), 8 at (5, 8, 50280).
     "gls_row_race": ("race", []),
     "gls_row_race/1_split": ("race", [], {"splits": 1}),
@@ -1351,6 +1520,14 @@ SOURCES = {"ssd": (SSD, SSD_ENTRY), "flash": (FLASH, FLASH_ENTRY),
            "decode_g16": (DECODE, _group_entry(16)),
            "decode_g16_floor": (DECODE, _group_entry(16, True)),
            "decode_g16_parent": (None, PARENT_DECODE_GROUP_ENTRY),
+           "decode_int8_g48": (DECODE, _int8_group_entry(48)),
+           "decode_int8_g48_probe": (DECODE, _int8_group_entry(48)),
+           "decode_int8_g48_floor": (DECODE, _int8_group_entry(48, True)),
+           "decode_int8_g48_parent": (None, PARENT_DECODE_INT8_GROUP_ENTRY),
+           "decode_int8_g16": (DECODE, _int8_group_entry(16)),
+           "decode_int8_g16_probe": (DECODE, _int8_group_entry(16)),
+           "decode_int8_g16_floor": (DECODE, _int8_group_entry(16, True)),
+           "decode_int8_g16_parent": (None, PARENT_DECODE_INT8_GROUP_ENTRY),
            "race": (RACE, RACE_ENTRY),
            "joint": (JOINT, JOINT_ENTRY),
            "joint_floor": (JOINT, JOINT_FLOOR_ENTRY),
@@ -1383,16 +1560,34 @@ PTXAS_KERNEL = {"ssd": "ssd_chunk_kernel",
                 "decode_int8_floor": "decode_int8_floor_kernelILi64ELi3EEE",
                 "decode_int8_d128_floor":
                     "decode_int8_floor_kernelILi128ELi4EEE",
-                "decode_g48": "decode_attention_group_kernelILi128ELi3ELb0EEE",
+                "decode_g48":
+                    "decode_attention_group_kernelILi128ELi3EfLb0EEE",
                 "decode_g48_probe":
-                    "decode_attention_group_kernelILi128ELi3ELb0EEE",
+                    "decode_attention_group_kernelILi128ELi3EfLb0EEE",
                 "decode_g48_floor":
-                    "decode_attention_group_kernelILi128ELi3ELb1EEE",
+                    "decode_attention_group_kernelILi128ELi3EfLb1EEE",
                 "decode_g48_parent": "decode_attention_kernelILi128ELi8EEE",
-                "decode_g16": "decode_attention_group_kernelILi128ELi1ELb0EEE",
+                "decode_g16":
+                    "decode_attention_group_kernelILi128ELi1EfLb0EEE",
                 "decode_g16_floor":
-                    "decode_attention_group_kernelILi128ELi1ELb1EEE",
+                    "decode_attention_group_kernelILi128ELi1EfLb1EEE",
                 "decode_g16_parent": "decode_attention_kernelILi128ELi8EEE",
+                "decode_int8_g48":
+                    "decode_attention_group_kernelILi128ELi3EaLb0EEE",
+                "decode_int8_g48_probe":
+                    "decode_attention_group_kernelILi128ELi3EaLb0EEE",
+                "decode_int8_g48_floor":
+                    "decode_attention_group_kernelILi128ELi3EaLb1EEE",
+                "decode_int8_g48_parent":
+                    "decode_attention_kernel_int8ILi128ELi8EEE",
+                "decode_int8_g16":
+                    "decode_attention_group_kernelILi128ELi1EaLb0EEE",
+                "decode_int8_g16_probe":
+                    "decode_attention_group_kernelILi128ELi1EaLb0EEE",
+                "decode_int8_g16_floor":
+                    "decode_attention_group_kernelILi128ELi1EaLb1EEE",
+                "decode_int8_g16_parent":
+                    "decode_attention_kernel_int8ILi128ELi8EEE",
                 "race": "gls_row_race_kernel",
                 "joint": "gls_race_kernel",
                 "joint_floor": "gls_race_floor_kernel",
@@ -1420,6 +1615,14 @@ CASE_OF = {"ssd": "ssd", "flash": "flash", "decode": "decode",
            "decode_g48_floor": "decode_g48", "decode_g48_parent": "decode_g48",
            "decode_g16": "decode_g16", "decode_g16_floor": "decode_g16",
            "decode_g16_parent": "decode_g16",
+           "decode_int8_g48": "decode_int8_g48",
+           "decode_int8_g48_probe": "decode_int8_g48",
+           "decode_int8_g48_floor": "decode_int8_g48",
+           "decode_int8_g48_parent": "decode_int8_g48",
+           "decode_int8_g16": "decode_int8_g16",
+           "decode_int8_g16_probe": "decode_int8_g16",
+           "decode_int8_g16_floor": "decode_int8_g16",
+           "decode_int8_g16_parent": "decode_int8_g16",
            "race": "race", "joint": "joint", "joint_floor": "joint",
            "decode_int8_parent": "decode_int8",
            "decode_int8_d128_parent": "decode_int8_d128",
@@ -1431,11 +1634,14 @@ CASE_OF = {"ssd": "ssd", "flash": "flash", "decode": "decode",
 # Cases timed as one call on one input set (no cycling, no device time).
 SINGLE_CALL = ("ssd", "flash", "flash_int8", "flash_d128", "flash_int8_d128")
 # Cases whose variants run at several shapes (one list of calls a shape).
-MULTI_SHAPE = ("race", "decode_g48", "decode_g16")
+MULTI_SHAPE = ("race", "decode_g48", "decode_g16", "decode_int8_g48",
+               "decode_int8_g16")
 # Kinds whose output is not the kernel's function (no check).
 UNCHECKED = {"decode_int8_floor", "decode_int8_d128_floor", "joint_floor",
              "decode_int8_probe", "decode_int8_d128_probe",
-             "decode_g48_floor", "decode_g16_floor", "decode_g48_probe"}
+             "decode_g48_floor", "decode_g16_floor", "decode_g48_probe",
+             "decode_int8_g48_floor", "decode_int8_g16_floor",
+             "decode_int8_g48_probe", "decode_int8_g16_probe"}
 PARENT_VARIANTS = {
     "decode_attention_int8 (parent)": ("decode_int8_parent", [],
                                        {"splits": 6}),
@@ -1448,7 +1654,11 @@ PARENT_VARIANTS = {
     "decode_attention_d128_g48 (parent)": ("decode_g48_parent", [],
                                            {"plan": "parent"}),
     "decode_attention_d128_g16 (parent)": ("decode_g16_parent", [],
-                                           {"plan": "parent"})}
+                                           {"plan": "parent"}),
+    "decode_attention_int8_d128_g48 (parent)": ("decode_int8_g48_parent", [],
+                                                {"plan": "parent"}),
+    "decode_attention_int8_d128_g16 (parent)": ("decode_int8_g16_parent", [],
+                                                {"plan": "parent"})}
 PARENT_FILES = {"decode_int8_parent": DECODE.relative_to(ROOT),
                 "decode_int8_d128_parent": DECODE.relative_to(ROOT),
                 "joint_parent": JOINT.relative_to(ROOT),
@@ -1456,7 +1666,9 @@ PARENT_FILES = {"decode_int8_parent": DECODE.relative_to(ROOT),
                 "flash_d128_parent": FLASH.relative_to(ROOT),
                 "flash_int8_d128_parent": FLASH.relative_to(ROOT),
                 "decode_g48_parent": DECODE.relative_to(ROOT),
-                "decode_g16_parent": DECODE.relative_to(ROOT)}
+                "decode_g16_parent": DECODE.relative_to(ROOT),
+                "decode_int8_g48_parent": DECODE.relative_to(ROOT),
+                "decode_int8_g16_parent": DECODE.relative_to(ROOT)}
 
 
 def variant_source(kind: str, subs, parent=None) -> str:
@@ -1738,6 +1950,79 @@ def decode_group_case(torch, dev, group: int):
     return calls, check, "decode_"
 
 
+def decode_int8_group_case(torch, dev, group: int):
+    """The launcher and check of each variant of the int8 group instance
+    at a giant's shape: granite-34b's q (32, 48, 128) over int8 (32, 1, T,
+    128) K/V (``group`` 48) or llama3-405b's q (32, 128, 128) over (32, 8,
+    T, 128) (16), with float32 scales; T = 86 with the serve's kv_len and
+    T = 4,096 with every key live, each cycling through int8 sets worth
+    three L2 caches (``chip_smoke.decode_int8_inputs``).  The plan is the
+    wrapper's (``decode_group_plan``) unless a variant fixes ``slots`` or
+    ``splits``; the parent's sub-groups take the parent's plan (the int8
+    G = 8 plan over Hkv x group / 8 head slots).  The check also returns
+    the error against a float64 evaluation of the dequantized attention
+    on the first set beside the plain version's, at the shape where their
+    ratio is the largest."""
+    import chip_smoke as C
+    from repro_torch.kernels.decode_attention.ops import (decode_group_plan,
+                                                          decode_split_plan)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_plain)
+    b, d = 32, 128
+    hkv = 1 if group == 48 else 8
+    h = hkv * group
+    shapes = []
+    for t in (86, 4096):
+        q, sets, _, kv_len = C.decode_int8_inputs(torch, dev, b, h, hkv, d,
+                                                  t, full=t != 86)
+        want = decode_attention_plain(q, *sets[0][:2], kv_len, *sets[0][2:])
+        want64 = C.decode_float64(torch, q, *sets[0][:2], kv_len,
+                                  *sets[0][2:])
+        shapes.append((t, q, sets, kv_len, want, torch.empty_like(q),
+                       want64, float((want.double() - want64).abs().max())))
+        C.gc_collect(torch)
+    stream = stream_ptr(torch)
+
+    def plan_of(opts, t):
+        if opts.get("plan") == "parent":
+            return 1, decode_split_plan(b, hkv * group // 8, t, head_dim=d,
+                                        int8=True, group=8)[0]
+        slots, splits, _ = decode_group_plan(b, hkv, t, head_dim=d,
+                                             group=group, int8=True)
+        return opts.get("slots", slots), opts.get("splits", splits)
+
+    def calls(lib, opts):
+        out = []
+        for t, q, sets, kv_len, _, o, *_ in shapes:
+            slots, splits = plan_of(opts, t)
+
+            def one(k, v, ks, vs, q=q, kv_len=kv_len, o=o, t=t,
+                    splits=splits, slots=slots):
+                rc = lib.variant_launch(ptr(q), ptr(k), ptr(v), ptr(ks),
+                                        ptr(vs), ptr(kv_len), ptr(o), b, h,
+                                        hkv, t, splits, -(-t // splits),
+                                        slots, stream)
+                if rc:
+                    raise RuntimeError(f"launch failed: cuda error {rc}")
+            out.append([lambda s_=s_, one=one: one(*s_) for s_ in sets])
+        return out
+
+    def check(lib, opts):
+        err, worst = 0.0, (0.0, 1.0)
+        for shape_calls, shape in zip(calls(lib, opts), shapes):
+            shape_calls[0]()
+            torch.cuda.synchronize()
+            err = max(err, float((shape[5] - shape[4]).abs().max()))
+            e64 = float((shape[5].double() - shape[6]).abs().max())
+            if e64 / shape[7] > worst[0] / worst[1]:
+                worst = (e64, shape[7])
+        if err > 1e-4:
+            raise AssertionError(f"max abs err {err}")
+        return (err,) + worst
+
+    return calls, check, "decode_"
+
+
 def int8_decode_calls(torch, lib, q, sets, kv_len, out, splits: int):
     """One call per int8 K/V set through a variant library's
     ``variant_launch`` (the int8 signature) at ``splits`` splits."""
@@ -1905,6 +2190,10 @@ def main(argv) -> int:
               "decode_int8_d128": lambda t, d: decode_int8_case(t, d, 128),
               "decode_g48": lambda t, d: decode_group_case(t, d, 48),
               "decode_g16": lambda t, d: decode_group_case(t, d, 16),
+              "decode_int8_g48":
+                  lambda t, d: decode_int8_group_case(t, d, 48),
+              "decode_int8_g16":
+                  lambda t, d: decode_int8_group_case(t, d, 16),
               "race": race_case, "joint": joint_case,
               "flash_int8": lambda t, d: flash_tc_case(t, d, 64, True),
               "flash_d128": lambda t, d: flash_tc_case(t, d, 128, False),
