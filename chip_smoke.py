@@ -191,6 +191,30 @@ when the port's sources are not beside this file.  Phases:
      recorded match rates; then the paper's Fig. 2 grid (N = 4096,
      2000 trials, K in {1, 2, 4}, l_max in {2, 8, 64}, GLS and the
      shared-sheet baseline): GLS equals the baseline at K = 1;
+  train: training on the card (``train/loop.py``).  smollm-360m at its
+     published widths (32 layers, d_model 960, vocab 49,152, float32),
+     ``TrainConfig(total_steps=30, warmup=5)``, batch 8 x seq 128 from
+     ``lm_dataset``: every loss and grad norm finite, the mean of the
+     last 5 losses below the first step's; step wall ms and peak memory
+     logged.  Card against CPU at ``smollm-360m.reduced()``: two
+     ``make_train_step`` steps with ``warmup=1`` from the same params and
+     batches: the losses and the first step's gradients within 1e-5, the
+     params after step 2 within 1e-5.  mamba2-370m at its published
+     widths (48 layers), 10 steps: ``ssd_chunk`` launches exactly 48 x 2
+     a step (forward and the remat recomputation), finite and falling
+     losses.  ``ssd_chunk``'s autograd function against autograd
+     through ``ssd_chunk_plain`` at x (8, 2, 64, 32, 64): the forward
+     within 5e-4, the input gradients within 1e-3 of their max;
+  vae: the beta-VAE compression of Fig. 4 (``compression/vae.py``):
+     ``gls_binned_race`` against its plain version at the grid's chunk
+     (64, 5, 256), l_max 4 and 32, bitwise, timed as in phase 2;
+     ``train_vae`` for 600 steps on 4,000 digits, then ``evaluate_rd``
+     over K in {1, 2, 4}, l_max in {4, 32}, GLS and the shared-sheet
+     baseline, 64 test images of 400 a point, 256 atoms, backend
+     "kernel": one ``gls_binned_race`` launch per chunk; every chunk's
+     ``y``, ``message``, ``x``, ``match`` and ``ok`` equal under the
+     "kernel" and "torch" backends, ``validate_wz_batch`` passing, GLS
+     equal to the baseline at K = 1; mse and match rates logged;
   6. gls: the joint race kernel ``gls_race`` against
      ``core.gls.gls_sample_heterogeneous`` on the same sheets (20 rows,
      K = 8, N = 49,152): equal draft and target selections;
@@ -218,16 +242,18 @@ when the port's sources are not beside this file.  Phases:
      self-draft check (drafter = the 48-layer target, acceptance >=
      0.9 L).
 
-Each of the paths of phases 3, 3q, rs, kv, paged, diverse, granite, 5, 6
-and 7 is driven with the launch counts set to 0 just before it and read
-just after; the ``kernels`` line reports each kernel's launches from its
-own paths (``gls_row_race``: the sum over the float32 kv_fused serves of
+Each of the paths of phases 3, 3q, rs, kv, paged, diverse, granite, 5,
+train, vae, 6 and 7 is driven with the launch counts set to 0 just
+before it and read just after; the ``kernels`` line reports each
+kernel's launches from its own paths (``gls_row_race``: the sum over the float32 kv_fused serves of
 smollm-360m and granite-8b, the kv serves, the paged serves, the gls
 serves of phase diverse and the reprefill serve; ``decode_attention``
 and ``flash_attention``: phase 3, the three rejection-sampling serves,
 the float32 kv serves and paged (a)-(c); their int8 instances: phase
 3q, the quant serves of phase kv and paged (d); the D = 128 instances:
-granite's float32, quant, kv and paged kv serves).  The line before the last is a JSON object ``{"kernels":
+granite's float32, quant, kv and paged kv serves; ``ssd_chunk``: phase
+train's mamba2 steps and phase 7's serve; ``gls_binned_race``: phase 5
+and phase vae's grid).  The line before the last is a JSON object ``{"kernels":
 [...]}``; the last line is ``{"ok": true, "device": {...}}``.  Every
 phase failure is an exception, so the script exits non-zero after any
 failure.
@@ -314,6 +340,16 @@ GIANT_LONG_T = 4096
 # forward's training capacity factor, other groups), not a port fault.
 MIXTRAL_LAYERS, MIXTRAL_PREFILL, WINDOW_DECODES = 2, 4166, 8
 HYBRID_PREFILL = 2100
+# Phase train: smollm-360m and mamba2-370m at published widths, batch x
+# seq from lm_dataset; the card against the CPU at smollm's reduced()
+# config within TRAIN_CPU_TOL; ssd_chunk's gradient at the mamba2 shape
+# of this batch (x (8, 2, 64, 32, 64)) within SSD_GRAD_TOL of its max.
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_STEPS, TRAIN_WARMUP, SSM_TRAIN_STEPS = 30, 5, 10
+TRAIN_CPU_TOL, SSD_GRAD_TOL = 1e-5, 1e-3
+# Phase vae: Fig. 4's grid (benchmarks/bench_fig4_mnist.py): 600 steps
+# on 4,000 digits, 400 test digits, 256 atoms, 64 trials a point.
+VAE_STEPS, VAE_IMAGES, VAE_ATOMS, VAE_TRIALS = 600, 4000, 256, 64
 # tests/test_quant_fused.py: the int8 acceptance rate against float32's.
 QUANT_RATE_TOL = 0.2
 # The served quant self-draft rate (int8 arenas and the W8A8 verify) over
@@ -561,14 +597,15 @@ def _plant_binned(torch, log_s, log_q, bins, l_max):
     return int(idx[0]), int(in0[0])
 
 
-def kernel_binned(torch, dev, l_max: int):
-    """The binned race at the full compression shape: B trials, K
-    decoders plus the encoder row, N atoms."""
+def kernel_binned(torch, dev, l_max: int,
+                  shape=(WZ_BATCH, WZ_K + 1, WZ_ATOMS)):
+    """The binned race at ``shape`` (B trials, K decoders plus the
+    encoder row, N atoms; by default the full compression shape)."""
     from repro_torch.kernels.gls_race.ops import gls_binned_race
     from repro_torch.kernels.gls_race.ref import gls_binned_race_plain
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 10 + l_max)
-    b, r, n = WZ_BATCH, WZ_K + 1, WZ_ATOMS
+    b, r, n = shape
     log_s = torch.empty((b, r, n), device=dev).exponential_(
         generator=g).clamp_min(1e-38).log()
     log_q = torch.randn((b, r, n), generator=g, device=dev)
@@ -2583,6 +2620,253 @@ def phase_gls(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phases train and vae: training on the card and Fig. 4
+# ---------------------------------------------------------------------------
+
+
+def train_steps(torch, step_fn, params, opt, batches, dev, counted=None):
+    """``step_fn`` over ``batches`` (numpy), each step synchronised and
+    timed; with ``counted`` the launches of that kernel a step.  Returns
+    (params, opt, per-step metrics as floats)."""
+    from repro_torch.device import to_device
+    from repro_torch.kernels.mode import launch_counts, reset_launch_counts
+    out = []
+    for b in batches:
+        batch = {k: to_device(v, dev) for k, v in b.items()}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        m = {k: float(v) for k, v in m.items()}
+        m["ms"] = (time.perf_counter() - t0) * 1e3
+        if counted:
+            m["launches"] = launch_counts.get(counted, 0)
+        out.append(m)
+    return params, opt, out
+
+
+def _batches(vocab: int, n: int, seed: int = SEED):
+    from repro_torch.data import lm_dataset
+    ds = iter(lm_dataset(TRAIN_BATCH, TRAIN_SEQ, vocab, seed=seed))
+    return [next(ds) for _ in range(n)]
+
+
+def train_full(torch, dev, arch: str, steps: int, warmup: int, smi: str,
+               counted=None):
+    """``arch`` at its published widths trained ``steps`` steps on the
+    card: the per-step metrics and the peak device memory (GiB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import adam_init
+    from repro_torch.train import TrainConfig, make_train_step
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_params(gen, cfg, dev)
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(cfg, TrainConfig(total_steps=steps,
+                                               warmup=warmup))
+    _, _, hist = train_steps(torch, step_fn, params, adam_init(params),
+                             _batches(cfg.vocab_size, steps), dev, counted)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params
+    gc_collect(torch)
+    losses = [m["loss"] for m in hist]
+    ms = sorted(m["ms"] for m in hist[1:])
+    log(f"train {arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+        f"{steps} steps, warmup {warmup}) [{smi}]: losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; grad norms {hist[0]['grad_norm']:.4g} .. "
+        f"{hist[-1]['grad_norm']:.4g}; step wall ms median "
+        f"{statistics.median(ms):.2f} (min {ms[0]:.2f}, max {ms[-1]:.2f}; "
+        f"first step {hist[0]['ms']:.2f}); peak device memory "
+        f"{peak:.2f} GiB")
+    for m in hist:
+        assert math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]), m
+    return hist, peak
+
+
+def train_card_vs_cpu(torch, dev):
+    """Two ``make_train_step`` steps (warmup 1: step 0's lr is 0) of
+    smollm-360m's reduced config from the same params and batches on the
+    card and on the CPU: losses, the first step's gradients and the
+    params after step 2 within ``TRAIN_CPU_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import adam_init, tree_leaves, tree_map
+    from repro_torch.train import (TrainConfig, lm_loss, make_train_step,
+                                   value_and_grad)
+    from repro_torch.device import to_device
+    cfg = get_config("smollm-360m").reduced()
+    cpu = torch.device("cpu")
+    params = init_params(torch.Generator().manual_seed(SEED), cfg, cpu)
+    batches = _batches(cfg.vocab_size, 2, seed=SEED + 1)
+    tcfg = TrainConfig(warmup=1, total_steps=2)
+    got = []
+    for d in (dev, cpu):
+        p = tree_map(lambda t: t.to(d), params)
+        b0 = {k: to_device(v, d) for k, v in batches[0].items()}
+        _, grads = value_and_grad(lambda q: lm_loss(q, cfg, b0), p)
+        p, _, hist = train_steps(torch, make_train_step(cfg, tcfg), p,
+                                 adam_init(p), batches, d)
+        got.append(([m["loss"] for m in hist],
+                    [g.cpu() for g in tree_leaves(grads)],
+                    [t.cpu() for t in tree_leaves(p)]))
+    (lc, gc_, pc), (lh, gh, ph) = got
+    err_loss = max(abs(a - b) for a, b in zip(lc, lh))
+    err_grad = max(float((a - b).abs().max()) for a, b in zip(gc_, gh))
+    err_par = max(float((a - b).abs().max()) for a, b in zip(pc, ph))
+    log(f"train card vs CPU ({cfg.name}, 2 steps, warmup 1): losses card "
+        f"{lc} CPU {lh}; max abs err: loss {err_loss:.3g}, step-0 grads "
+        f"{err_grad:.3g}, params after step 2 {err_par:.3g} (tolerance "
+        f"{TRAIN_CPU_TOL})")
+    assert err_loss <= TRAIN_CPU_TOL, err_loss
+    assert err_grad <= TRAIN_CPU_TOL, err_grad
+    assert err_par <= TRAIN_CPU_TOL, err_par
+
+
+def check_ssd_gradient(torch, dev, cfg, smi: str):
+    """``ssd_chunk``'s autograd function (kernel forward, torch-op
+    backward) against autograd through ``ssd_chunk_plain`` at the
+    training batch's mamba2 shape."""
+    from repro_torch.kernels.ssd_chunk.ops import ssd_chunk
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_plain
+    q, h, p, n = cfg.ssm_chunk, cfg.ssm_num_heads, cfg.ssm_head_dim, \
+        cfg.ssm_state
+    b, nc = TRAIN_BATCH, TRAIN_SEQ // q
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 41)
+    mk = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    inputs = [mk(b, nc, q, h, p),
+              torch.nn.functional.softplus(mk(b, nc, q, h)),
+              -torch.exp(0.3 * mk(h)), mk(b, nc, q, n), mk(b, nc, q, n)]
+    weights = [mk(b, nc, q, h, p), mk(b, nc, h, p, n), mk(b, nc, h)]
+
+    def run(fn):
+        ins = [t.clone().requires_grad_() for t in inputs]
+        outs = fn(*ins)
+        loss = sum((o * w).sum() for o, w in zip(outs, weights))
+        return outs, torch.autograd.grad(loss, ins)
+
+    (ko, kg), (po, pg) = run(ssd_chunk), run(ssd_chunk_plain)
+    torch.cuda.synchronize()
+    for name, a, c, tol in zip(("y", "states", "total"), ko, po,
+                               (SSD_TOL, SSD_TOL, SSD_TOL_TOTAL)):
+        d = (a - c).abs()
+        assert bool((d <= tol + tol * c.abs()).all()), \
+            f"ssd_chunk forward {name}: max abs err {float(d.max())}"
+    rel = [float((a - c).abs().max()) / float(c.abs().max())
+           for a, c in zip(kg, pg)]
+    log(f"ssd_chunk gradient (kernel forward, torch-op backward) vs "
+        f"autograd through ssd_chunk_plain at x ({b}, {nc}, {q}, {h}, {p}) "
+        f"[{smi}]: forward within {SSD_TOL}; input grads (x, dt, a, B, C) "
+        f"max err / max |grad| " + ", ".join(f"{r:.3g}" for r in rel)
+        + f" (tolerance {SSD_GRAD_TOL})")
+    assert max(rel) <= SSD_GRAD_TOL, rel
+
+
+def phase_train(torch, dev, smi: str) -> dict:
+    """Phase train (module docstring).  Returns the kernel launches of
+    its path (mamba2's ``ssd_chunk``) and its readings."""
+    hist, peak = train_full(torch, dev, "smollm-360m", TRAIN_STEPS,
+                            TRAIN_WARMUP, smi)
+    first, last5 = hist[0]["loss"], [m["loss"] for m in hist[-5:]]
+    assert statistics.mean(last5) < first, (first, last5)
+    train_card_vs_cpu(torch, dev)
+    from repro_torch.configs import get_config
+    ssm_cfg = get_config("mamba2-370m")
+    check_ssd_gradient(torch, dev, ssm_cfg, smi)
+    ssm_hist, ssm_peak = train_full(torch, dev, "mamba2-370m",
+                                    SSM_TRAIN_STEPS, 2, smi,
+                                    counted="ssd_chunk")
+    want = 2 * ssm_cfg.num_layers               # forward + remat
+    per_step = [m["launches"] for m in ssm_hist]
+    log(f"train mamba2-370m: ssd_chunk launches a step {per_step} (want "
+        f"{want} = {ssm_cfg.num_layers} layers x (forward + remat))")
+    assert all(n == want for n in per_step), per_step
+    losses = [m["loss"] for m in ssm_hist]
+    assert statistics.mean(losses[-3:]) < losses[0], losses
+    return {"ssd_chunk": sum(per_step)}, {
+        "smollm_step_ms": statistics.median(m["ms"] for m in hist[1:]),
+        "smollm_peak_gib": peak, "mamba2_peak_gib": ssm_peak,
+        "mamba2_step_ms": statistics.median(m["ms"] for m in ssm_hist[1:])}
+
+
+def phase_vae(torch, dev, smi: str) -> dict:
+    """Phase vae (module docstring).  Returns the kernel launches of its
+    grid (``gls_binned_race``)."""
+    from repro_torch import random as R
+    from repro_torch.compression import vae as V
+    from repro_torch.compression.pipeline import check_wz_batch
+    from repro_torch.data import digits_dataset
+    from repro_torch.kernels.mode import launch_counts, reset_launch_counts
+    from repro_torch.launch.compress_mnist import TEST_IMAGES, fig4_grid
+    # The race at the grid's largest chunk (64 trials, K = 4 decoders
+    # plus the encoder row, 256 atoms) against its plain version.
+    for l_max in (4, 32):
+        kr = kernel_binned(torch, dev, l_max, (64, 5, VAE_ATOMS))
+        kr["shape"] += ", Fig. 4's chunk; bitwise equal to plain"
+        log_kernel(kr, smi)
+    imgs, _ = digits_dataset(VAE_IMAGES, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = V.train_vae(R.PRNGKey(0), imgs, V.VAETrainConfig(
+        steps=VAE_STEPS, beta=0.35), device=dev, log=log)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    test, _ = digits_dataset(TEST_IMAGES, seed=1)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = fig4_grid(params, test, trials=VAE_TRIALS, n_atoms=VAE_ATOMS,
+                     backend="kernel", device=dev)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    chunks = 2 * len(rows) * -(-VAE_TRIALS // 64)
+    assert counts.get("gls_binned_race", 0) == chunks, (counts, chunks)
+    trials = 2 * len(rows) * VAE_TRIALS
+    log(f"vae (Fig. 4) [{smi}]: train_vae {VAE_STEPS} steps on "
+        f"{VAE_IMAGES} digits {train_s:.2f}s "
+        f"({train_s / VAE_STEPS * 1e3:.2f} ms a step); grid of {len(rows)} "
+        f"points x 2 x {VAE_TRIALS} trials {grid_s:.2f}s "
+        f"({trials / grid_s:.1f} trials/s), {chunks} gls_binned_race "
+        f"launches")
+    log("vae: rate(bits) K  GLS mse / match  baseline mse / match")
+    for r in rows:
+        g, b = r["gls"], r["baseline"]
+        log(f"vae: {g['rate_bits']:.0f} {r['k']}  {g['mse']:.4f} / "
+            f"{g['match_prob_any']:.4f}  {b['mse']:.4f} / "
+            f"{b['match_prob_any']:.4f}")
+        if r["k"] == 1:
+            assert g == b, ("GLS != baseline at K=1", g, b)
+    # Every chunk again through both backends: equal codes, the guard
+    # passes.
+    for r in rows:
+        src, crops = V.rd_inputs(test, r["k"], VAE_TRIALS)
+        keys = R.split(R.PRNGKey(1).to(dev), VAE_TRIALS)
+        for shared in (False, True):
+            for i in range(0, VAE_TRIALS, 64):
+                args = (keys[i:i + 64], params,
+                        torch.from_numpy(src[i:i + 64]).to(dev),
+                        torch.from_numpy(crops[i:i + 64]).to(dev))
+                kw = dict(n_atoms=VAE_ATOMS, l_max=r["l_max"], k=r["k"],
+                          shared_sheet=shared)
+                _, kc, _ = V.compress_batch(*args, backend="kernel", **kw)
+                _, tc, _ = V.compress_batch(*args, backend="torch", **kw)
+                for name, a, c in zip(kc._fields, kc, tc):
+                    assert torch.equal(a, c), \
+                        f"vae chunk {i} {r}: {name} kernel != torch"
+                check_wz_batch(kc, n_atoms=VAE_ATOMS, l_max=r["l_max"],
+                               what=f"vae chunk {i}")
+    log("vae: every chunk's y, message, x, match, ok equal under the "
+        "kernel and torch backends; validate_wz_batch passed; GLS == "
+        "baseline at K = 1")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: Mamba-2 through the reference engine
 # ---------------------------------------------------------------------------
 
@@ -3237,6 +3521,19 @@ def main() -> int:
     phase_fig2(torch, dev)
     log(f"phase compress: {time.perf_counter() - t0:.1f}s")
 
+    # Phases train and vae: training on the card, then Fig. 4's codec.
+    t0 = time.perf_counter()
+    train_counts, _ = phase_train(torch, dev, smi)
+    log(f"launches of phase train (added to the kernels line): "
+        f"{train_counts}")
+    add_counts(counts, train_counts)
+    log(f"phase train: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    vae_counts = phase_vae(torch, dev, smi)
+    log(f"launches of phase vae (added to the kernels line): {vae_counts}")
+    add_counts(counts, vae_counts)
+    log(f"phase vae: {time.perf_counter() - t0:.1f}s")
+
     # Phase 6: the joint race against Algorithm 1.
     t0 = time.perf_counter()
     counts["gls_race"] = phase_gls(torch, dev).get("gls_race", 0)
@@ -3255,7 +3552,10 @@ def main() -> int:
     kernels.append(kr)
     phase_ssm_reference(torch, dev, ssm_target)
     ssm_counts, _ = phase_ssm_serve(torch, dev, ssm_target, ssm_drafter, smi)
-    counts["ssd_chunk"] = ssm_counts.get("ssd_chunk", 0)
+    log(f"ssd_chunk launches: phase train {counts.get('ssd_chunk', 0)}, "
+        f"reprefill serve {ssm_counts.get('ssd_chunk', 0)}")
+    counts["ssd_chunk"] = (counts.get("ssd_chunk", 0)
+                           + ssm_counts.get("ssd_chunk", 0))
     # The row race serves both paths: its launches are the sum.
     log(f"gls_row_race launches: kv_fused serves {counts['gls_row_race']}, "
         f"reprefill serve {ssm_counts.get('gls_row_race', 0)}")

@@ -3,7 +3,14 @@ it -- the port's counterpart of ``repro/kernels/ssd_chunk/ops.py``.
 
 ``ssd_chunk`` launches the CUDA kernel for a CUDA tensor and takes the
 plain version for a CPU tensor (``kernels/mode.py``); it adds one to
-``launch_counts["ssd_chunk"]`` where it launches the kernel.
+``launch_counts["ssd_chunk"]`` where it launches the kernel.  It is a
+``torch.autograd.Function``, so training differentiates through it: the
+forward output on the card always comes from the kernel, and the
+backward is the vector-Jacobian product of the same function, taken by
+autograd through ``ssd_chunk_plain`` recomputed on the saved inputs
+(torch ops).  The JAX package has no backward kernel to port: its
+Pallas ``ssd_chunk`` has no ``custom_vjp``, and JAX trains Mamba-2
+through the jnp ``ssd_chunked`` (``repro/models/mamba2.py:98``).
 ``ssd_chunked`` is the drop-in twin of ``models/mamba2.py::ssd_chunked``
 (``ssd_chunked_kernel`` in the JAX package): the intra-chunk work in
 ``ssd_chunk``, the O(chunks) inter-chunk recurrence as a loop over
@@ -21,13 +28,7 @@ from repro_torch.kernels.mode import aligned16, launch_counts, use_kernel
 from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_plain
 
 
-def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-              b_in: torch.Tensor, c_in: torch.Tensor):
-    """x: (B, NC, Q, H, P); dt: (B, NC, Q, H); a: (H,); b_in/c_in:
-    (B, NC, Q, N), all f32 -> (y_intra (B, NC, Q, H, P), states
-    (B, NC, H, P, N), total (B, NC, H)).  The two routes agree to float32
-    summation order; the kernel is built for the Mamba-2 tile Q = 64,
-    P = 64, N = 128 and rejects any other."""
+def _forward(x, dt, a, b_in, c_in):
     if not use_kernel(x):
         return ssd_chunk_plain(x, dt, a, b_in, c_in)
     from repro_torch.kernels.build import load_kernels
@@ -36,6 +37,46 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                                        for t in (x, dt, a, b_in, c_in)))
     launch_counts["ssd_chunk"] += 1
     return y, states, total
+
+
+class _SSDChunk(torch.autograd.Function):
+    """The kernel (or, on a CPU tensor, the plain version) forward; the
+    backward recomputes ``ssd_chunk_plain`` on the saved inputs and
+    takes its vector-Jacobian product with ``torch.autograd.grad``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_in, c_in):
+        ctx.save_for_backward(x, dt, a, b_in, c_in)
+        return _forward(x, dt, a, b_in, c_in)
+
+    @staticmethod
+    def backward(ctx, *grads_out):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        if not wanted:
+            return (None,) * len(inputs)
+        with torch.enable_grad():
+            outs = ssd_chunk_plain(*inputs)
+        pairs = [(o, g) for o, g in zip(outs, grads_out)
+                 if g is not None and o.requires_grad]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs],
+                                         wanted, [g for _, g in pairs],
+                                         allow_unused=True))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs)
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+              b_in: torch.Tensor, c_in: torch.Tensor):
+    """x: (B, NC, Q, H, P); dt: (B, NC, Q, H); a: (H,); b_in/c_in:
+    (B, NC, Q, N), all f32 -> (y_intra (B, NC, Q, H, P), states
+    (B, NC, H, P, N), total (B, NC, H)).  The two routes agree to float32
+    summation order; the kernel is built for the Mamba-2 tile Q = 64,
+    P = 64, N = 128 and rejects any other.  Differentiable: the
+    backward is torch ops over the plain version (the module
+    docstring)."""
+    return _SSDChunk.apply(x, dt, a, b_in, c_in)
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -11,7 +11,7 @@ from repro_torch.models.cache_pool import (
     PagePoolExhausted,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import params_from_jax, vae_params_from_jax
 from repro_torch.models.registry import (
     decode_step,
     forward,
@@ -43,6 +43,7 @@ __all__ = [
     "prefill",
     "prefill_slots",
     "prefill_slots_paged",
+    "vae_params_from_jax",
     "verify_step_slots",
     "verify_step_slots_paged",
 ]

@@ -6,8 +6,10 @@ leading layer axis (the hybrid's ``units`` with a leading unit axis, its
 recurrent blocks with a second, ``extra_rec`` with one), matmul weights
 in ``(in, out)`` layout, ``embed``/``lm_head`` at ``padded_vocab`` --
 and returns the port's parameter dict, so both packages compute the same
-function in the tests.  No JAX import: the caller converts leaves with
-``np.asarray``.
+function in the tests.  ``vae_params_from_jax`` carries the beta-VAE
+codec's tree (``compression/vae.py``: plain nested dicts, OIHW conv and
+``(in, out)`` dense weights in both packages) leaf for leaf.  No JAX
+import: the caller converts leaves with ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -68,3 +70,11 @@ def params_from_jax(tree: dict, device=None) -> dict:
         "final_norm": {"scale": _t(tree["final_norm"]["scale"], device)},
         "lm_head": _t(tree["lm_head"], device),
     }
+
+
+def vae_params_from_jax(tree: dict, device=None) -> dict:
+    """The VAE codec's nested dict of leaves as tensors on ``device``
+    (``None``: the card)."""
+    from repro_torch.optim import tree_map
+    device = resolve_device(device)
+    return tree_map(lambda a: _t(a, device), tree)

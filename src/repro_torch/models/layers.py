@@ -38,6 +38,18 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype,
     return w.mul_(0.02).to(dtype)
 
 
+def remat(fn, on: bool, *args):
+    """``fn(*args)``, rematerialized on the backward pass when ``on`` and
+    autograd is recording: ``torch.utils.checkpoint`` with
+    ``use_reentrant=False``, the counterpart of ``scan_blocks``'
+    ``jax.checkpoint`` per layer (``repro/models/stack.py:35``).  It
+    changes memory, not numbers."""
+    if on and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def dense(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w``, or the W8A8 ``qdot`` for a ``{"q", "s"}`` weight
     (``serving.quant.quantize_params``), so every layer serves both

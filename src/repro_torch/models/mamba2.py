@@ -166,12 +166,21 @@ def _logits(params, cfg, x):
     return x @ params["lm_head"]
 
 
-def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, Vpad) (``mamba2.py:232``); one
-    ``ssd_chunk`` launch per layer on the card."""
+def _block_train(p, x, cfg: ModelConfig):
+    return _block_apply(p, x, cfg)[0]
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict, *,
+            remat: bool = True, return_hidden: bool = False) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, Vpad), or with ``return_hidden``
+    the final normed hidden state (``mamba2.py:232``); one ``ssd_chunk``
+    launch per layer on the card, and one more per layer on the backward
+    pass under ``remat`` (the layer's recomputation)."""
     x = params["embed"][batch["tokens"].to(torch.int64)]
     for p in params["layers"]:
-        x, _, _ = _block_apply(p, x, cfg)
+        x = L.remat(_block_train, remat, p, x, cfg)
+    if return_hidden:
+        return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x)
 
 

@@ -145,13 +145,22 @@ def _moe_residual(p, cfg, x, cf):
     return x + m, aux
 
 
+def _block_train(p, cfg, x, positions, chunked: bool):
+    """One layer of the full-sequence pass (``moe.py:125``): (x, the
+    layer's load-balance loss)."""
+    h, _, _ = T._self_attention(p, cfg, x, positions, chunked)
+    return _moe_residual(p, cfg, x + h, CAPACITY_FACTOR)
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
-            return_aux: bool = False, return_hidden: bool = False):
-    """Full-sequence causal pass (``moe.py:118``) at the training
+            remat: bool = True, return_aux: bool = False,
+            return_hidden: bool = False):
+    """Full-sequence causal pass (``moe.py:138``) at the training
     capacity factor: tokens (B, S) -> logits (B, S, Vpad) (the final
     normed hidden state with ``return_hidden``), and with ``return_aux``
     the mean load-balance loss over the layers.  Chunked attention above
-    2,048 tokens; the window is the config's."""
+    2,048 tokens; the window is the config's; ``remat`` recomputes each
+    layer on the backward pass."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = T._full_positions(b, s, tokens.device)
@@ -159,8 +168,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     x = T._embed(params, tokens)
     aux = torch.zeros((), device=x.device)
     for p in params["layers"]:
-        h, _, _ = T._self_attention(p, cfg, x, positions, chunked)
-        x, aux_l = _moe_residual(p, cfg, x + h, CAPACITY_FACTOR)
+        x, aux_l = L.remat(_block_train, remat, p, cfg, x, positions,
+                           chunked)
         aux = aux + aux_l
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     out = x if return_hidden else x @ params["lm_head"]

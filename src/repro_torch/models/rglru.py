@@ -221,20 +221,24 @@ def _rec_cache(cache, *idx):
     return {"conv": cache["conv"][idx], "h": cache["h"][idx]}
 
 
-def _run(params, cfg, x, positions=None, cache=None, pos=None):
-    """Every block in order; ``pos`` given: one decode step."""
+def _run(params, cfg, x, positions=None, cache=None, pos=None,
+         remat: bool = False):
+    """Every block in order; ``pos`` given: one decode step.  ``remat``
+    (the cacheless full-sequence pass of ``forward``) recomputes each
+    block on the backward pass."""
     decode = pos is not None
     units = cache["units"] if cache is not None else None
     for ui, unit in enumerate(params["units"]):
         for ri, p in enumerate(unit["rec"]):
             c = None if units is None else _rec_cache(units["rec"], ui, ri)
-            x = _rec_apply(p, cfg, x, c, decode)
+            x = L.remat(_rec_apply, remat, p, cfg, x, c, decode)
         c = None if units is None else {kk: units["attn"][kk][ui]
                                         for kk in ("k", "v")}
-        x = _attn_apply(unit["attn"], cfg, x, positions, c, pos)
+        x = L.remat(_attn_apply, remat, unit["attn"], cfg, x, positions, c,
+                    pos)
     for ei, p in enumerate(params["extra_rec"]):
         c = _rec_cache(cache["extra_rec"], ei) if cache is not None else None
-        x = _rec_apply(p, cfg, x, c, decode)
+        x = L.remat(_rec_apply, remat, p, cfg, x, c, decode)
     return x
 
 
@@ -267,13 +271,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
-            return_hidden: bool = False) -> torch.Tensor:
-    """Full-sequence pass (``rglru.py:333``): tokens (B, S) -> logits
-    (B, S, Vpad), or the final normed hidden state."""
+            remat: bool = True, return_hidden: bool = False) -> torch.Tensor:
+    """Full-sequence pass (``rglru.py:316``): tokens (B, S) -> logits
+    (B, S, Vpad), or the final normed hidden state; ``remat`` recomputes
+    each block on the backward pass."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = T._embed(params, tokens)
-    x = _run(params, cfg, x, T._full_positions(b, s, tokens.device))
+    x = _run(params, cfg, x, T._full_positions(b, s, tokens.device),
+             remat=remat)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x if return_hidden else x @ params["lm_head"]
 

@@ -180,11 +180,20 @@ def _full_positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None, None, :].expand(b, 1, s)
 
 
+def _block_train(p, cfg, x, positions, chunked: bool):
+    """One layer of the full-sequence pass (``transformer.py:77``)."""
+    h, _, _ = _self_attention(p, cfg, x, positions, chunked)
+    return _mlp_residual(p, cfg, x + h)
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
-            chunked: Optional[bool] = None) -> torch.Tensor:
+            remat: bool = True, chunked: Optional[bool] = None,
+            return_hidden: bool = False) -> torch.Tensor:
     """Full-sequence causal pass (``transformer.py:91``): tokens (B, S)
-    -> logits (B, S, Vpad).  ``chunked`` (default: S > 2,048) streams the
-    attention through ``chunked_attention``.  The reference engine
+    -> logits (B, S, Vpad), or with ``return_hidden`` the final normed
+    hidden state (B, S, d).  ``chunked`` (default: S > 2,048) streams the
+    attention through ``chunked_attention``; ``remat`` recomputes each
+    layer on the backward pass (``layers.remat``).  The reference engine
     scores its token buffers with it."""
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -193,8 +202,9 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     positions = _full_positions(b, s, tokens.device)
     x = _embed(params, tokens)
     for p in params["layers"]:
-        h, _, _ = _self_attention(p, cfg, x, positions, chunked)
-        x = _mlp_residual(p, cfg, x + h)
+        x = L.remat(_block_train, remat, p, cfg, x, positions, chunked)
+    if return_hidden:
+        return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x)
 
 

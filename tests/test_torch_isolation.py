@@ -1,7 +1,8 @@
 """The port stands alone: every module of ``repro_torch`` imports with JAX
-made unimportable and loads nothing of the JAX package ``repro``; its
-entry points refuse to run on the CPU unless asked to; ``chip_smoke.py``
-fails, printing no result, where there is no card."""
+and ``msgpack`` made unimportable and loads nothing of the JAX package
+``repro``; its entry points (the engine, the trainer, the VAE's
+training and evaluation) refuse to run on the CPU unless asked to;
+``chip_smoke.py`` fails, printing no result, where there is no card."""
 
 import os
 import subprocess
@@ -27,6 +28,7 @@ def test_every_module_imports_without_jax_or_repro():
     res = _run("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None          # any `import jax` now fails
+        sys.modules["msgpack"] = None      # the card's machine has none
         import repro_torch
         names = ["repro_torch"] + [
             m.name for m in pkgutil.walk_packages(repro_torch.__path__,
@@ -37,6 +39,7 @@ def test_every_module_imports_without_jax_or_repro():
                         if m == "repro" or m.startswith("repro."))
         assert not leaked, leaked
         assert not any(m.startswith("jax.") for m in sys.modules)
+        assert not any(m.startswith("msgpack.") for m in sys.modules)
         import torch
         assert torch.backends.cuda.matmul.allow_tf32 is False
         assert torch.backends.cudnn.allow_tf32 is False
@@ -69,6 +72,38 @@ def test_engine_without_device_refuses_cpu():
     assert eng.device.type == "cpu"
     out = eng.generate(torch.tensor([0, 3]), np.array([1, 2, 3]), max_new=4)
     assert len(out.output) == 4
+
+
+def test_training_entry_points_without_device_refuse_cpu():
+    """``train``, ``train_vae`` and ``evaluate_rd`` with ``device=None``
+    mean the card; without one they raise before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    from repro_torch import random as R
+    from repro_torch.compression import VAETrainConfig, evaluate_rd, train_vae
+    from repro_torch.configs import get_config
+    from repro_torch.data import digits_dataset, lm_dataset
+    from repro_torch.models import init_params
+    from repro_torch.train import TrainConfig, train
+    cfg = get_config("smollm-360m").reduced()
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    ds = lm_dataset(2, 16, cfg.vocab_size, num_sentences=50)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(params, cfg, TrainConfig(total_steps=1), ds)
+    imgs, _ = digits_dataset(8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_vae(R.PRNGKey(0), imgs, VAETrainConfig(steps=1))
+    vae = train_vae(R.PRNGKey(0), imgs, VAETrainConfig(steps=1, batch=4),
+                    device="cpu", log=lambda *_: None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_rd(R.PRNGKey(1), vae, imgs, n_atoms=16, l_max=2, k=1,
+                    trials=2)
+    got = evaluate_rd(R.PRNGKey(1), vae, imgs, n_atoms=16, l_max=2, k=1,
+                      trials=2, device="cpu")
+    assert got["rate_bits"] == 1.0
+    _, hist = train(params, cfg, TrainConfig(total_steps=1), ds,
+                    device="cpu", log=lambda *_: None)
+    assert np.isfinite(hist[0]["loss"])
 
 
 def test_chip_smoke_fails_without_card(tmp_path):
