@@ -181,6 +181,32 @@ when the port's sources are not beside this file.  Phases:
      phase 4q's two quant rates (the int8 arenas' held within 0.2 of
      float32's, the served quant path's logged).  The pair
      is freed before phase 5;
+  encdec_vlm: the encoder-decoder and VLM families through the
+     registry's ``forward``, ``prefill`` and ``decode_step`` and the
+     trainer's ``lm_loss`` (after phases giants, moe and hybrid), every
+     leaf that is zero at init (LayerNorm and MLP biases, the cross
+     gates) set nonzero from the seed first.  (a) whisper-small at its
+     published widths and depth (12 + 12 layers, d_model 768, 12 heads
+     of 64, vocab 51,865 padded to 51,968), 4 rows of 1,500 stub frames:
+     ``prefill`` of 4 tokens + 60 ``decode_step`` calls, and of 384 + 64
+     (the last step writes slot 447, the self-cache's last), each step's
+     logits against one ``forward`` within 2e-3; ``encode`` at 4,096
+     frames (chunked attention) against the dense route within 1e-4.
+     (b) llama-3.2-vision-11b at its published widths and depth (40
+     layers: 8 units of 4 self-attention blocks and a gated cross block;
+     32 heads over 8 KV heads of 128, d_ff 14,336, vocab 128,256; 9.78e9
+     parameters, 39.1 GB), 2 rows, 1,600 stub image tokens: ``prefill``
+     of 64 tokens + 32 steps against ``forward`` within 2e-3, the peak
+     device memory logged.  (c) ``make_train_step`` on the card:
+     whisper-small 10 steps (warmup 2), batch 8 x 384 decoder tokens
+     over 1,500 frames (the tied head through ``chunked_ce``): finite
+     losses and grad norms, the last 5 losses' mean below step 0's;
+     llama-3.2-vision-11b cut to one unit (5 layers, 2.14e9 parameters),
+     3 steps at batch 2 x 256 tokens through ``chunked_ce``: finite
+     losses and grad norms; step walls and peak memory logged; both
+     reduced configs card against CPU as phase train's (1e-5).  No
+     kernel of the port may launch in the phase (JAX routes none for
+     these families); its parts' walls are logged;
   5. compress: the Gaussian Wyner-Ziv experiment (``run_experiment``,
      backend "kernel") at the full compression shape -- 2048 trials in
      chunks of B = 512, N = 2^16 atoms, K = 4 decoders, l_max = 64 --
@@ -244,7 +270,8 @@ when the port's sources are not beside this file.  Phases:
 
 Each of the paths of phases 3, 3q, rs, kv, paged, diverse, granite, 5,
 train, vae, 6 and 7 is driven with the launch counts set to 0 just
-before it and read just after; the ``kernels`` line reports each
+before it and read just after (phase encdec_vlm's too, which must read
+none); the ``kernels`` line reports each
 kernel's launches from its own paths (``gls_row_race``: the sum over the float32 kv_fused serves of
 smollm-360m and granite-8b, the kv serves, the paged serves, the gls
 serves of phase diverse and the reprefill serve; ``decode_attention``
@@ -340,6 +367,26 @@ GIANT_LONG_T = 4096
 # forward's training capacity factor, other groups), not a port fault.
 MIXTRAL_LAYERS, MIXTRAL_PREFILL, WINDOW_DECODES = 2, 4166, 8
 HYBRID_PREFILL = 2100
+# Phase encdec_vlm: whisper-small (12 + 12 layers) and
+# llama-3.2-vision-11b (40 layers) at their published widths, every leaf
+# that is zero at init (LayerNorm and MLP biases, the cross blocks'
+# gates: tanh(0) = 0 would cut the cross block out) set nonzero from the
+# seed.  whisper: 4 rows of 1,500 frames (its 30-s window), (prefill,
+# decode steps) runs whose last step writes the 448-slot self-cache's
+# last slot; its encoder at 4,096 frames chunked against dense within
+# CHUNKED_TOL.  vlm: 2 rows, 1,600 image tokens.  Decode against forward
+# within SSM_LOGIT_TOL.  Training: whisper-small 10 steps (warmup 2) at
+# batch 8 x 384 decoder tokens over 1,500 frames (384 x 51,968 logits a
+# row: the tied head through chunked_ce); the vlm cut to one unit (5
+# layers, 2.14e9 parameters) 3 steps at batch 2 x 256 tokens.
+WHISPER_ROWS, WHISPER_FRAMES, WHISPER_LONG_FRAMES = 4, 1500, 4096
+WHISPER_RUNS = ((4, 60), (384, 64))
+VLM_ROWS, VLM_PREFILL, VLM_DECODES = 2, 64, 32
+ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_WARMUP = 10, 2
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 8, 384
+VLM_TRAIN_STEPS, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 3, 2, 256
+CHUNKED_TOL = 1e-4
+ZERO_AT_INIT = ("bias", "b_in", "b_out", "gate_attn", "gate_mlp")
 # Phase train: smollm-360m and mamba2-370m at published widths, batch x
 # seq from lm_dataset; the card against the CPU at smollm's reduced()
 # config within TRAIN_CPU_TOL; ssd_chunk's gradient at the mamba2 shape
@@ -2625,22 +2672,24 @@ def phase_gls(torch, dev):
 
 
 def train_steps(torch, step_fn, params, opt, batches, dev, counted=None):
-    """``step_fn`` over ``batches`` (numpy), each step synchronised and
-    timed; with ``counted`` the launches of that kernel a step.  Returns
-    (params, opt, per-step metrics as floats)."""
+    """``step_fn`` over ``batches`` (numpy, or tensors already on
+    ``dev``), each step synchronised and timed; with ``counted`` the
+    launches of that kernel a step (the launch counts are read, not
+    reset).  Returns (params, opt, per-step metrics as floats)."""
     from repro_torch.device import to_device
-    from repro_torch.kernels.mode import launch_counts, reset_launch_counts
+    from repro_torch.kernels.mode import launch_counts
     out = []
     for b in batches:
-        batch = {k: to_device(v, dev) for k, v in b.items()}
-        reset_launch_counts()
+        batch = {k: v if isinstance(v, torch.Tensor) else to_device(v, dev)
+                 for k, v in b.items()}
+        before = launch_counts.get(counted, 0)
         t0 = time.perf_counter()
         params, opt, m = step_fn(params, opt, batch)
         torch.cuda.synchronize()
         m = {k: float(v) for k, v in m.items()}
         m["ms"] = (time.perf_counter() - t0) * 1e3
         if counted:
-            m["launches"] = launch_counts.get(counted, 0)
+            m["launches"] = launch_counts.get(counted, 0) - before
         out.append(m)
     return params, opt, out
 
@@ -2688,21 +2737,28 @@ def train_full(torch, dev, arch: str, steps: int, warmup: int, smi: str,
     return hist, peak
 
 
-def train_card_vs_cpu(torch, dev):
+def train_card_vs_cpu(torch, dev, arch: str = "smollm-360m",
+                      batches=None, prepare=None):
     """Two ``make_train_step`` steps (warmup 1: step 0's lr is 0) of
-    smollm-360m's reduced config from the same params and batches on the
-    card and on the CPU: losses, the first step's gradients and the
-    params after step 2 within ``TRAIN_CPU_TOL``."""
+    ``arch``'s reduced config from the same params and batches (numpy;
+    default ``_batches``) on the card and on the CPU: losses, the first
+    step's gradients and the params after step 2 within
+    ``TRAIN_CPU_TOL``.  ``prepare(params, gen)`` edits the CPU params
+    before the copy."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.optim import adam_init, tree_leaves, tree_map
     from repro_torch.train import (TrainConfig, lm_loss, make_train_step,
                                    value_and_grad)
     from repro_torch.device import to_device
-    cfg = get_config("smollm-360m").reduced()
+    cfg = get_config(arch).reduced()
     cpu = torch.device("cpu")
-    params = init_params(torch.Generator().manual_seed(SEED), cfg, cpu)
-    batches = _batches(cfg.vocab_size, 2, seed=SEED + 1)
+    gen = torch.Generator().manual_seed(SEED)
+    params = init_params(gen, cfg, cpu)
+    if prepare is not None:
+        params = prepare(params, gen)
+    if batches is None:
+        batches = _batches(cfg.vocab_size, 2, seed=SEED + 1)
     tcfg = TrainConfig(warmup=1, total_steps=2)
     got = []
     for d in (dev, cpu):
@@ -3343,6 +3399,260 @@ def phase_hybrid(torch, dev, smi: str):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase encdec_vlm: whisper-small and llama-3.2-vision-11b
+# ---------------------------------------------------------------------------
+
+
+def nonzero_init_leaves(torch, tree, gen):
+    """Every leaf named in ``ZERO_AT_INIT`` replaced by +-uniform(0.2,
+    0.8) drawn from ``gen`` on the leaf's device, in place in the dicts.
+    Returns ``tree``."""
+    if isinstance(tree, list):
+        for t in tree:
+            nonzero_init_leaves(torch, t, gen)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            if k in ZERO_AT_INIT:
+                mag = torch.rand(v.shape, generator=gen, device=v.device)
+                sign = torch.randint(0, 2, v.shape, generator=gen,
+                                     device=v.device) * 2 - 1
+                tree[k] = ((0.2 + 0.6 * mag) * sign).to(v.dtype)
+            else:
+                nonzero_init_leaves(torch, v, gen)
+    return tree
+
+
+def family_model(torch, dev, arch: str, **replace):
+    """``arch`` at its published widths (``replace``: the config's cuts)
+    on the card from the seed, its zero-at-init leaves made nonzero:
+    (params, cfg)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(arch).replace(**replace)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = nonzero_init_leaves(torch, init_params(gen, cfg, dev), gen)
+    n = sum(x.numel() for x in _leaves(params))
+    log(f"{arch}: {cfg.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder layers"
+           if cfg.family == "encdec" else "")
+        + f" at published widths ({n / 1e9:.3f}e9 parameters, "
+        f"{4 * n / 1e9:.2f} GB)")
+    return params, cfg
+
+
+def stub_inputs(torch, dev, cfg, rows: int, n: int, seed: int):
+    """The stubbed frontend's embeddings: whisper's frames (rows, n, d)
+    or the vlm's image patches (rows, num_image_tokens, d), normal from
+    ``seed`` on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    key, length = (("frames", n) if cfg.family == "encdec"
+                   else ("images", cfg.num_image_tokens))
+    return {key: torch.randn((rows, length, cfg.d_model), generator=gen,
+                             device=dev)}
+
+
+def decode_vs_forward(torch, dev, params, cfg, stub: dict, n_prefill: int,
+                      steps: int, what: str) -> float:
+    """``prefill`` of ``n_prefill`` tokens and ``steps`` ``decode_step``
+    calls against one ``forward`` over all the tokens with the same stub
+    inputs: the max abs logit error, held to SSM_LOGIT_TOL."""
+    from repro_torch.models import decode_step, forward, init_cache, prefill
+    rows = next(iter(stub.values())).shape[0]
+    n = n_prefill + steps
+    toks = torch.from_numpy(np.random.default_rng(SEED + 31).integers(
+        0, cfg.vocab_size, (rows, n)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        full = forward(params, cfg, {"tokens": toks, **stub})
+        cache = init_cache(cfg, rows, next(iter(stub.values())).shape[1]
+                           if cfg.family == "encdec" else n, dev)
+        lg, cache = prefill(params, cfg, {"tokens": toks[:, :n_prefill],
+                                          **stub}, cache)
+        errs = [float((lg - full[:, n_prefill - 1]).abs().max())]
+        for i in range(n_prefill, n):
+            lg, cache = decode_step(params, cfg, toks[:, i:i + 1], cache)
+            errs.append(float((lg - full[:, i]).abs().max()))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(full).all()), f"{what}: non-finite logits"
+    assert cache["pos"] == n, (what, cache["pos"])
+    log(f"{what}: prefill({n_prefill}) + {steps} decode steps vs "
+        f"forward({n}) over {rows} rows: max abs logit err {max(errs):.3g} "
+        f"(max |logit| {float(full.abs().max()):.3g}; tolerance "
+        f"{SSM_LOGIT_TOL})")
+    assert max(errs) <= SSM_LOGIT_TOL, (what, errs)
+    return max(errs)
+
+
+def phase_whisper(torch, dev, smi: str) -> dict:
+    """(a) whisper-small at published widths and depth: the two decode
+    runs against ``forward``, the chunked encoder against dense."""
+    from repro_torch.models import encdec as E
+    params, cfg = family_model(torch, dev, "whisper-small")
+    stub = stub_inputs(torch, dev, cfg, WHISPER_ROWS, WHISPER_FRAMES,
+                       SEED + 32)
+    errs = []
+    for n_prefill, steps in WHISPER_RUNS:
+        assert n_prefill + steps <= cfg.max_decoder_len
+        errs.append(decode_vs_forward(torch, dev, params, cfg, stub,
+                                      n_prefill, steps, "whisper-small"))
+    long = stub_inputs(torch, dev, cfg, 2, WHISPER_LONG_FRAMES,
+                       SEED + 33)["frames"]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        chunked = E.encode(params, cfg, long)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dense = E.encode(params, cfg, long, chunked=False)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    err = float((chunked - dense).abs().max())
+    log(f"whisper-small encode at {WHISPER_LONG_FRAMES} frames x 2 rows "
+        f"[{smi}]: chunked vs dense attention max abs err {err:.3g} "
+        f"(tolerance {CHUNKED_TOL}; wall ms chunked {(t1 - t0) * 1e3:.2f}, "
+        f"dense {(t2 - t1) * 1e3:.2f})")
+    assert bool(torch.isfinite(chunked).all()) and err <= CHUNKED_TOL, err
+    del params, stub, long, chunked, dense
+    gc_collect(torch)
+    return {"whisper_decode_err": max(errs), "whisper_chunked_err": err}
+
+
+def phase_vision(torch, dev, smi: str) -> dict:
+    """(b) llama-3.2-vision-11b at published widths and full depth:
+    decode against ``forward``, the peak device memory."""
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg = family_model(torch, dev, "llama-3.2-vision-11b")
+    stub = stub_inputs(torch, dev, cfg, VLM_ROWS, 0, SEED + 34)
+    err = decode_vs_forward(torch, dev, params, cfg, stub, VLM_PREFILL,
+                            VLM_DECODES, "llama-3.2-vision-11b")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"llama-3.2-vision-11b [{smi}]: peak device memory {peak:.2f} GiB")
+    del params, stub
+    gc_collect(torch)
+    return {"vlm_decode_err": err, "vlm_peak_gib": peak}
+
+
+def family_batches(torch, dev, cfg, n: int, batch: int, seq: int,
+                   stub_len: int, seed: int):
+    """``n`` training batches: ``lm_dataset`` tokens and targets plus
+    the stub inputs, on the card."""
+    from repro_torch.data import lm_dataset
+    from repro_torch.device import to_device
+    ds = iter(lm_dataset(batch, seq, cfg.vocab_size, seed=seed))
+    return [{**{k: to_device(v, dev) for k, v in next(ds).items()},
+             **stub_inputs(torch, dev, cfg, batch, stub_len, seed + i)}
+            for i in range(n)]
+
+
+def train_family(torch, dev, params, cfg, steps: int, warmup: int,
+                 batches, smi: str, what: str):
+    """``steps`` AdamW steps of ``make_train_step`` on the card: the
+    per-step metrics (every loss and grad norm finite) and the peak
+    device memory (GiB)."""
+    from repro_torch.optim import adam_init
+    from repro_torch.train import TrainConfig, make_train_step
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(cfg, TrainConfig(total_steps=steps,
+                                               warmup=warmup))
+    _, _, hist = train_steps(torch, step_fn, params, adam_init(params),
+                             batches, dev)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = sorted(m["ms"] for m in hist[1:])
+    log(f"train {what} [{smi}]: losses "
+        + " ".join(f"{m['loss']:.4f}" for m in hist)
+        + f"; grad norms {hist[0]['grad_norm']:.4g} .. "
+        f"{hist[-1]['grad_norm']:.4g}; step wall ms median "
+        f"{statistics.median(ms):.2f} (min {ms[0]:.2f}, max {ms[-1]:.2f}; "
+        f"first step {hist[0]['ms']:.2f}); peak device memory "
+        f"{peak:.2f} GiB")
+    for m in hist:
+        assert math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]), m
+    return hist, peak
+
+
+def reduced_family_batches(cfg, seed: int):
+    """Two numpy batches of ``cfg``'s reduced model for
+    ``train_card_vs_cpu``: 2 x 64 tokens, and 128 frames or the image
+    tokens."""
+    from repro_torch.data import lm_dataset
+    ds = iter(lm_dataset(2, 64, cfg.vocab_size, seed=seed,
+                         num_sentences=200))
+    rng = np.random.default_rng(seed)
+    n = 128 if cfg.family == "encdec" else cfg.num_image_tokens
+    key = "frames" if cfg.family == "encdec" else "images"
+    return [{**next(ds), key: rng.normal(size=(2, n, cfg.d_model))
+             .astype(np.float32)} for _ in range(2)]
+
+
+def phase_family_train(torch, dev, smi: str) -> dict:
+    """(c) training: whisper-small at published widths (falling loss),
+    the vlm cut to one unit (finite losses and grads), both reduced
+    configs card against CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.loop import CHUNKED_CE_THRESHOLD
+    params, cfg = family_model(torch, dev, "whisper-small")
+    # The tied head goes through chunked_ce.
+    assert ENCDEC_TRAIN_SEQ * cfg.padded_vocab > CHUNKED_CE_THRESHOLD
+    batches = family_batches(torch, dev, cfg, ENCDEC_TRAIN_STEPS,
+                             ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ,
+                             WHISPER_FRAMES, SEED + 35)
+    hist, w_peak = train_family(
+        torch, dev, params, cfg, ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_WARMUP,
+        batches, smi, f"whisper-small (batch {ENCDEC_TRAIN_BATCH} x "
+        f"{ENCDEC_TRAIN_SEQ} tokens, {WHISPER_FRAMES} frames, "
+        f"{ENCDEC_TRAIN_STEPS} steps, warmup {ENCDEC_TRAIN_WARMUP})")
+    first, last5 = hist[0]["loss"], [m["loss"] for m in hist[-5:]]
+    assert statistics.mean(last5) < first, (first, last5)
+    del params, batches
+    gc_collect(torch)
+    n_units_cut = 1
+    vcfg = get_config("llama-3.2-vision-11b")
+    params, vcfg = family_model(
+        torch, dev, "llama-3.2-vision-11b",
+        num_layers=n_units_cut * vcfg.cross_attn_period)
+    batches = family_batches(torch, dev, vcfg, VLM_TRAIN_STEPS,
+                             VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, 0, SEED + 36)
+    vhist, v_peak = train_family(
+        torch, dev, params, vcfg, VLM_TRAIN_STEPS, 1, batches, smi,
+        f"llama-3.2-vision-11b cut to one unit ({vcfg.num_layers} layers; "
+        f"batch {VLM_TRAIN_BATCH} x {VLM_TRAIN_SEQ} tokens, "
+        f"{vcfg.num_image_tokens} image tokens, {VLM_TRAIN_STEPS} steps)")
+    del params, batches
+    gc_collect(torch)
+    for arch in ("whisper-small", "llama-3.2-vision-11b"):
+        cfg = get_config(arch).reduced()
+        train_card_vs_cpu(
+            torch, dev, arch, reduced_family_batches(cfg, SEED + 37),
+            prepare=lambda p, g: nonzero_init_leaves(torch, p, g))
+    return {"whisper_step_ms": statistics.median(m["ms"] for m in hist[1:]),
+            "whisper_train_peak_gib": w_peak,
+            "vlm_step_ms": statistics.median(m["ms"] for m in vhist[1:]),
+            "vlm_train_peak_gib": v_peak}
+
+
+def phase_encdec_vlm(torch, dev, smi: str) -> dict:
+    """Phase encdec_vlm (module docstring): (a) ``phase_whisper``, (b)
+    ``phase_vision``, (c) ``phase_family_train``.  JAX routes no kernel
+    for these families, so none of the port's kernels may launch: the
+    launch counts are set to 0 before and read after.  Returns the
+    phase's launches (none) and its readings."""
+    from repro_torch.kernels.mode import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    readings = {}
+    for part in (phase_whisper, phase_vision, phase_family_train):
+        t0 = time.perf_counter()
+        readings.update(part(torch, dev, smi))
+        readings[part.__name__ + "_s"] = time.perf_counter() - t0
+    launched = {k: n for k, n in launch_counts.items() if n}
+    log(f"phase encdec_vlm: kernel launches {launched} (want none); parts "
+        + ", ".join(f"{k} {v:.1f}" for k, v in readings.items()
+                    if k.endswith("_s")))
+    assert not launched, launched
+    return {}, readings
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3513,6 +3823,12 @@ def main() -> int:
             f"line): {fam_counts}")
         add_counts(counts, fam_counts)
         log(f"phase {name}: {time.perf_counter() - t0:.1f}s")
+
+    # Phase encdec_vlm: whisper-small and llama-3.2-vision-11b through
+    # the registry and the trainer; no kernel launches.
+    t0 = time.perf_counter()
+    phase_encdec_vlm(torch, dev, smi)
+    log(f"phase encdec_vlm: {time.perf_counter() - t0:.1f}s (budget 60 s)")
 
     # Phase 5: Wyner-Ziv compression through the binned race kernel.
     t0 = time.perf_counter()

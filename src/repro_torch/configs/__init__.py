@@ -1,7 +1,6 @@
-"""Architecture registry of the port (``--arch <id>``): the dense, MoE,
-SSM and hybrid configurations of the JAX registry, and the paper-scale
-spec-dec pair.  whisper-small and llama-3.2-vision-11b (the encdec and
-vlm families) wait for their slice (ROADMAP queue 1, item 15b)."""
+"""Architecture registry of the port (``--arch <id>``): the ten
+configurations of the JAX registry (dense, MoE, SSM, hybrid, encdec and
+vlm), and the paper-scale spec-dec pair."""
 
 from __future__ import annotations
 
@@ -18,6 +17,8 @@ _MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "mixtral-8x22b": "mixtral_8x22b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "whisper-small": "whisper_small",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

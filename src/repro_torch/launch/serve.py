@@ -92,8 +92,14 @@ def draw_prompts(n: int, vocab: int, min_len: int, max_len: int,
 def check_cache_mode(arch: str, cache_mode: str) -> None:
     """The cached engines serve the dense family only (as in JAX, whose
     ``engine_cached.py`` asserts it); the ssm, moe and hybrid families
-    need reprefill."""
+    need reprefill.  No engine serves encdec or vlm: their ``forward``
+    needs frames or images, and the engines pass tokens only, as JAX's
+    do."""
     family = get_config(arch).family
+    if family in ("encdec", "vlm"):
+        raise ValueError(
+            f"--arch {arch} is an {family} model: no serving engine passes "
+            "its frames or images")
     if cache_mode != "reprefill" and family != "dense":
         raise ValueError(
             f"--arch {arch} is a {family} model: the {cache_mode} engine "

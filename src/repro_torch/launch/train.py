@@ -9,7 +9,10 @@ the CPU rehearsal: ``--reduced --device cpu --steps 2``).  Weights are
 random from ``--seed``; batches come from ``data.lm_dataset``.  Runs on
 the card unless ``--device cpu``, on one device (no mesh: ROADMAP item
 17), and prints the loss every ``log_every`` steps.  Decoder-only
-families only, as JAX's launcher.
+families only, as JAX's launcher (``repro/launch/train.py:45-46``):
+whisper-small and llama-3.2-vision-11b are refused (their batches need
+frames or images, which ``lm_dataset`` does not make); the trainer
+itself takes them (``train.make_train_step``).
 """
 
 from __future__ import annotations

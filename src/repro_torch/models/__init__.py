@@ -1,6 +1,8 @@
 """Model code of the port: the dense family (``transformer.py``), the
 MoE family (``moe.py``), Mamba-2 (``mamba2.py``), the RG-LRU hybrid
-(``rglru.py``) and the family registry (``registry.py``), whose
+(``rglru.py``), the Whisper encoder-decoder (``encdec.py``), the
+Llama-3.2-Vision VLM (``vlm.py``) and the family registry
+(``registry.py``), whose
 dispatching ``init_params``/``forward``/``init_cache``/``prefill``/
 ``decode_step`` are this package's, the slot arenas (``cache_pool.py``,
 contiguous and paged) and the paged storage (``paged.py``)."""

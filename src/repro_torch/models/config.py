@@ -1,8 +1,7 @@
-"""Model configuration for the port: the dense, MoE, SSM and hybrid
-subset of the JAX package's ``models/config.py::ModelConfig`` (same
-field names, same derived sizes, the same ``reduced()`` smoke variants),
-with ``dtype`` kept as a string and resolved to a torch dtype on
-demand."""
+"""Model configuration for the port: the JAX package's
+``models/config.py::ModelConfig`` (the same six families, field names,
+derived sizes and ``reduced()`` smoke variants), with ``dtype`` kept as
+a string and resolved to a torch dtype on demand."""
 
 from __future__ import annotations
 
@@ -14,10 +13,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-# The JAX package's other families, ported with their registry entries
-# later (ROADMAP queue 1, item 15b).
-_LATER = ("encdec", "vlm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -29,7 +25,9 @@ class ModelConfig:
     """A dense llama-family decoder (GQA + RoPE + SwiGLU + RMSNorm, an
     optional sliding window), its mixture-of-experts variant
     (``family="moe"``), a Mamba-2 SSM (``family="ssm"``, attention-free:
-    ``num_heads`` 0) or the RG-LRU hybrid (``family="hybrid"``).
+    ``num_heads`` 0), the RG-LRU hybrid (``family="hybrid"``), the
+    Whisper encoder-decoder (``family="encdec"``) or the Llama-3.2-Vision
+    decoder with gated cross-attention (``family="vlm"``).
 
     ``padded_vocab`` rounds the embedding/logit dim up to a multiple of
     256 exactly as the JAX config does, so converted parameter trees
@@ -62,6 +60,14 @@ class ModelConfig:
     pattern_rec: int = 0
     local_window: int = 0
     lru_width: int = 0
+    # Encoder-decoder (whisper): encoder depth; the decoder's positions
+    # and self-cache stop at `max_decoder_len`.
+    encoder_layers: int = 0
+    max_decoder_len: int = 448
+    # VLM (llama-3.2-vision): one gated cross-attention layer closes every
+    # `cross_attn_period` layers; the stubbed image patch embeddings.
+    cross_attn_period: int = 0
+    num_image_tokens: int = 0
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
 
@@ -90,10 +96,6 @@ class ModelConfig:
         return _DTYPES[self.dtype]
 
     def __post_init__(self):
-        if self.family in _LATER:
-            raise ValueError(
-                f"{self.name}: the {self.family} family is not ported yet "
-                "(ROADMAP queue 1, item 15b)")
         if self.family not in FAMILIES:
             raise ValueError(f"unknown family {self.family!r}")
         if self.family != "ssm" and self.num_heads <= 0:
@@ -132,6 +134,11 @@ class ModelConfig:
         if self.family == "hybrid":
             kw.update(num_layers=3, local_window=64,
                       lru_width=min(self.lru_width or self.d_model, 256))
+        if self.family == "encdec":
+            kw.update(encoder_layers=2, max_decoder_len=64)
+        if self.family == "vlm":
+            kw.update(num_layers=5, cross_attn_period=self.cross_attn_period,
+                      num_image_tokens=16)
         if self.sliding_window:
             kw.update(sliding_window=64)
         return self.replace(**kw)

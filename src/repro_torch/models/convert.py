@@ -1,12 +1,14 @@
 """Parameter conversion from the JAX package's layout.
 
-``params_from_jax`` takes a JAX parameter pytree of the dense, MoE, SSM
-or hybrid family as numpy arrays -- stacked ``layers`` leaves with a
-leading layer axis (the hybrid's ``units`` with a leading unit axis, its
-recurrent blocks with a second, ``extra_rec`` with one), matmul weights
-in ``(in, out)`` layout, ``embed``/``lm_head`` at ``padded_vocab`` --
-and returns the port's parameter dict, so both packages compute the same
-function in the tests.  ``vae_params_from_jax`` carries the beta-VAE
+``params_from_jax`` takes a JAX parameter pytree of any family as numpy
+arrays -- stacked ``layers`` leaves with a leading layer axis (the
+hybrid's ``units`` with a leading unit axis, its recurrent blocks with a
+second, ``extra_rec`` with one; the vlm's ``units`` holding ``self``
+blocks stacked over (unit, block) and one ``cross`` block per unit;
+whisper's ``encoder``/``decoder`` stacks), matmul weights in ``(in,
+out)`` layout, ``embed``/``lm_head`` at ``padded_vocab`` -- and returns
+the port's parameter dict, so both packages compute the same function in
+the tests.  ``vae_params_from_jax`` carries the beta-VAE
 codec's tree (``compression/vae.py``: plain nested dicts, OIHW conv and
 ``(in, out)`` dense weights in both packages) leaf for leaf.  No JAX
 import: the caller converts leaves with ``np.asarray``.
@@ -56,12 +58,29 @@ def _hybrid(tree, device) -> dict:
     }
 
 
-def params_from_jax(tree: dict, device=None) -> dict:
-    """The port's parameter dict on ``device`` (``None``: the card, or an
-    error when there is none; the tests pass ``"cpu"``)."""
-    device = resolve_device(device)
-    if "units" in tree:
-        return _hybrid(tree, device)
+def _vlm(tree, device) -> dict:
+    units = tree["units"]
+    n_units, n_self = _leading(units["self"]), _leading(units["self"], 1)
+    return {
+        "embed": _t(tree["embed"], device),
+        "units": [{"self": [_take(units["self"], (u, i), device)
+                            for i in range(n_self)],
+                   "cross": _take(units["cross"], u, device)}
+                  for u in range(n_units)],
+        "final_norm": {"scale": _t(tree["final_norm"]["scale"], device)},
+        "lm_head": _t(tree["lm_head"], device),
+    }
+
+
+def _encdec(tree, device) -> dict:
+    out = {k: _take(tree[k], (), device)
+           for k in ("embed", "pos_dec", "enc_norm", "dec_norm")}
+    for k in ("encoder", "decoder"):
+        out[k] = [_take(tree[k], i, device) for i in range(_leading(tree[k]))]
+    return out
+
+
+def _layers(tree, device) -> dict:
     stacked = tree["layers"]
     return {
         "embed": _t(tree["embed"], device),
@@ -70,6 +89,33 @@ def params_from_jax(tree: dict, device=None) -> dict:
         "final_norm": {"scale": _t(tree["final_norm"]["scale"], device)},
         "lm_head": _t(tree["lm_head"], device),
     }
+
+
+def tree_family(tree: dict) -> str:
+    """Which layout a JAX parameter tree has, by its keys: "encdec"
+    (``encoder`` and ``decoder``), "vlm" (``units`` of ``self`` and
+    ``cross``), "hybrid" (``units`` of ``rec`` and ``attn``) or "layers"
+    (the dense, MoE and SSM families)."""
+    if "encoder" in tree and "decoder" in tree:
+        return "encdec"
+    units = tree.get("units")
+    if units is not None and {"self", "cross"} <= units.keys():
+        return "vlm"
+    if units is not None and {"rec", "attn"} <= units.keys():
+        return "hybrid"
+    if "layers" in tree:
+        return "layers"
+    raise ValueError(f"unknown parameter tree: keys {sorted(tree)}")
+
+
+_CONVERT = {"encdec": _encdec, "vlm": _vlm, "hybrid": _hybrid,
+            "layers": _layers}
+
+
+def params_from_jax(tree: dict, device=None) -> dict:
+    """The port's parameter dict on ``device`` (``None``: the card, or an
+    error when there is none; the tests pass ``"cpu"``)."""
+    return _CONVERT[tree_family(tree)](tree, resolve_device(device))
 
 
 def vae_params_from_jax(tree: dict, device=None) -> dict:

@@ -1,6 +1,6 @@
-"""Shared layers of the attention families: RMSNorm, RoPE (split-half
-layout), GQA attention with its two kernel routes and the dense path
-(an optional sliding window), SwiGLU,
+"""Shared layers of the attention families: RMSNorm and LayerNorm, RoPE
+(split-half layout), GQA attention with its two kernel routes and the
+dense path (an optional sliding window), SwiGLU and the GELU MLP,
 the attention projections and the init helpers -- the port's
 counterpart of ``repro/models/layers.py``.
 
@@ -74,6 +74,24 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
     return (out * params["scale"].float()).to(x.dtype)
+
+
+def layernorm_params(dim: int, dtype, device) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params: dict, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 (``layers.py:79-86``): the population
+    variance, ``rsqrt(var + eps)``, then scale and bias."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    centered = x32 - mu
+    var = torch.mean(centered * centered, dim=-1, keepdim=True)
+    out = centered * torch.rsqrt(var + eps)
+    out = out * params["scale"].float() + params["bias"].float()
+    return out.to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -282,6 +300,24 @@ def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
     return dense(gate * dense(x, params["w_up"]), params["w_down"])
 
 
+def gelu_mlp_params(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+                    device) -> dict:
+    return {
+        "w_in": dense_init(gen, d_model, d_ff, dtype, device),
+        "b_in": torch.zeros((d_ff,), dtype=dtype, device=device),
+        "w_out": dense_init(gen, d_ff, d_model, dtype, device),
+        "b_out": torch.zeros((d_model,), dtype=dtype, device=device),
+    }
+
+
+def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Whisper's MLP (``layers.py:360-362``).  ``jax.nn.gelu`` defaults
+    to the tanh approximation, so this is ``approximate="tanh"``, not
+    torch's exact erf."""
+    h = F.gelu(x @ params["w_in"] + params["b_in"], approximate="tanh")
+    return h @ params["w_out"] + params["b_out"]
+
+
 def attn_params(gen: torch.Generator, d_model: int, num_heads: int,
                 kv_heads: int, head_dim: int, dtype, device) -> dict:
     return {
@@ -299,6 +335,11 @@ def project_qkv(params: dict, x: torch.Tensor, num_heads: int, kv_heads: int,
     k = dense(x, params["wk"]).reshape(b, s, kv_heads, head_dim)
     v = dense(x, params["wv"]).reshape(b, s, kv_heads, head_dim)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def split_heads(x: torch.Tensor, n: int, head_dim: int) -> torch.Tensor:
+    """(B, S, n * head_dim) -> (B, n, S, head_dim)."""
+    return x.reshape(x.shape[0], x.shape[1], n, head_dim).transpose(1, 2)
 
 
 def project_out(params: dict, attn_out: torch.Tensor) -> torch.Tensor:

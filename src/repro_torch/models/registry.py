@@ -1,5 +1,8 @@
-"""Family registry of the port: one model API over the dense, MoE, SSM
-and hybrid families -- the counterpart of ``repro/models/registry.py``.
+"""Family registry of the port: one model API over the dense, MoE, SSM,
+hybrid, encdec and vlm families -- the counterpart of
+``repro/models/registry.py``.  The encdec batch carries ``"frames"``
+(B, S_enc, d_model), the vlm batch ``"images"`` (B, num_image_tokens,
+d_model), beside ``"tokens"``.
 
   init_params(gen, cfg, device)               -> params
   forward(params, cfg, batch, **kw)           -> logits (B, S, Vpad)
@@ -16,9 +19,10 @@ from repro_torch.models.config import ModelConfig
 
 
 def family_module(cfg: ModelConfig) -> ModuleType:
-    from repro_torch.models import mamba2, moe, rglru, transformer
+    from repro_torch.models import (encdec, mamba2, moe, rglru, transformer,
+                                    vlm)
     return {"dense": transformer, "moe": moe, "ssm": mamba2,
-            "hybrid": rglru}[cfg.family]
+            "hybrid": rglru, "encdec": encdec, "vlm": vlm}[cfg.family]
 
 
 def init_params(gen, cfg: ModelConfig, device):

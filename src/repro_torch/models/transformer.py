@@ -51,22 +51,25 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 
+def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """One layer's weights (``transformer.py:34``)."""
+    dt = cfg.torch_dtype
+    return {
+        "attn_norm": L.rmsnorm_params(cfg.d_model, dt, device),
+        "attn": L.attn_params(gen, cfg.d_model, cfg.num_heads, cfg.kv_heads,
+                              cfg.resolved_head_dim, dt, device),
+        "mlp_norm": L.rmsnorm_params(cfg.d_model, dt, device),
+        "mlp": L.swiglu_params(gen, cfg.d_model, cfg.d_ff, dt, device),
+    }
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     """Random weights drawn from ``gen`` (a generator on ``device``),
     in the JAX init's distributions (normal / sqrt(fan_in); embeddings
     0.02 normal; unit norm scales)."""
     dt = cfg.torch_dtype
-    hd = cfg.resolved_head_dim
-    layers = []
     embed = L.embed_init(gen, cfg.padded_vocab, cfg.d_model, dt, device)
-    for _ in range(cfg.num_layers):
-        layers.append({
-            "attn_norm": L.rmsnorm_params(cfg.d_model, dt, device),
-            "attn": L.attn_params(gen, cfg.d_model, cfg.num_heads,
-                                  cfg.kv_heads, hd, dt, device),
-            "mlp_norm": L.rmsnorm_params(cfg.d_model, dt, device),
-            "mlp": L.swiglu_params(gen, cfg.d_model, cfg.d_ff, dt, device),
-        })
+    layers = [_block_init(gen, cfg, device) for _ in range(cfg.num_layers)]
     return {
         "embed": embed,
         "layers": layers,
@@ -219,6 +222,37 @@ def _install_prefill(leaf: torch.Tensor, new: torch.Tensor) -> None:
         leaf.copy_(torch.roll(new[:, :, s - t:], s % t, dims=2))
 
 
+def _layer_cache(cache: dict, li: int) -> dict:
+    """Layer ``li``'s views {"k", "v"} (B, Hkv, T, hd) of a cache."""
+    return {"k": cache["k"][li], "v": cache["v"][li]}
+
+
+def _block_prefill(p, cfg, x, positions, cache_l: dict, chunked: bool):
+    """One layer of the dense prefill (``transformer.py:128``): the
+    full-sequence pass, its keys and values installed in place into the
+    layer's cache views ``cache_l`` (``_install_prefill``)."""
+    h, k, v = _self_attention(p, cfg, x, positions, chunked)
+    _install_prefill(cache_l["k"], k)
+    _install_prefill(cache_l["v"], v)
+    return _mlp_residual(p, cfg, x + h)
+
+
+def _block_decode(p, cfg, x, pos: int, cache_l: dict):
+    """One layer of ``decode_step`` (``transformer.py:170``) at the shared
+    position ``pos`` (a host int): the key lands at slot ``pos % T`` of
+    the layer's cache views, the attention reads the first ``min(pos + 1,
+    T)`` keys."""
+    t = cache_l["k"].shape[2]
+    slot = pos % t
+    positions = torch.full((x.shape[0], 1, 1), pos, device=x.device)
+    q, k, v = _qkv(p, cfg, x, positions)
+    cache_l["k"][:, :, slot:slot + 1].copy_(k)
+    cache_l["v"][:, :, slot:slot + 1].copy_(v)
+    out = L.attention(q, cache_l["k"], cache_l["v"], causal=False,
+                      kv_len=min(pos + 1, t))
+    return _mlp_residual(p, cfg, x + L.project_out(p["attn"], out))
+
+
 def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict):
     """Dense prefill (``transformer.py:155``): tokens (B, S) from
     position 0 -> (last logits (B, Vpad), the cache with their keys and
@@ -228,11 +262,8 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict):
     positions = _full_positions(b, s, tokens.device)
     x = _embed(params, tokens)
     for li, p in enumerate(params["layers"]):
-        h, k, v = _self_attention(p, cfg, x, positions,
-                                  s > MAX_DENSE_FORWARD)
-        x = _mlp_residual(p, cfg, x + h)
-        _install_prefill(cache["k"][li], k)
-        _install_prefill(cache["v"][li], v)
+        x = _block_prefill(p, cfg, x, positions, _layer_cache(cache, li),
+                           s > MAX_DENSE_FORWARD)
     logits = _logits(params, cfg, x[:, -1:])[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"], "pos": s}
 
@@ -244,18 +275,9 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     cache one position on).  The key lands at ``pos % T``; the attention
     reads the first ``min(pos + 1, T)`` keys."""
     pos = int(cache["pos"])
-    t = cache["k"].shape[3]
-    slot = pos % t
-    positions = torch.full((tokens.shape[0], 1, 1), pos,
-                           device=tokens.device)
     x = _embed(params, tokens)
     for li, p in enumerate(params["layers"]):
-        q, k, v = _qkv(p, cfg, x, positions)
-        ck, cv = cache["k"][li], cache["v"][li]
-        ck[:, :, slot:slot + 1].copy_(k)
-        cv[:, :, slot:slot + 1].copy_(v)
-        out = L.attention(q, ck, cv, causal=False, kv_len=min(pos + 1, t))
-        x = _mlp_residual(p, cfg, x + L.project_out(p["attn"], out))
+        x = _block_decode(p, cfg, x, pos, _layer_cache(cache, li))
     return (_logits(params, cfg, x)[:, 0],
             {"k": cache["k"], "v": cache["v"], "pos": pos + 1})
 

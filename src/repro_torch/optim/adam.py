@@ -84,9 +84,13 @@ def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
     before clipping) (``adam.py:31``)."""
     norm = global_norm(grads)
-    scale = torch.clamp(_const(max_norm, norm)
-                        / torch.clamp(norm, min=_f32(1e-9)), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+
+
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(_const(max_norm, norm)
+                       / torch.clamp(norm, min=_f32(1e-9)), max=1.0)
 
 
 def adam_update(
@@ -102,11 +106,14 @@ def adam_update(
     max_grad_norm: Optional[float] = 1.0,
 ):
     """One AdamW step (``adam.py:37``).  Returns (new_params, new_state,
-    metrics); ``lr`` is a Python float or a 0-dim float32 tensor."""
-    if max_grad_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
-    else:
-        gnorm = global_norm(grads)
+    metrics); ``lr`` is a Python float or a 0-dim float32 tensor.  The
+    clip's scale multiplies each leaf inside the update, the product
+    ``clip_by_global_norm`` forms, so no clipped copy of the gradient
+    tree is alive beside the new parameters and moments (a 2.14e9-
+    parameter float32 tree is 8 GiB)."""
+    gnorm = global_norm(grads)
+    scale = (None if max_grad_norm is None
+             else _clip_scale(gnorm, max_grad_norm))
     step = state.step + 1
     t = step.float()
     bc1 = 1.0 - torch.pow(_f32(b1), t)
@@ -118,6 +125,8 @@ def adam_update(
     eps, wd = _f32(eps), _f32(weight_decay)
 
     def upd(p, g, m, v):
+        if scale is not None:
+            g = g * scale.to(g.dtype)
         g32 = g.float()
         m_new = c1 * m + c1m * g32
         v_new = c2 * v + c2m * g32 * g32

@@ -69,9 +69,11 @@ def _div(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _head_matrix(params, cfg: ModelConfig):
-    """The output projection (d, Vpad).  The decoder-only families have
-    an untied ``lm_head``; JAX's tied encdec head (``loop.py:40``) comes
-    with that family (ROADMAP item 15b)."""
+    """The output projection (d, Vpad) (``loop.py:40-43``): whisper's
+    head is tied to its embedding, the other families have an
+    ``lm_head``."""
+    if cfg.family == "encdec":
+        return params["embed"].T
     return params["lm_head"]
 
 
@@ -114,7 +116,9 @@ def lm_loss(params, cfg: ModelConfig, batch: dict, *,
             remat: bool = True):
     """Next-token cross-entropy with pad-vocab masking, the z-loss and,
     for the MoE family, the load-balance loss (``loop.py:78``).  Large
-    (S x V) uses ``chunked_ce``.  Returns (loss, {"nll"})."""
+    (S x V) uses ``chunked_ce`` over ``_head_matrix``.  The batch goes to
+    the family's ``forward`` whole: encdec reads ``"frames"``, vlm
+    ``"images"``.  Returns (loss, {"nll"})."""
     aux = 0.0
     s_dec = batch["targets"].shape[1]
     use_chunked = s_dec * cfg.padded_vocab > CHUNKED_CE_THRESHOLD

@@ -229,8 +229,8 @@ def test_mamba2_370m_config_matches_jax():
 
 
 def test_config_families():
-    with pytest.raises(ValueError, match="item 15"):
-        ModelConfig(name="m", family="encdec", num_layers=1, d_model=8,
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        ModelConfig(name="m", family="rnn", num_layers=1, d_model=8,
                     num_heads=2, d_ff=8, vocab_size=10)
     with pytest.raises(ValueError, match="num_heads"):
         ModelConfig(name="d", family="dense", num_layers=1, d_model=8,

@@ -6,10 +6,12 @@ same numpy data and carried parameters (``params_from_jax``).
 * ``clip_by_global_norm`` and ``adam_update`` on identical params and
   grads: rtol 1e-6 (float32 constants formed as JAX forms them);
 * ``lm_loss`` and its gradients for the reduced dense (also through
-  ``chunked_ce``), moe (with its aux loss), ssm and hybrid configs: the
-  loss to rtol 1e-5, the grads to rtol 1e-4 / atol 1e-6 (float32 sums in
-  another order; the port's per-layer grads restacked into JAX's
-  layout);
+  ``chunked_ce``), moe (with its aux loss), ssm, hybrid, encdec (the
+  tied head, with frames) and vlm (with images) configs, encdec and vlm
+  also through ``chunked_ce``, their zero-at-init biases and gates set
+  nonzero: the loss to rtol 1e-5, the grads to rtol 1e-4 / atol 1e-6
+  (float32 sums in another order; the port's per-layer grads restacked
+  into JAX's layout);
 * ``chunked_ce`` and its gradients;
 * the losses of 3 ``make_train_step`` steps with ``warmup=1`` (step 0's
   lr is 0, so steps 1 and 2 move the params): rtol 1e-4;
@@ -50,7 +52,9 @@ RTOL_LOSS = 1e-5
 RTOL_GRAD, ATOL_GRAD = 1e-4, 1e-6
 RTOL_STEPS = 1e-4
 FAMILIES = {"dense": "smollm-360m", "moe": "granite-moe-1b-a400m",
-            "ssm": "mamba2-370m", "hybrid": "recurrentgemma-2b"}
+            "ssm": "mamba2-370m", "hybrid": "recurrentgemma-2b",
+            "encdec": "whisper-small", "vlm": "llama-3.2-vision-11b"}
+S_FRAMES = 32          # the encdec batch's frames
 BATCH, SEQ = 2, 48
 
 
@@ -75,18 +79,62 @@ def cuda():
     return torch.device("cuda")
 
 
+# Leaves that start at zero: whisper's LayerNorm and MLP biases, the vlm's
+# cross-attention gates (tanh(0) = 0 would cut its cross block out).
+ZERO_AT_INIT = ("bias", "b_in", "b_out", "gate_attn", "gate_mlp")
+
+
+def _bump(jx, tree, seed: int):
+    """Every leaf named in ``ZERO_AT_INIT`` set to +-uniform(0.2, 0.8)
+    from ``seed``."""
+    rng = np.random.default_rng(seed)
+
+    def bump(path, a):
+        if getattr(path[-1], "key", None) not in ZERO_AT_INIT:
+            return a
+        v = rng.uniform(0.2, 0.8, a.shape) * rng.choice([-1, 1], a.shape)
+        return jx.jnp.asarray(v.astype(np.float32))
+    return jx.jax.tree_util.tree_map_with_path(bump, tree)
+
+
 def _model(jx, family, seed=0):
-    """(JAX cfg, port cfg, JAX params, port params) of a reduced config."""
+    """(JAX cfg, port cfg, JAX params, port params) of a reduced config,
+    its zero-at-init leaves made nonzero."""
     name = FAMILIES[family]
     jcfg, tcfg = jx.get_config(name).reduced(), get_config(name).reduced()
-    jp = jx.init(jx.jax.random.PRNGKey(seed), jcfg)
+    init = jx.jax.jit(jx.init, static_argnums=1)
+    jp = _bump(jx, init(jx.jax.random.PRNGKey(seed), jcfg), seed + 7)
     tp = params_from_jax(jx.jax.tree.map(np.asarray, jp), device="cpu")
     return jcfg, tcfg, jp, tp
 
 
-def _batch(vocab, seed=1):
-    return next(iter(lm_dataset(BATCH, SEQ, vocab, seed=seed,
-                                num_sentences=200)))
+@pytest.fixture(scope="module")
+def models(jx):
+    """``_model(jx, family)`` built once per module: the ``lm_loss``
+    cases of a family share it (none of them changes it)."""
+    cache = {}
+
+    def get(family):
+        if family not in cache:
+            cache[family] = _model(jx, family)
+        return cache[family]
+    return get
+
+
+def _batch(cfg, seed=1):
+    """An ``lm_dataset`` batch, with the encdec family's stub frames or
+    the vlm family's stub images (normal, from ``seed``)."""
+    batch = next(iter(lm_dataset(BATCH, SEQ, cfg.vocab_size, seed=seed,
+                                 num_sentences=200)))
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(size=(BATCH, S_FRAMES, cfg.d_model)
+                                     ).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["images"] = rng.normal(
+            size=(BATCH, cfg.num_image_tokens, cfg.d_model)).astype(
+            np.float32)
+    return batch
 
 
 def _stack(trees):
@@ -101,12 +149,17 @@ def _stack(trees):
 def restack(grads: dict, like: dict) -> dict:
     """The port's per-layer grads in JAX's stacked layout (``layers``;
     the hybrid's ``units`` with the recurrent blocks on a second axis,
-    ``extra_rec``), keyed as the JAX tree ``like``."""
+    ``extra_rec``; the vlm's ``units`` with the self blocks on a second
+    axis; whisper's ``encoder`` and ``decoder``), keyed as the JAX tree
+    ``like``."""
     out = {}
     for k in like:
         g = grads[k]
-        if k in ("layers", "extra_rec"):
+        if k in ("layers", "extra_rec", "encoder", "decoder"):
             out[k] = _stack(g)
+        elif k == "units" and "cross" in like[k]:
+            out[k] = {"self": _stack([_stack(u["self"]) for u in g]),
+                      "cross": _stack([u["cross"] for u in g])}
         elif k == "units":
             out[k] = {"attn": _stack([u["attn"] for u in g]),
                       "rec": _stack([_stack(u["rec"]) for u in g])}
@@ -124,8 +177,8 @@ def embed_term_scale(tp, tcfg, batch):
     tokens = torch.from_numpy(batch["tokens"]).long()
     per_pos = dict(tp, embed=tp["embed"][tokens.reshape(-1)].clone()
                    .requires_grad_())
-    pos_batch = {"tokens": torch.arange(tokens.numel()).reshape(
-        tokens.shape), "targets": torch.from_numpy(batch["targets"])}
+    pos_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    pos_batch["tokens"] = torch.arange(tokens.numel()).reshape(tokens.shape)
     loss, _ = lm_loss(per_pos, tcfg, pos_batch)
     (terms,) = torch.autograd.grad(loss, [per_pos["embed"]])
     return torch.zeros_like(tp["embed"]).index_add_(
@@ -210,34 +263,46 @@ def test_clip_and_adam_match_jax(jx, max_norm, wd):
 @pytest.mark.parametrize("family,chunked", [("dense", False),
                                             ("dense", True),
                                             ("moe", False), ("ssm", False),
-                                            ("hybrid", False)])
-def test_lm_loss_and_grads_match_jax(jx, monkeypatch, family, chunked):
+                                            ("hybrid", False),
+                                            ("encdec", False),
+                                            ("encdec", True),
+                                            ("vlm", False), ("vlm", True)])
+def test_lm_loss_and_grads_match_jax(jx, models, monkeypatch, family,
+                                     chunked):
     from repro_torch.train import value_and_grad
-    jcfg, tcfg, jp, tp = _model(jx, family)
+    jcfg, tcfg, jp, tp = models(family)
     if chunked:      # the chunked cross-entropy at a test's size
         for mod in (TL, jx.loop):
             monkeypatch.setattr(mod, "CHUNKED_CE_THRESHOLD", 1)
             monkeypatch.setattr(mod, "CE_CHUNK", 16)
-    batch = _batch(tcfg.vocab_size)
-    (jl, jm), jg = jx.jax.value_and_grad(
-        lambda p: jx.loop.lm_loss(p, jcfg, {k: jx.jnp.asarray(v) for k, v
-                                            in batch.items()}),
-        has_aux=True)(jp)
+    batch = _batch(tcfg)
+    (jl, jm), jg = jx.jax.jit(jx.jax.value_and_grad(
+        lambda p, b: jx.loop.lm_loss(p, jcfg, b), has_aux=True))(
+        jp, {k: jx.jnp.asarray(v) for k, v in batch.items()})
     (tl, tm), tg = value_and_grad(
         lambda p: lm_loss(p, tcfg, {k: torch.from_numpy(v) for k, v
                                     in batch.items()}), tp)
     np.testing.assert_allclose(float(tl), float(jl), rtol=RTOL_LOSS)
     np.testing.assert_allclose(float(tm["nll"]), float(jm["nll"]),
                                rtol=RTOL_LOSS)
+    # The head: whisper's is tied to its embedding, the others' untied.
+    head = TL._head_matrix(tp, tcfg)
+    if family == "encdec":
+        assert "lm_head" not in tp and torch.equal(head, tp["embed"].T)
+    else:
+        assert head is tp["lm_head"]
     got = restack(tg, jg)
-    # The embedding table's gradient sums one term per position of its
-    # token, and those terms cancel (a row's sum can be 300x smaller
-    # than its terms, summed in another order by each package): its
-    # rtol is relative to the sum of the terms' magnitudes.
-    scale = embed_term_scale(tp, tcfg, batch)
-    err = np.abs(got.pop("embed") - np.asarray(jg["embed"]))
-    assert (err <= ATOL_GRAD + RTOL_GRAD * scale).all(), float(err.max())
-    _close_trees(jx, got, {k: v for k, v in jg.items() if k != "embed"},
+    if family != "encdec":
+        # The embedding table's gradient sums one term per position of
+        # its token, and those terms cancel (a row's sum can be 300x
+        # smaller than its terms, summed in another order by each
+        # package): its rtol is relative to the sum of the terms'
+        # magnitudes.  (The tied table is also the head, whose terms this
+        # scale leaves out: it is held as the other leaves.)
+        scale = embed_term_scale(tp, tcfg, batch)
+        err = np.abs(got.pop("embed") - np.asarray(jg["embed"]))
+        assert (err <= ATOL_GRAD + RTOL_GRAD * scale).all(), float(err.max())
+    _close_trees(jx, got, {k: v for k, v in jg.items() if k in got},
                  RTOL_GRAD, ATOL_GRAD)
 
 
@@ -297,7 +362,7 @@ def test_remat_changes_no_number(family):
     cfg = get_config(FAMILIES[family]).reduced()
     from repro_torch.models import init_params
     params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg.vocab_size)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg)
              .items()}
     outs = []
     for remat in (True, False):

@@ -1,9 +1,10 @@
 """Run some of ``chip_smoke.py``'s later phases alone, in a fresh process.
 
-  python3 tools/chip_phases.py [--only train vae]
+  python3 tools/chip_phases.py [--only train vae encdec_vlm]
 
 Needs one CUDA card.  Builds the port's kernels from this checkout, then
-runs the named phases (``phase_train``, ``phase_vae``) with their gates,
+runs the named phases (``phase_train``, ``phase_vae``,
+``phase_encdec_vlm``) with their gates,
 logging what ``chip_smoke.py`` logs for them, after no other phase: no
 model was built and no profiler session ran before them in the process,
 as they do inside the full script.  Prints the card's name and power
@@ -23,7 +24,8 @@ sys.path.insert(0, HERE)
 
 import chip_smoke as C  # noqa: E402
 
-PHASES = {"train": C.phase_train, "vae": C.phase_vae}
+PHASES = {"train": C.phase_train, "vae": C.phase_vae,
+          "encdec_vlm": C.phase_encdec_vlm}
 
 
 def main(argv=None) -> None:
