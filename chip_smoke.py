@@ -231,6 +231,25 @@ when the port's sources are not beside this file.  Phases:
      losses.  ``ssd_chunk``'s autograd function against autograd
      through ``ssd_chunk_plain`` at x (8, 2, 64, 32, 64): the forward
      within 5e-4, the input gradients within 1e-3 of their max;
+  checkpoint: phase train's trained smollm-360m through JAX's checkpoint
+     format (``train/checkpoint.py``, a hand-written msgpack codec):
+     ``save_checkpoint({"params": params_to_jax(params)})`` to a
+     temporary file (1.64 GB), ``load_checkpoint`` onto the card and
+     ``params_from_jax``: every tensor bitwise equal; the file size and
+     the write and read times logged.  The in-memory and the reloaded
+     weights (drafter: their first 4 layers) each served kv_fused, 4
+     requests x 32 tokens, the decode, flash and row-race kernels on:
+     equal streams.  The trained target's self-draft rates over 3 units:
+     float32 >= 0.9 L; quant logged, with its distance from float32's
+     against 0.2 (ROADMAP queue 3, item 1; no floor for trained weights
+     yet);
+  examples: ``gls_row_race`` against plain at (5, 8, 128), bitwise; the
+     ``launch/serve_specdec.py`` twin at 30 steps, 2 requests x 16
+     tokens: its gls K = 8 streams equal under the legacy, torch and
+     kernel backends (JAX's tests hold them bit-identical); the
+     ``launch/serve_scheduler.py`` twin (reprefill, kv and kv_fused equal,
+     kv_fused ``draft_syncs == 0`` and ``host_syncs == rounds``); finite
+     training losses; no attention kernel (JAX's examples leave them off);
   vae: the beta-VAE compression of Fig. 4 (``compression/vae.py``):
      ``gls_binned_race`` against its plain version at the grid's chunk
      (64, 5, 256), l_max 4 and 32, bitwise, timed as in phase 2;
@@ -269,14 +288,15 @@ when the port's sources are not beside this file.  Phases:
      0.9 L).
 
 Each of the paths of phases 3, 3q, rs, kv, paged, diverse, granite, 5,
-train, vae, 6 and 7 is driven with the launch counts set to 0 just
+train, checkpoint, examples, vae, 6 and 7 is driven with the launch counts set to 0 just
 before it and read just after (phase encdec_vlm's too, which must read
 none); the ``kernels`` line reports each
 kernel's launches from its own paths (``gls_row_race``: the sum over the float32 kv_fused serves of
 smollm-360m and granite-8b, the kv serves, the paged serves, the gls
-serves of phase diverse and the reprefill serve; ``decode_attention``
+serves of phase diverse, phase checkpoint's two serves, phase examples'
+kernel backend and the reprefill serve; ``decode_attention``
 and ``flash_attention``: phase 3, the three rejection-sampling serves,
-the float32 kv serves and paged (a)-(c); their int8 instances: phase
+the float32 kv serves, paged (a)-(c) and phase checkpoint's serves; their int8 instances: phase
 3q, the quant serves of phase kv and paged (d); the D = 128 instances:
 granite's float32, quant, kv and paged kv serves; ``ssd_chunk``: phase
 train's mamba2 steps and phase 7's serve; ``gls_binned_race``: phase 5
@@ -394,6 +414,13 @@ ZERO_AT_INIT = ("bias", "b_in", "b_out", "gate_attn", "gate_mlp")
 TRAIN_BATCH, TRAIN_SEQ = 8, 128
 TRAIN_STEPS, TRAIN_WARMUP, SSM_TRAIN_STEPS = 30, 5, 10
 TRAIN_CPU_TOL, SSD_GRAD_TOL = 1e-5, 1e-3
+# Phase checkpoint: phase train's smollm-360m saved in JAX's format and
+# read back, then served (4 requests x 32 tokens, drafter its first 4
+# layers) from both copies; the trained self-draft rates over 3 units.
+CKPT_REQUESTS, CKPT_NEW, CKPT_DRAFT_LAYERS = 4, 32, 4
+CKPT_SELF_DRAFT_UNITS = 3
+# Phase examples: the serve twins at reduced --steps/--requests/--max-new.
+EX_STEPS, EX_REQUESTS, EX_NEW = 30, 2, 16
 # Phase vae: Fig. 4's grid (benchmarks/bench_fig4_mnist.py): 600 steps
 # on 4,000 digits, 400 test digits, 256 atoms, 64 trials a point.
 VAE_STEPS, VAE_IMAGES, VAE_ATOMS, VAE_TRIALS = 600, 4000, 256, 64
@@ -459,10 +486,12 @@ def device_ms(torch, calls, kernel: str, rounds: int = 10) -> float:
     """The kernel's own device time per launch over ``rounds`` passes
     through ``calls``: ``torch.profiler``'s ``key_averages()``, each
     kernel whose name holds ``kernel`` its device time over its count,
-    summed over such kernels (a call that launches two).  Raises where
-    the profiler shows no device time."""
+    summed over such kernels (a call that launches two).  Where three
+    profiles show no device time for it (CUPTI has dropped a kernel's
+    records late in a long process, PR 30), the CUDA-event time per call
+    instead, logged as such."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):  # a first profile may miss the device activity
+    for _ in range(3):  # a profile may miss the device activity
         for c in calls:
             c()
         torch.cuda.synchronize()
@@ -477,7 +506,10 @@ def device_ms(torch, calls, kernel: str, rounds: int = 10) -> float:
                          if kernel in e.key and e.count)
         if per_launch > 0:
             return per_launch / 1e3
-    raise AssertionError(f"torch.profiler shows no device time for {kernel}")
+    ms = time_cycled(calls)
+    log(f"torch.profiler showed no device time for {kernel} in 3 profiles: "
+        f"its CUDA-event time per call instead, {ms:.4f} ms")
+    return ms
 
 
 def bound(nbytes: float, flops: float):
@@ -2168,14 +2200,17 @@ def rate_stats(per_unit):
     return rates, mean, sd, sd / len(rates) ** 0.5
 
 
-def phase_self_draft(torch, dev, target, kind="float32", label=""):
-    """Phase 4 (``kind`` "float32") or 4q's run ("quant") over the
-    model's ``self_draft_units``: the per-unit acceptance rates, logged
-    with their mean, sd and standard error and the old 2-prompt sample's
-    rate; float32 must accept >= 0.9 L per block over the sample.
-    Returns the mean rate and its standard error."""
-    per_unit, old = self_draft_rates(torch, dev, target, kind,
-                                     self_draft_units(target[1].name))
+def phase_self_draft(torch, dev, target, kind="float32", label="",
+                     units=None):
+    """Phase 4 (``kind`` "float32") or 4q's run ("quant") over ``units``
+    units (default: the model's ``self_draft_units``): the per-unit
+    acceptance rates, logged with their mean, sd and standard error and
+    the old 2-prompt sample's rate; float32 must accept >= 0.9 L per
+    block over the sample.  Returns the mean rate and its standard
+    error."""
+    per_unit, old = self_draft_rates(
+        torch, dev, target, kind,
+        units or self_draft_units(target[1].name))
     gc_collect(torch)
     acc = sum(a for a, _, _ in per_unit) / sum(b for _, b, _ in per_unit)
     rates, mean, sd, se = rate_stats(per_unit)
@@ -2701,9 +2736,10 @@ def _batches(vocab: int, n: int, seed: int = SEED):
 
 
 def train_full(torch, dev, arch: str, steps: int, warmup: int, smi: str,
-               counted=None):
+               counted=None, keep=False):
     """``arch`` at its published widths trained ``steps`` steps on the
-    card: the per-step metrics and the peak device memory (GiB)."""
+    card: the per-step metrics and the peak device memory (GiB), and with
+    ``keep`` the trained parameters (the optimizer state dropped)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.optim import adam_init
@@ -2716,10 +2752,13 @@ def train_full(torch, dev, arch: str, steps: int, warmup: int, smi: str,
     torch.cuda.reset_peak_memory_stats()
     step_fn = make_train_step(cfg, TrainConfig(total_steps=steps,
                                                warmup=warmup))
-    _, _, hist = train_steps(torch, step_fn, params, adam_init(params),
-                             _batches(cfg.vocab_size, steps), dev, counted)
+    params, _, hist = train_steps(torch, step_fn, params,
+                                  adam_init(params),
+                                  _batches(cfg.vocab_size, steps), dev,
+                                  counted)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    del params
+    if not keep:
+        params = None
     gc_collect(torch)
     losses = [m["loss"] for m in hist]
     ms = sorted(m["ms"] for m in hist[1:])
@@ -2734,7 +2773,7 @@ def train_full(torch, dev, arch: str, steps: int, warmup: int, smi: str,
         f"{peak:.2f} GiB")
     for m in hist:
         assert math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]), m
-    return hist, peak
+    return (hist, peak, params) if keep else (hist, peak)
 
 
 def train_card_vs_cpu(torch, dev, arch: str = "smollm-360m",
@@ -2823,11 +2862,12 @@ def check_ssd_gradient(torch, dev, cfg, smi: str):
     assert max(rel) <= SSD_GRAD_TOL, rel
 
 
-def phase_train(torch, dev, smi: str) -> dict:
+def phase_train(torch, dev, smi: str) -> tuple:
     """Phase train (module docstring).  Returns the kernel launches of
-    its path (mamba2's ``ssd_chunk``) and its readings."""
-    hist, peak = train_full(torch, dev, "smollm-360m", TRAIN_STEPS,
-                            TRAIN_WARMUP, smi)
+    its path (mamba2's ``ssd_chunk``), its readings and smollm-360m's
+    trained parameters (for phase checkpoint)."""
+    hist, peak, trained = train_full(torch, dev, "smollm-360m", TRAIN_STEPS,
+                                     TRAIN_WARMUP, smi, keep=True)
     first, last5 = hist[0]["loss"], [m["loss"] for m in hist[-5:]]
     assert statistics.mean(last5) < first, (first, last5)
     train_card_vs_cpu(torch, dev)
@@ -2847,7 +2887,169 @@ def phase_train(torch, dev, smi: str) -> dict:
     return {"ssd_chunk": sum(per_step)}, {
         "smollm_step_ms": statistics.median(m["ms"] for m in hist[1:]),
         "smollm_peak_gib": peak, "mamba2_peak_gib": ssm_peak,
-        "mamba2_step_ms": statistics.median(m["ms"] for m in ssm_hist[1:])}
+        "mamba2_step_ms": statistics.median(m["ms"] for m in ssm_hist[1:])
+    }, trained
+
+
+def tensor_bits(torch, t):
+    """A tensor's bytes as a flat uint8 view, for bitwise comparison."""
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def phase_checkpoint(torch, dev, params, smi: str) -> dict:
+    """Phase checkpoint (module docstring) on phase train's smollm-360m.
+    Returns the kernel launches of its serves."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models import params_from_jax, params_to_jax
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import load_checkpoint, save_checkpoint
+    cfg = get_config("smollm-360m")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    path = os.path.join(tmp, "smollm-360m.msgpack")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, {"params": params_to_jax(params)})
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        tree = load_checkpoint(path)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = params_from_jax(tree["params"])
+        torch.cuda.synchronize()
+        unstack_s = time.perf_counter() - t0
+        del tree
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc_collect(torch)
+    want, got = tree_leaves(params), tree_leaves(loaded)
+    assert len(want) == len(got), (len(want), len(got))
+    for a, b in zip(want, got):
+        assert b.device.type == "cuda" and a.dtype == b.dtype, (a, b)
+        assert a.shape == b.shape, (a.shape, b.shape)
+        assert torch.equal(tensor_bits(torch, a), tensor_bits(torch, b))
+    n = sum(t.numel() for t in want)
+    log(f"checkpoint smollm-360m (trained {TRAIN_STEPS} steps) [{smi}]: "
+        f"{len(want)} tensors, {n:,} parameters bitwise equal after the "
+        f"round trip; file {size:,} bytes; write {write_s:.3f}s "
+        f"({size / write_s / 1e9:.3f} GB/s, params_to_jax and the card "
+        f"to host included), read {read_s:.3f}s ({size / read_s / 1e9:.3f} "
+        f"GB/s, warm page cache, host to card included), params_from_jax "
+        f"{unstack_s:.3f}s")
+
+    # Serve the reloaded weights and the in-memory ones (drafter: their
+    # first CKPT_DRAFT_LAYERS layers), kernels on: equal streams.
+    d_cfg = cfg.replace(name=cfg.name + "-drafter",
+                        num_layers=CKPT_DRAFT_LAYERS)
+    prompts = paged_trace(cfg.vocab_size, CKPT_REQUESTS)
+    counts, streams = {}, []
+    for label, p in (("in-memory", params), ("reloaded", loaded)):
+        drafter = (dict(p, layers=p["layers"][:CKPT_DRAFT_LAYERS]), d_cfg)
+        _, _, st = serve_run(torch, dev, (p, cfg), drafter, prompts,
+                             CKPT_NEW, f"checkpoint serve ({label} "
+                             "weights)")
+        add_counts(counts, st["counts"])
+        streams.append(st["streams"])
+    same_streams(streams[0], streams[1],
+                 "checkpoint: reloaded vs in-memory weights")
+    for name in ("decode_attention", "flash_attention", "gls_row_race"):
+        assert counts.get(name, 0) > 0, (name, counts)
+    del loaded
+    gc_collect(torch)
+
+    # The trained target's self-draft rates, float32 and quant (ROADMAP
+    # queue 3, item 1): float32 held to >= 0.9 L, quant logged.
+    target = (params, cfg)
+    rate_f, se_f = phase_self_draft(torch, dev, target, "float32",
+                                    "trained ", CKPT_SELF_DRAFT_UNITS)
+    rate_q, se_q = phase_self_draft(torch, dev, target, "quant",
+                                    "trained ", CKPT_SELF_DRAFT_UNITS)
+    diff = abs(rate_q - rate_f)
+    log(f"trained smollm-360m self-draft rates [{smi}]: float32 "
+        f"{rate_f:.4f} (se {se_f:.4f}), quant {rate_q:.4f} (se {se_q:.4f});"
+        f" |diff| {diff:.4f}, {'within' if diff <= QUANT_RATE_TOL else 'past'}"
+        f" the tolerance {QUANT_RATE_TOL} (ROADMAP queue 3, item 1; random "
+        f"weights: {QUANT_RATE_READINGS['smollm-360m'][0]})")
+    gc_collect(torch)
+    return counts
+
+
+def check_race_small(torch, dev, rows: int, vocab: int) -> float:
+    """``gls_row_race`` against its plain version at (rows, K, vocab),
+    a vocabulary below the kernel's split size (the example twins'
+    reference engine): bitwise equal, with an exact tie and a dead row.
+    Returns the max abs error (0)."""
+    from repro_torch.kernels.gls_race.ops import gls_row_race
+    from repro_torch.kernels.gls_race.ref import gls_row_race_plain
+    log_s, log_q = race_inputs(torch, dev, rows, vocab, 1, SEED + 5)[0]
+    log_s[0, 0, [9, 3]] = -40.0
+    log_q[0, 0, [9, 3]] = 0.0
+    log_q[1, 0] = float("-inf")
+    (mk, ak), (mp, ap) = (gls_row_race(log_s, log_q),
+                          gls_row_race_plain(log_s, log_q))
+    torch.cuda.synchronize()
+    assert torch.equal(ak, ap) and int(ak[0, 0]) == 3, "row race argmin"
+    assert torch.equal(mk.view(torch.int32), mp.view(torch.int32))
+    err = float((mk - mp).abs().nan_to_num(0.0).max())
+    log(f"gls_row_race at ({rows}, {K_DRAFTS}, {vocab}) (the example "
+        f"twins' reference engine): bitwise equal to plain, max abs err "
+        f"{err}")
+    return err
+
+
+def phase_examples(torch, dev, smi: str) -> dict:
+    """Phase examples (module docstring): the serve twins on the card.
+    Returns the kernel launches of their serves."""
+    from repro_torch.kernels.mode import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve_scheduler, serve_specdec
+    # One request's block in the reference engine: (L + 1, K, vocab).
+    check_race_small(torch, dev, 4 + 1, serve_specdec.VOCAB)
+    counts = {}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve_specdec.main(
+        ["--steps", str(EX_STEPS), "--requests", str(EX_REQUESTS),
+         "--max-new", str(EX_NEW)], log=log)
+    add_counts(counts, launch_counts)
+    log(f"serve_specdec twin [{smi}]: {time.perf_counter() - t0:.1f}s, "
+        f"launches {dict(launch_counts)}")
+    # JAX's tests hold the three backends bit-identical for every
+    # strategy (tests/test_block_verify.py).
+    streams = {b: [list(r.output) for r in res]
+               for b, res in out["backends"].items()}
+    for b in ("torch", "kernel"):
+        assert streams[b] == streams["legacy"], (b, streams)
+    log(f"serve_specdec: gls K=8 streams equal under legacy, torch and "
+        f"kernel ({sum(map(len, streams['legacy']))} tokens)")
+    for hist in out["history"]:
+        assert all(math.isfinite(h["loss"]) for h in hist), hist
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve_scheduler.main(
+        ["--steps", str(EX_STEPS), "--requests", str(EX_REQUESTS),
+         "--max-new", str(EX_NEW), "--max-batch", "2"], log=log)
+    add_counts(counts, launch_counts)
+    log(f"serve_scheduler twin [{smi}]: {time.perf_counter() - t0:.1f}s, "
+        f"launches {dict(launch_counts)}")
+    outs = out["outputs"]
+    assert outs["reprefill"] == outs["kv"] == outs["kv_fused"]
+    m = out["metrics"]["kv_fused"]
+    assert m.draft_syncs == 0 and m.host_syncs == m.rounds, (
+        m.draft_syncs, m.host_syncs, m.rounds)
+    log(f"serve_scheduler: the three cache modes' streams equal "
+        f"({sum(map(len, outs['kv_fused'].values()))} tokens); kv_fused "
+        f"draft_syncs {m.draft_syncs}, host_syncs {m.host_syncs} == rounds "
+        f"{m.rounds}")
+    # The attention kernels stay off (head dims 32 and 24, JAX's
+    # examples leave them off); the verifier race runs.
+    assert counts.get("gls_row_race", 0) > 0, counts
+    assert not any(k.startswith(("decode_attention", "flash_attention"))
+                   for k in counts), counts
+    return counts
 
 
 def phase_vae(torch, dev, smi: str) -> dict:
@@ -3839,11 +4041,28 @@ def main() -> int:
 
     # Phases train and vae: training on the card, then Fig. 4's codec.
     t0 = time.perf_counter()
-    train_counts, _ = phase_train(torch, dev, smi)
+    train_counts, _, trained = phase_train(torch, dev, smi)
     log(f"launches of phase train (added to the kernels line): "
         f"{train_counts}")
     add_counts(counts, train_counts)
     log(f"phase train: {time.perf_counter() - t0:.1f}s")
+
+    # Phase checkpoint: the trained weights through JAX's format, served.
+    t0 = time.perf_counter()
+    ckpt_counts = phase_checkpoint(torch, dev, trained, smi)
+    del trained
+    log(f"launches of phase checkpoint (added to the kernels line): "
+        f"{ckpt_counts}")
+    add_counts(counts, ckpt_counts)
+    log(f"phase checkpoint: {time.perf_counter() - t0:.1f}s")
+
+    # Phase examples: the serve_specdec and serve_scheduler twins.
+    t0 = time.perf_counter()
+    ex_counts = phase_examples(torch, dev, smi)
+    log(f"launches of phase examples (added to the kernels line): "
+        f"{ex_counts}")
+    add_counts(counts, ex_counts)
+    log(f"phase examples: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     vae_counts = phase_vae(torch, dev, smi)
     log(f"launches of phase vae (added to the kernels line): {vae_counts}")

@@ -2,13 +2,17 @@
 twin of ``repro/launch/train.py`` and ``examples/train_lm.py``.
 
   python -m repro_torch.launch.train --arch smollm-360m --steps 50 \
-      [--batch 8] [--seq 128] [--reduced] [--seed 0] [--device cpu]
+      [--batch 8] [--seq 128] [--reduced] [--seed 0] [--device cpu] \
+      [--checkpoint PATH]
 
 Published widths by default (``--reduced``: the family's smoke variant,
 the CPU rehearsal: ``--reduced --device cpu --steps 2``).  Weights are
 random from ``--seed``; batches come from ``data.lm_dataset``.  Runs on
 the card unless ``--device cpu``, on one device (no mesh: ROADMAP item
-17), and prints the loss every ``log_every`` steps.  Decoder-only
+17), and prints the loss every ``log_every`` steps.  ``--checkpoint PATH``
+saves ``{"params": ...}`` at the end in JAX's layout and byte format
+(``repro/launch/train.py:67-69``), a file JAX's ``load_checkpoint``
+reads.  Decoder-only
 families only, as JAX's launcher (``repro/launch/train.py:45-46``):
 whisper-small and llama-3.2-vision-11b are refused (their batches need
 frames or images, which ``lm_dataset`` does not make); the trainer
@@ -38,6 +42,7 @@ def main(argv=None) -> list:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--checkpoint", default=None)
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -54,7 +59,8 @@ def main(argv=None) -> list:
     tcfg = TrainConfig(total_steps=args.steps,
                        log_every=max(args.steps // 10, 1))
     ds = lm_dataset(args.batch, args.seq, cfg.vocab_size, seed=args.seed)
-    _, history = train(params, cfg, tcfg, ds, device=device)
+    _, history = train(params, cfg, tcfg, ds, device=device,
+                       checkpoint_path=args.checkpoint)
     print(f"final loss: {history[-1]['loss']:.4f}")
     return history
 

@@ -13,7 +13,11 @@ from repro_torch.models.cache_pool import (
     PagePoolExhausted,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.convert import params_from_jax, vae_params_from_jax
+from repro_torch.models.convert import (
+    params_from_jax,
+    params_to_jax,
+    vae_params_from_jax,
+)
 from repro_torch.models.registry import (
     decode_step,
     forward,
@@ -42,6 +46,7 @@ __all__ = [
     "init_cache",
     "init_params",
     "params_from_jax",
+    "params_to_jax",
     "prefill",
     "prefill_slots",
     "prefill_slots_paged",

@@ -199,3 +199,46 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
     mult = (((1 << 16) % span) ** 2 & _MASK) % span
     offset = ((hi % span) * mult & _MASK) + lo % span
     return ((offset & _MASK) % span + minval).to(torch.int32)
+
+
+def _loggamma_one(key: torch.Tensor, alpha: float) -> torch.Tensor:
+    """One ``jax.random.loggamma`` draw (``_gamma_one`` in log space):
+    Marsaglia and Tsang's rejection loop in float32 over the same key
+    splits, a shape below 1 boosted by ``log(u) / alpha``."""
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=key.device)
+    one, alpha_orig = f32(1.0), f32(alpha)
+    boost = bool(alpha_orig >= one)
+    a = alpha_orig if boost else alpha_orig + one
+    d = a - f32(1.0 / 3.0)
+    c = f32(1.0 / 3.0) / torch.sqrt(d)
+    key, sub = split(key)
+    x2, v3, u = f32(0.0), one, f32(2.0)
+    while bool((u >= one - f32(0.0331) * (x2 * x2))
+               & (torch.log(u) >= x2 * f32(0.5)
+                  + d * ((one - v3) + torch.log(v3)))):
+        key, x_key, u_key = split(key, 3)
+        x, v = f32(0.0), f32(-1.0)
+        while bool(v <= 0.0):
+            x_key, s = split(x_key)
+            x = normal(s, ())
+            v = one + x * c
+        x2, v3, u = x * x, (v * v) * v, uniform(u_key, ())
+    log_boost = f32(0.0)
+    if not boost:
+        log_u = -exponential(sub, ())
+        if bool(log_u != 0.0):
+            log_boost = log_u * (one / alpha_orig)
+    return (torch.log(d) + torch.log(v3)) + log_boost
+
+
+def dirichlet(key: torch.Tensor, alpha: Sequence[float]) -> torch.Tensor:
+    """``jax.random.dirichlet`` of one vector of concentrations: a
+    log-gamma draw per entry from ``split(key, len(alpha))``, then the
+    softmax.  The uniform bits are exact; ``log`` and ``erf_inv`` may
+    differ from XLA's in the last ulp, so the draws agree to a few ulp
+    unless a rejection test sits on its boundary."""
+    keys = split(key, len(alpha))
+    logs = torch.stack([_loggamma_one(k, a) for k, a in zip(keys, alpha)])
+    e = torch.exp(logs - logs.max())
+    return e / e.sum()

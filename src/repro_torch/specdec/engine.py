@@ -99,6 +99,11 @@ class GenerationStats:
     accepted_drafts: int          # accepted DRAFT tokens (excl. bonus)
     host_syncs: int = 0           # device->host transfers
 
+    @property
+    def block_efficiency(self) -> float:
+        """Tokens emitted per target call (the paper's BE metric)."""
+        return len(self.output) / max(self.blocks, 1)
+
 
 class BlockOutcome(NamedTuple):
     """Host-side outcome of one speculative block for one request."""

@@ -13,16 +13,16 @@ JAX's ``scan_blocks`` does.  On the card Mamba-2's layers run the
 ``kernels/ssd_chunk/ops.py``); the attention families call the plain
 attention, as JAX's training calls do.
 
-Checkpoints are not written here: JAX's writer needs ``msgpack``, which
-the machine with the card lacks (ROADMAP item 21 takes the format both
-ways).
+With ``checkpoint_path`` the loop writes ``{"params": ...}`` at its end
+in JAX's layout and byte format (``models/convert.py::params_to_jax``,
+``train/checkpoint.py``), a file that JAX's ``load_checkpoint`` reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.profiler import record_function
@@ -31,6 +31,7 @@ from repro_torch.device import resolve_device, to_device
 from repro_torch.models import layers as L
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.convert import params_to_jax
 from repro_torch.optim import (
     AdamState,
     adam_init,
@@ -39,6 +40,7 @@ from repro_torch.optim import (
     tree_map,
     warmup_cosine_schedule,
 )
+from repro_torch.train.checkpoint import save_checkpoint
 
 
 @dataclasses.dataclass
@@ -184,13 +186,15 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
 
 
 def train(params, cfg: ModelConfig, tcfg: TrainConfig, dataset, *,
-          device=None, log=print):
+          checkpoint_path: Optional[str] = None, device=None, log=print):
     """Host training loop (``loop.py:134``) on the card unless
     ``device="cpu"``.  The parameters move to the device; batches come
     from ``dataset`` (numpy ``{"tokens", "targets"}``).  Every
     ``log_every`` steps and at the last the metrics come to the host.
     Returns (params, history), history a list of dicts with JAX's keys
-    (loss, lr, nll, grad_norm, step, elapsed_s)."""
+    (loss, lr, nll, grad_norm, step, elapsed_s).  ``checkpoint_path``:
+    the final parameters are saved there as JAX saves them
+    (``loop.py:152-154``)."""
     dev = resolve_device(device)
     params = tree_map(lambda t: t.to(dev), params)
     opt = adam_init(params)
@@ -208,4 +212,6 @@ def train(params, cfg: ModelConfig, tcfg: TrainConfig, dataset, *,
             history.append(m)
             log(f"step {step:4d} loss {m['loss']:.4f} "
                 f"nll {m['nll']:.4f} lr {m['lr']:.2e}")
+    if checkpoint_path:
+        save_checkpoint(checkpoint_path, {"params": params_to_jax(params)})
     return params, history

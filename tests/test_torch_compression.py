@@ -27,6 +27,11 @@ from repro_torch.compression import wz as TW
 from repro_torch.kernels.mode import launch_counts, reset_launch_counts
 from repro_torch.serving.guard import GuardViolation
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 WEIGHT_ATOL, STAT_RTOL = 1e-4, 1e-5
 
 

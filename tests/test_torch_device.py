@@ -12,6 +12,11 @@ import torch
 
 from repro_torch.device import SyncCounter, to_device
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 
 def test_sync_counter_is_zero_on_cpu_and_passes_other_warnings():
     x = torch.arange(10)

@@ -31,6 +31,11 @@ from repro_torch import random as R
 from repro_torch.models import ModelConfig, params_from_jax
 from repro_torch.specdec import SpecDecConfig, SpecDecEngine, SpecDecServer
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 KW = dict(name="t", family="dense", num_layers=2, d_model=48, num_heads=4,
           num_kv_heads=2, head_dim=12, d_ff=96, vocab_size=64,
           dtype="float32")

@@ -39,6 +39,11 @@ from repro_torch.models import (decode_step, forward, init_cache,
                                 init_params, params_from_jax, prefill)
 from repro_torch.models.convert import tree_family
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 ARCH = "whisper-small"
 ATOL = 1e-5
 LAYER_ATOL = 1e-6

@@ -44,6 +44,11 @@ from repro_torch.kernels.mode import H100_SMS
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 from repro_torch.kernels.mode import MAX_CLUSTER, launch_counts
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 ATOL_LOGITS = ATOL_KV = 1e-5
 KERNEL_ATOL = 1e-4
 GIANTS = {"granite-34b": 48, "llama3-405b": 16}

@@ -21,6 +21,11 @@ from repro_torch import core as T
 from repro_torch import random as R
 from repro_torch.serving.guard import GuardViolation, validate_wz_batch
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 SEEDS = (0, 1, 42)
 
 

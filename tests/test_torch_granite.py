@@ -40,6 +40,11 @@ from repro_torch.models import transformer as TT
 from repro_torch.specdec import CachedSpecDecEngine, SpecDecConfig
 from repro_torch.specdec import SpecDecServer
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 # granite-8b's shape cut to size: head dim 128 and group 4 kept.
 SMALL = dict(num_layers=2, d_model=256, d_ff=512, vocab_size=512,
              num_heads=8, num_kv_heads=2, dtype="float32")

@@ -1,6 +1,6 @@
 """The port stands alone: every module of ``repro_torch`` imports with JAX
 and ``msgpack`` made unimportable and loads nothing of the JAX package
-``repro``; its entry points (the engine, the trainer, the VAE's
+``repro``, and so its checkpoints and example twins run; its entry points (the engine, the trainer, the VAE's
 training and evaluation) refuse to run on the CPU unless asked to;
 ``chip_smoke.py`` fails, printing no result, where there is no card."""
 
@@ -12,6 +12,11 @@ import textwrap
 import numpy as np
 import pytest
 import torch
+
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
@@ -48,6 +53,44 @@ def test_every_module_imports_without_jax_or_repro():
     """)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 20
+
+
+def test_checkpoint_and_twins_run_without_jax_or_msgpack():
+    """The checkpoint writer and reader (a hand-written msgpack codec) and
+    the example twins need neither JAX nor ``msgpack``."""
+    res = _run("""
+        import os, sys, tempfile
+        sys.modules["jax"] = None
+        sys.modules["msgpack"] = None
+        import torch
+        from repro_torch.launch import quickstart, serve_scheduler
+        from repro_torch.launch import serve_specdec  # noqa: F401
+        from repro_torch.models import (ModelConfig, init_params,
+                                        params_from_jax, params_to_jax)
+        from repro_torch.train import load_checkpoint, save_checkpoint
+        cfg = ModelConfig(name="t", family="dense", num_layers=2,
+                          d_model=32, num_heads=2, d_ff=64, vocab_size=100,
+                          dtype="float32")
+        params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        path = os.path.join(tempfile.mkdtemp(), "ck.msgpack")
+        save_checkpoint(path, {"params": params_to_jax(params),
+                               "bf16": torch.ones(3, dtype=torch.bfloat16)})
+        back = load_checkpoint(path, device="cpu")
+        again = params_from_jax(back["params"], device="cpu")
+        assert torch.equal(again["layers"][1]["attn"]["wq"],
+                           params["layers"][1]["attn"]["wq"])
+        assert back["bf16"].dtype == torch.bfloat16
+        quickstart.main(["--device", "cpu", "--trials", "200"],
+                        log=lambda *_: None)
+        out = serve_scheduler.main(["--device", "cpu", "--steps", "2",
+                                    "--requests", "1", "--max-new", "3",
+                                    "--max-batch", "1"], log=lambda *_: None)
+        assert not any(m == "repro" or m.startswith(("repro.", "jax."))
+                       for m in sys.modules)
+        print(len(out["outputs"]))
+    """)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "3"
 
 
 def test_engine_without_device_refuses_cpu():

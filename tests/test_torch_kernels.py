@@ -33,6 +33,11 @@ from repro_torch.kernels.gls_race.ref import (gls_binned_race_plain,
                                               gls_row_race_plain)
 from repro_torch.kernels.mode import MAX_CLUSTER, launch_counts, use_kernel
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

@@ -43,6 +43,11 @@ from repro_torch.specdec import (
     SpecDecServer,
 )
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 KW = dict(name="t", family="dense", num_layers=2, d_model=64, num_heads=6,
           num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=300,
           dtype="float32")

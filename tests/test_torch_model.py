@@ -19,6 +19,11 @@ from repro.models import transformer as JT
 from repro_torch.models import ModelConfig, init_params, params_from_jax
 from repro_torch.models import transformer as TT
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 KW = dict(name="t", family="dense", num_layers=2, d_model=64, num_heads=6,
           num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=300,
           dtype="float32")

@@ -42,6 +42,11 @@ from repro_torch.models import moe as TM
 from repro_torch.models import registry as TR
 from repro_torch.specdec import SpecDecConfig, SpecDecEngine
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 AUX_RTOL = 1e-6
 ARCHS = ("granite-moe-1b-a400m", "mixtral-8x22b")

@@ -51,6 +51,11 @@ from repro_torch.models import transformer as TT
 from repro_torch.specdec import (STRATEGIES, CachedSpecDecEngine,
                                  SpecDecConfig, SpecDecServer)
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 # JAX's small pair and trace (``tests/test_scheduler.py:21-25,145-147``).
 TKW = dict(name="t", family="dense", num_layers=2, d_model=48, num_heads=4,
            num_kv_heads=2, head_dim=12, d_ff=96, vocab_size=32,

@@ -13,6 +13,11 @@ from repro.specdec.engine import block_randomness as jax_block_randomness
 from repro_torch import random as R
 from repro_torch.specdec.engine import block_randomness
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 SEEDS = (0, 1, 42, 2**31 - 1, -1, 123456789)
 TINY = float(np.finfo(np.float32).tiny)
 

@@ -38,6 +38,11 @@ from repro_torch.specdec import (
     autoregressive_reference,
 )
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 # tests/test_specdec_families.py:13-20: the dense drafter and SSM target.
 DRAFTER = dict(name="d", family="dense", num_layers=1, d_model=48,
                num_heads=4, num_kv_heads=2, head_dim=12, d_ff=96,

@@ -46,6 +46,11 @@ from repro_torch.models import registry as TR
 from repro_torch.models import rglru as TG
 from repro_torch.specdec import SpecDecConfig, SpecDecEngine
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 STEP_ATOL = 1e-6
 ATTN_ATOL = 1e-6

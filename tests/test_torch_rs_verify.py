@@ -27,6 +27,11 @@ import torch
 from repro_torch.specdec import block_verify as TB
 from repro_torch.specdec import verify as TV
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 STRATEGIES = ("gls", "gls_strong", "specinfer", "spectr", "single", "daliri")
 RS = ("specinfer", "spectr", "single")
 SINGLE = ("single", "daliri")

@@ -37,6 +37,11 @@ from repro_torch.models import (
     prefill,
 )
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 ATOL_CHUNK = RTOL_CHUNK = 5e-4
 TOL_TOTAL = 1e-5
 TOL_CHUNKED = 2e-3

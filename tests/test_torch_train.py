@@ -47,6 +47,11 @@ from repro_torch.optim import (
 from repro_torch.train import TrainConfig, lm_loss, make_train_step
 from repro_torch.train import loop as TL
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 RTOL_SCHED = RTOL_ADAM = 1e-6
 RTOL_LOSS = 1e-5
 RTOL_GRAD, ATOL_GRAD = 1e-4, 1e-6

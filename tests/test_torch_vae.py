@@ -33,6 +33,11 @@ from repro_torch.kernels.mode import launch_counts, reset_launch_counts
 from repro_torch.models import vae_params_from_jax
 from repro_torch.optim import tree_leaves
 
+# One intra-op thread: the suite runs under several pytest-xdist workers
+# on a few cores, where torch's default of a thread a core makes the
+# workers contend over tensors of a few kilobytes.
+torch.set_num_threads(1)
+
 RTOL_LOSS = 1e-5
 RTOL_GRAD, ATOL_GRAD = 1e-4, 1e-6
 RTOL_TRAIN = 1e-4

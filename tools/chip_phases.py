@@ -1,10 +1,13 @@
 """Run some of ``chip_smoke.py``'s later phases alone, in a fresh process.
 
-  python3 tools/chip_phases.py [--only train vae encdec_vlm]
+  python3 tools/chip_phases.py [--only train checkpoint examples vae \
+      encdec_vlm]
 
 Needs one CUDA card.  Builds the port's kernels from this checkout, then
-runs the named phases (``phase_train``, ``phase_vae``,
-``phase_encdec_vlm``) with their gates,
+runs the named phases (``phase_train``, ``phase_checkpoint`` on a
+smollm-360m that ``train_full`` trains first as phase train does,
+``phase_examples``, ``phase_vae``, ``phase_encdec_vlm``) with their
+gates,
 logging what ``chip_smoke.py`` logs for them, after no other phase: no
 model was built and no profiler session ran before them in the process,
 as they do inside the full script.  Prints the card's name and power
@@ -24,7 +27,20 @@ sys.path.insert(0, HERE)
 
 import chip_smoke as C  # noqa: E402
 
-PHASES = {"train": C.phase_train, "vae": C.phase_vae,
+
+
+def _train(torch, dev, smi):
+    return C.phase_train(torch, dev, smi)[:2]
+
+
+def _checkpoint(torch, dev, smi):
+    _, _, params = C.train_full(torch, dev, "smollm-360m", C.TRAIN_STEPS,
+                                C.TRAIN_WARMUP, smi, keep=True)
+    return C.phase_checkpoint(torch, dev, params, smi)
+
+
+PHASES = {"train": _train, "checkpoint": _checkpoint,
+          "examples": C.phase_examples, "vae": C.phase_vae,
           "encdec_vlm": C.phase_encdec_vlm}
 
 
